@@ -1,0 +1,4 @@
+"""Model zoo of the port (the dense transformer family so far)."""
+
+from .common import ArchConfig  # noqa: F401
+from .registry import get_cache_layout, get_model, get_weight_mask  # noqa: F401
