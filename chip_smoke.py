@@ -6,12 +6,12 @@
 Phases, any of which failing exits non-zero:
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
-2. call each kernel at the shapes the serving path gives it and hold it
-   against its plain torch version on the same inputs: ``qq`` and ``qi``
-   y and mantissas ``==``, ``attn_decode`` y within ``DECODE_Y_RTOL``
-   (kernels/fused_attention.py) of the plain y's largest magnitude; time
-   kernel, plain version and one
-   library call, and compute the card's bound for the same work;
+2. call each kernel at the shapes the serving and training paths give it
+   and hold it against its plain torch version on the same inputs: ``qq``,
+   ``qi`` and ``ii`` y and mantissas ``==``, ``attn_decode`` y within
+   ``DECODE_Y_RTOL`` (kernels/fused_attention.py) of the plain y's largest
+   magnitude; time kernel, plain version and one library call, and
+   compute the card's bound for the same work;
 3. serve full-width qwen2-0.5b (random weights from a seeded generator):
    4 prompts x 128 tokens, 32 greedy tokens, int8 weights quantized once
    and an int8 KV cache, with the launch counts set to 0 just before and
@@ -19,7 +19,17 @@ Phases, any of which failing exits non-zero:
    kernel swapped for its plain version and compare: prefill logits
    ``==``, decode logits within ``DECODE_LOGIT_RTOL`` of their largest
    magnitude (decode attention's softmax sum differs in order, and a
-   stochastic-rounding decision downstream can move with it).
+   stochastic-rounding decision downstream can move with it);
+4. train full-width qwen2-0.5b: 3 int8 steps (int8 forward, A.2 integer
+   backward, int16 SGD; batch 4 x 128 tokens of ``SyntheticLM(seed=0)``,
+   random weights from ``torch.Generator(0)``) through ``launch.train``,
+   the launch counts set to 0 just before and read just after; then replay
+   the same 3 steps from the same state with every kernel swapped for its
+   plain version: the losses and every int16 master and momentum leaf
+   ``==``.  Also the step's device busy share under ``torch.profiler``
+   and the peak device memory.  The phase runs under
+   ``torch.use_deterministic_algorithms`` (warn-only: an op without a
+   deterministic implementation is named in the record, not hidden).
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -48,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen2_0_5b", 4, 128, 32, 0
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 3, 4, 128, 0.05
 
 
 def _fail(msg: str) -> int:
@@ -190,6 +201,54 @@ def check_kernels(torch, dev, rec):
                     plain_ms=pms, bound_ms=bound, bound_by=by,
                     library_ms=lib))
 
+    # ii: the training dW = X̂ᵀĜ over the 512 tokens of a 4 x 128 batch, at
+    # the tied LM head (d_model x vocab) and at one layer's w_down.
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for name, (m, n) in (("ii", (896, 151936)), ("ii_w_down", (4864, 896))):
+        am = torch.randint(-127, 128, (1, m, tokens), generator=g, device=dev,
+                           dtype=torch.int8)
+        b_m = torch.randint(-127, 128, (1, n, tokens), generator=g, device=dev,
+                            dtype=torch.int8)
+        ea = torch.tensor(121, dtype=torch.int32, device=dev)
+        eb = torch.tensor(117, dtype=torch.int32, device=dev)
+        y = kfl.fused_ii_pt(am, b_m, ea, eb)
+        yp = kfl.fused_ii_pt_plain(am, b_m, ea, eb)
+        torch.cuda.synchronize()
+        err = (y - yp).abs().max().item()
+        if not torch.equal(y, yp):
+            raise AssertionError(f"{name}: kernel != plain (max |dy| {err})")
+        del y, yp
+        ms = _device_ms(torch, lambda: kfl.fused_ii_pt(am, b_m, ea, eb))
+        call = _time_ms(torch, lambda: kfl.fused_ii_pt(am, b_m, ea, eb))
+        pms = _device_ms(torch, lambda: kfl.fused_ii_pt_plain(am, b_m, ea, eb), iters=2)
+        lib = _int_mm_ms(torch, am, b_m)
+        nbytes = m * tokens + n * tokens + 4 * m * n
+        bound, by = _bound_ms(nbytes, 2.0 * m * n * tokens)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/fused_linear.cu",
+                        replaces="src/repro/kernels/fused_linear.py:279",
+                        shape=[1, m, tokens, n], max_abs_err=err, ms=ms,
+                        call_ms=call, plain_ms=pms, bound_ms=bound,
+                        bound_by=by, library_ms=lib))
+        del am, b_m
+
+    # The LM head's dX contracts over the vocabulary (K = 151936 >
+    # accum_chunk): no kernel takes it; it stays on the plain chunked path
+    # of core.qops (the JAX package's own jnp path), timed here.
+    from repro_torch.core.bfp import BFP, QuantConfig
+    from repro_torch.core.qops import _contract_q
+    gq = BFP(torch.randint(-127, 128, (tokens, 151936), generator=g, device=dev,
+                           dtype=torch.int8), torch.tensor(110, device=dev), QuantConfig())
+    wq = BFP(torch.randint(-127, 128, (151936, 896), generator=g, device=dev,
+                           dtype=torch.int8).t(), torch.tensor(120, device=dev), QuantConfig())
+    rec["lm_head_dx_plain"] = dict(
+        shape=[tokens, 151936, 896],
+        ms=_device_ms(torch, lambda: _contract_q(gq, wq, 0, 65536), iters=3),
+        call_ms=_time_ms(torch, lambda: _contract_q(gq, wq, 0, 65536), iters=3, warmup=1))
+    print(f"LM-head dX on the plain chunked path: "
+          f"{rec['lm_head_dx_plain']['ms']:.3f} ms device time")
+    del gq, wq
+
     # attn_decode: the qwen2 decode slice, B*Hkv = 8, GS = 7, D = 64, T = 160.
     bh, gs, d, t, pos = BATCH * 2, 7, 64, PROMPT + GEN, PROMPT + GEN - 1
     qm = torch.randint(-127, 128, (bh, gs, d), generator=g, device=dev, dtype=torch.int8)
@@ -228,10 +287,10 @@ def check_kernels(torch, dev, rec):
     return out
 
 
-def step_profile(torch, step, step_ms: float, rec):
-    """One kernel-path decode step under torch.profiler: summed device
-    time, the top kernels, and the card's idle share against ``step_ms``,
-    the same step's wall time measured without the profiler."""
+def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):
+    """One kernel-path step under torch.profiler: summed device time, the
+    top kernels, and the card's idle share against ``step_ms``, the same
+    step's wall time measured without the profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -244,14 +303,14 @@ def step_profile(torch, step, step_ms: float, rec):
     events.sort(key=lambda x: -x[1])
     busy_ms = sum(t for _, t, _ in events)
     idle = 1.0 - busy_ms / step_ms
-    rec["decode_step_profile"] = dict(
+    rec[name] = dict(
         profiled_wall_ms=wall_ms, step_ms=step_ms, device_busy_ms=busy_ms,
         device_idle_share=idle,
         device_launches=sum(c for _, _, c in events),
         top=[dict(name=k[:120], ms=t, count=c) for k, t, c in events[:12]])
-    print(f"decode step profile: device busy {busy_ms:.2f} ms of a "
-          f"{step_ms:.1f} ms step (idle share {idle:.3f}), "
-          f"{rec['decode_step_profile']['device_launches']} device launches")
+    print(f"{name}: device busy {busy_ms:.2f} ms of a {step_ms:.1f} ms "
+          f"step (idle share {idle:.3f}), {rec[name]['device_launches']} "
+          f"device launches")
 
 
 def serve_and_compare(torch, dev, rec):
@@ -274,8 +333,8 @@ def serve_and_compare(torch, dev, rec):
     for lg in logits:
         if lg.shape != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
             raise AssertionError("non-finite or misshapen logits")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("qq", "qi", "attn_decode"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
     rec["serve"] = dict(stats, launches=launches, tokens=toks.tolist())
@@ -321,6 +380,83 @@ def serve_and_compare(torch, dev, rec):
     return launches
 
 
+def train_and_compare(torch, dev, rec):
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.integer_sgd import tree_items
+    from repro_torch.core.policy import PAPER_INT8
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.launch.train import train
+
+    kw = dict(smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, lr=TRAIN_LR, momentum=0.9, seed=SEED, quiet=True)
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_kernel_launches()
+        with dispatch.record_decisions() as log:
+            losses, state, stats = train(ARCH, **kw)
+        torch.cuda.synchronize()
+        launches = dispatch.kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("qq", "qi", "ii"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"training path")
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"non-finite training loss {losses}")
+        step_s = sorted(stats["step_s"])[len(stats["step_s"]) // 2]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+        jnp = sorted({(d.op, d.reason) for d in log if d.path == dispatch.JNP})
+        print(f"train qwen2-0.5b full width: {TRAIN_STEPS} steps of "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ}, {step_s:.3f} s/step (median), "
+              f"{tokens / step_s:.1f} tokens/s, losses {losses}, launches "
+              f"per step {per_step}, peak memory {peak / 2**30:.2f} GiB")
+
+        # the same steps from the same state with the kernels' plain versions
+        with dispatch.plain_kernels():
+            losses_p, state_p, _ = train(ARCH, **kw)
+        if losses_p != losses:
+            raise AssertionError(f"losses: kernel path {losses} != plain "
+                                 f"path {losses_p}")
+        for tree, tree_p in ((state.masters, state_p.masters),
+                             (state.momentum, state_p.momentum)):
+            for (path, q), (_, qp) in zip(tree_items(tree), tree_items(tree_p)):
+                if not (torch.equal(q.m, qp.m) and torch.equal(q.e, qp.e)):
+                    raise AssertionError(f"state leaf {'/'.join(path)}: "
+                                         "kernel path != plain path")
+        del state_p
+        print("plain-version replay: losses ==, every master and momentum "
+              "leaf ==")
+
+        # one more kernel-path step under the profiler
+        cfg = get_config(ARCH)
+        step = make_train_step(cfg, PAPER_INT8,
+                               TrainHyper(lr=TRAIN_LR, momentum=0.9), dev)
+        batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH,
+                            seed=SEED).batch_for_step(TRAIN_STEPS)
+        step_profile(torch, lambda: step(state, batch, prng.fold_in(
+            prng.key(SEED), TRAIN_STEPS)), 1e3 * step_s, rec,
+            "train_step_profile")
+    torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:200] for w in caught
+                     if "deterministic" in str(w.message)})
+    rec["train"] = dict(stats, losses=losses, launches=launches,
+                        launches_per_step=per_step, step_s_median=step_s,
+                        tokens_per_s=tokens / step_s, peak_bytes=peak,
+                        plain_replay_equal=True, jnp_decisions=jnp,
+                        nondeterministic_ops=nondet)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -332,6 +468,8 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build
 
+    # cuBLAS is deterministic only with a fixed workspace (phase 4)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -343,16 +481,18 @@ def main() -> int:
     print(f"build: {sorted(build.SOURCES)} in {rec['build_s']:.1f} s")
 
     kernels = check_kernels(torch, dev, rec)
-    launches = serve_and_compare(torch, dev, rec)
+    by_path = {"serve": serve_and_compare(torch, dev, rec),
+               "train": train_and_compare(torch, dev, rec)}
     line = []
     for kern in kernels:
-        base = kern["name"].split("_prefill")[0]
-        if base != kern["name"]:
-            continue
+        if kern["name"] not in ("qq", "qi", "ii", "attn_decode"):
+            continue           # extra shapes of a kernel: the json record
+        name = kern["name"]
         line.append({k: kern[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            | {"launches": launches[kern["name"]]})
+            | {"launches": sum(p[name] for p in by_path.values()),
+               "launches_by_path": {k: p[name] for k, p in by_path.items()}})
     rec["kernels"] = kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,7 +1,7 @@
-"""Integer fixed-point arithmetic with static bit budgeting (forward ops).
+"""Integer fixed-point arithmetic with static bit budgeting.
 
 The port of the ``Fx`` calculus of ``repro.core.fixed_point`` that the
-integer norm forward uses.  An ``Fx`` is an int32 mantissa tensor, a
+integer norms (forward and backward) and the int16 SGD update use.  An ``Fx`` is an int32 mantissa tensor, a
 (possibly per-row) power-of-two scale exponent and a static bound on the
 mantissa bit length; every op inserts rounded shifts so no int32 can
 overflow.  Key consumption (``KeyGen``) follows the JAX package call for
@@ -22,7 +22,7 @@ from .bfp import (QuantConfig, bit_length, pow2, quantize, scale_exponent,
 
 __all__ = ["Fx", "KeyGen", "fx_quantize", "fx_const", "fx_mul", "fx_add",
            "fx_sub", "fx_sum", "fx_narrow", "fx_div_n", "fx_rsqrt",
-           "fx_to_f32", "fx_neg"]
+           "fx_unify", "fx_to_f32", "fx_neg"]
 
 _MAX_BITS = 30
 
@@ -149,6 +149,13 @@ def fx_narrow(a: Fx, bits: int, kg: KeyGen, stochastic=True) -> Fx:
     sh = (nb - bits).clamp(min=0)
     m = sr_shift_signed(a.m, sh.expand(a.m.shape), kg(), stochastic)
     return Fx(m, a.e + sh, bits)
+
+
+def fx_unify(a: Fx, kg: KeyGen, stochastic=True) -> Fx:
+    """Collapse a per-row scale exponent to one tensor-wide scalar."""
+    e_max = a.e.amax()
+    m = sr_shift_signed(a.m, (e_max - a.e).expand(a.m.shape), kg(), stochastic)
+    return Fx(m, e_max, a.bits)
 
 
 def fx_to_f32(a: Fx) -> torch.Tensor:

@@ -1,0 +1,223 @@
+"""Float32 math rounded the way the JAX package's CPU reference rounds it.
+
+The reference runs its float ops under XLA on the CPU, which differs from
+torch's kernels in three ways that move results by an ulp:
+
+* a multiply feeding an add is contracted into one fused multiply-add
+  (one rounding instead of two);
+* ``exp`` and ``log`` are Cephes polynomials evaluated with fused
+  multiply-adds, and the logistic is ``1 / (1 + exp(-x))`` on that ``exp``;
+* a sum whose reduced extent exceeds 32 is taken in windows of 32 (the
+  padding split evenly before and after), and the window sums are summed
+  again the same way; a short sum runs in index order.
+
+An ulp in a float gradient can flip a later stochastic-rounding decision,
+so the training path uses these functions on every device: the port then
+computes what the reference computes, bit for bit, on the CPU and the card
+alike.  ``exp``, ``fma`` and ``sum_windows`` are differentiable, with the
+reference's gradients (``g * exp(x)``; ``g * b``, ``g * a``, ``g``; ``g``
+broadcast).  ``fma`` is exact: the product of two float32 values is exact in
+float64, the float64 sum's rounding error is recovered exactly (two-sum),
+and it breaks the one tie that rounding the float64 sum to float32 can get
+wrong.
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+from typing import Sequence
+
+import torch
+
+__all__ = ["fma", "exp", "log", "logistic", "sum_windows"]
+
+_WINDOW = 32
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    # a Python float stays a scalar (already a float32 value): copying it
+    # to the card would be a blocking host-to-device copy per call
+    a64, b64, c64 = (t.to(torch.float32).double()
+                     if isinstance(t, torch.Tensor) else _f(t)
+                     for t in (a, b, c))
+    p = a64 * b64                          # exact: 24 + 24 significant bits
+    s = p + c64
+    t = s - p
+    err = (p - (s - t)) + (c64 - t)        # s + err == a * b + c exactly
+    r = s.float()
+    # s + err rounds as s does unless s is a float32 midpoint: then the
+    # sign of err, not round-to-even, picks the neighbour
+    toward = torch.where(err > 0, math.inf, -math.inf).float()
+    nxt = torch.nextafter(r, toward)
+    mid = (r.double() + nxt.double()) * 0.5
+    return torch.where((err != 0) & (s == mid), nxt, r)
+
+
+def _f(v: float) -> float:
+    """A Python float rounded to float32."""
+    return struct.unpack("f", struct.pack("f", v))[0]
+
+
+_LOG2E = _f(1.44269504088896341)
+_LN2_HI = _f(0.693359375)
+_LN2_LO = _f(-2.12194440e-4)
+_EXP_P = [_f(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)]
+_LOG_P = [_f(c) for c in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+                          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+                          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)]
+_SQRTHF = _f(0.707106781186547524)
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32).clamp(_f(-87.8), _f(88.8))
+    n = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    a = _fma(-_LN2_HI, n, x)
+    a = _fma(-_LN2_LO, n, a)
+    z = _fma(a, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = _fma(z, a, c)
+    z = _fma(z, a * a, a)
+    z = 1.0 + z
+    ni = n.to(torch.int32)
+    p2 = ((ni + 127) << 23).view(torch.float32)
+    return z * torch.where(ni == -127, torch.zeros_like(p2), p2)
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log of positive finite x (mantissa in
+    [sqrt(1/2), sqrt(2)), a degree-8 polynomial, exponent added back in
+    two parts; not differentiable)."""
+    x = x.to(torch.float32).clamp(min=torch.finfo(torch.float32).tiny)
+    m, e = torch.frexp(x)
+    e = e.to(torch.float32)
+    small = m < _SQRTHF
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.to(torch.float32)
+    t2 = t * t
+    t3 = t2 * t
+    y = _fma(t, _LOG_P[0], _LOG_P[1])
+    y1 = _fma(t, _LOG_P[3], _LOG_P[4])
+    y2 = _fma(t, _LOG_P[6], _LOG_P[7])
+    y = _fma(y, t, _LOG_P[2])
+    y1 = _fma(y1, t, _LOG_P[5])
+    y2 = _fma(y2, t, _LOG_P[8])
+    y = _fma(y, t3, y1)
+    y = _fma(y, t3, y2)
+    y = y * t3
+    y = _fma(_LN2_LO, e, y)
+    t = _fma(-0.5, t2, t)
+    t = t + y
+    return _fma(_LN2_HI, e, t)
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """float32 1 / (1 + e^-x) (not differentiable)."""
+    return 1.0 / (1.0 + _exp(-x))
+
+
+def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a broadcast gradient back to ``shape`` (in the reference's
+    order)."""
+    lead = g.ndim - len(shape)
+    dims = list(range(lead)) + [lead + i for i, n in enumerate(shape)
+                                if n == 1 and g.shape[lead + i] != 1]
+    return _sum_windows(g, dims).reshape(shape) if dims else g
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shape_c = c.shape
+        return _fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return (_unbroadcast(g * b, a.shape), _unbroadcast(g * a, b.shape),
+                _unbroadcast(g, ctx.shape_c))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding, broadcasting; Python floats
+    are constants."""
+    if all(isinstance(t, torch.Tensor) for t in (a, b, c)):
+        return _Fma.apply(a, b, c)
+    return _fma(a, b, c)
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _exp(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * y
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 e^x: e^a * 2^n with n = floor(x log2(e) + 1/2), a degree-6
+    polynomial on the reduced argument; 2^n below 2^-126 flushes to 0."""
+    return _Exp.apply(x)
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.shape, ctx.dims = x.shape, sorted(d % x.ndim for d in dims)
+        return _sum_windows(x, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        for d in ctx.dims:
+            g = g.unsqueeze(d)
+        return g.expand(ctx.shape), None
+
+
+def sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """Sum of float32 ``x`` over ``dims`` in the reference's order (see
+    the module note).  The reduced dims are dropped."""
+    return _Sum.apply(x, tuple(dims))
+
+
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 in index order, from a zero start."""
+    acc = x[0] + 0.0
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def _sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    dims = sorted(d % x.ndim for d in dims)
+    keep = [d for d in range(x.ndim) if d not in dims]
+    x = x.permute(*dims, *keep)
+    sizes = [x.shape[i] for i in range(len(dims))]
+    rest = x.shape[len(dims):]
+    if max(sizes) <= _WINDOW:
+        return _sum_in_order(x.reshape(-1, *rest))
+    # windows of 32 along every reduced dim longer than 32 (a shorter dim
+    # is one window); each window summed in index order from a zero start
+    parts, wins = [], []
+    for i, n in enumerate(sizes):
+        if n > _WINDOW:
+            pad = -n % _WINDOW
+            widths = [0, 0] * (x.ndim - 1 - i) + [pad // 2, pad - pad // 2]
+            x = torch.nn.functional.pad(x, widths)
+            parts.append((n + pad) // _WINDOW)
+            wins.append(_WINDOW)
+        else:
+            parts.append(1)
+            wins.append(n)
+    k = len(sizes)
+    x = x.reshape(*[v for pw in zip(parts, wins) for v in pw], *rest)
+    x = x.permute(*range(1, 2 * k, 2), *range(0, 2 * k, 2),
+                  *range(2 * k, 2 * k + len(rest)))
+    acc = _sum_in_order(x.reshape(math.prod(wins), *parts, *rest))
+    return _sum_windows(acc, range(k))

@@ -1,16 +1,22 @@
-"""Integer GEMM-shaped ops, forward halves (serving is gradient-free).
+"""Integer GEMM-shaped ops with integer forward and integer backward.
 
-The port of the forward paths of ``repro.core.qops``: every op quantizes
-its float32 operands to BFP, contracts the integer mantissas with exact
-int32 accumulation and applies the exponent-add scale once.  Each
+The port of ``repro.core.qops``: every op quantizes its float32 operands
+to BFP, contracts the integer mantissas with exact int32 accumulation and
+applies the exponent-add scale once.  ``qmatmul``, ``qbmm``, ``qembed``
+and ``qdq_st`` are ``torch.autograd.Function``s whose forward keeps the
+int8 mantissas as residuals and whose backward is Appendix A.2: the
+upstream gradient is quantized once and both dX = Ĝ Ŵᵀ and dW = X̂ᵀ Ĝ are
+integer contractions (the embedding's dTable an int32 scatter-add).  Each
 contraction asks ``kernels.dispatch`` for a path: the hand-written kernel
-(``fused``) or the plain oracle path below (``jnp``).  Keys are split and
-folded exactly as in the JAX package, so the same key gives the same
-rounding bits and results compare with ``==``.
+(``fused``: ``qq`` forward, ``qi`` dX, ``ii`` dW) or the plain oracle path
+below (``jnp``).  Keys are split and folded exactly as in the JAX package,
+so the same key gives the same rounding bits and results compare with
+``==``.  The per-block (MX-style) scales have their forward here; their
+backward needs the per-block kernel and raises.
 
-Also here: the load-time-quantized weight path (``_qmatmul_pw_fwd``), the
-integer embedding gather, ``qdq_st`` and the qcache ops (cache rows
-quantized once at append time, one exponent per row, nearest rounding).
+Also here: the load-time-quantized weight path (``_qmatmul_pw_fwd``,
+serving only), ``qdq_st`` and the qcache ops (cache rows quantized once at
+append time, one exponent per row, nearest rounding).
 """
 
 from __future__ import annotations
@@ -88,6 +94,17 @@ def _cfg_for_dim(cfg: QuantConfig, dim: int) -> QuantConfig:
     return cfg
 
 
+def _tq(q: BFP) -> BFP:
+    """Transpose the last two axes of a per-tensor BFP (a view)."""
+    return BFP(_t(q.m), q.e, q.cfg)
+
+
+def _per_block_bwd(op: str):
+    raise NotImplementedError(
+        f"{op} backward with per-block scales needs the per-block kernel "
+        "(fused_qq_blk_pallas), which is not ported yet")
+
+
 def _wcfg_for(xcfg: QuantConfig, policy: NumericPolicy) -> QuantConfig:
     return QuantConfig(policy.fwd_bits, xcfg.block, policy.stochastic,
                        policy.rng)
@@ -107,10 +124,11 @@ def _plan(op: str, m: int, k: int, n: int, cfg: QuantConfig,
 # ---------------------------------------------------------------------------
 
 def _qmatmul_fwd(x: torch.Tensor, w: torch.Tensor, key: prng.Key,
-                 policy: NumericPolicy) -> torch.Tensor:
-    """Per-call weights: both operands quantized in the op (kind qq)."""
+                 policy: NumericPolicy):
+    """Per-call weights: both operands quantized in the op (kind qq).
+    -> (y, residuals (xq, wq, kb, lead))."""
     cfg = _cfg_for_dim(policy.fwd_cfg(), x.shape[-1])
-    kx, kw, _ = prng.split(key, 3)
+    kx, kw, kb = prng.split(key, 3)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     plan = _plan("qmatmul_fwd", x2.shape[0], x2.shape[1], w.shape[-1], cfg,
@@ -120,8 +138,51 @@ def _qmatmul_fwd(x: torch.Tensor, w: torch.Tensor, key: prng.Key,
         wq = quantize_weight(_t(w), cfg, kw)
         y = _contract_q(xq, wq, 0, policy.accum_chunk)
     else:
-        y, _, _ = kd.contract_qq(x2, _t(w), cfg, kx, kw, plan)
-    return y.reshape(*lead, w.shape[-1])
+        y, xq, wq = kd.contract_qq(x2, _t(w), cfg, kx, kw, plan)
+    return y.reshape(*lead, w.shape[-1]), (xq, wq, kb, lead)
+
+
+def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
+    """A.2: Ĝ quantized once; dX = Ĝ Ŵᵀ (kind qi), dW = X̂ᵀ Ĝ (kind ii)
+    on the stored mantissas.  -> (dx, dw)."""
+    xq, wq, kb, lead = res
+    if policy.block != PER_TENSOR:
+        _per_block_bwd("qmatmul")
+    cfg_b = policy.bwd_cfg()
+    kg, _, _, _ = prng.split(kb, 4)
+    g2 = gy.reshape(-1, gy.shape[-1])
+    m, n = g2.shape
+    k = xq.m.shape[-1]
+    plan_dx = _plan("qmatmul_dx", m, n, k, cfg_b, policy, gy.device,
+                    kind="qi", cfg2=wq.cfg)
+    if plan_dx.path == kd.JNP:
+        gqn = quantize(g2, cfg_b, kg)
+        dx = _contract_q(gqn, _tq(wq), 0, policy.accum_chunk)
+    else:
+        dx, gqn = kd.contract_qi(g2, _tq(wq), cfg_b, kg, plan_dx)
+    gqm = _tq(gqn)                       # (N, M): the same mantissas
+    plan_dw = _plan("qmatmul_dw", k, m, n, gqm.cfg, policy, gy.device,
+                    kind="ii", cfg2=xq.cfg)
+    if plan_dw.path == kd.JNP:
+        dw = _contract_q(_tq(xq), gqm, 0, policy.accum_chunk)
+    else:
+        dw = kd.contract_ii(_tq(xq), gqm, plan_dw)
+    return dx.reshape(*lead, dx.shape[-1]), dw
+
+
+class _QMatmul(torch.autograd.Function):
+    """x (..., K) @ w (K, N), both quantized in the op (``_qmatmul``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, policy):
+        y, ctx.res = _qmatmul_fwd(x, w, key, policy)
+        ctx.policy = policy
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy)
+        return dx, dw, None, None
 
 
 def _qmatmul_pw_fwd(x: torch.Tensor, w: BFP, key: prng.Key,
@@ -145,8 +206,9 @@ def _qmatmul_pw_fwd(x: torch.Tensor, w: BFP, key: prng.Key,
 
 def qmatmul(x: torch.Tensor, w, key: Optional[prng.Key] = None,
             policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
-    """Quantized linear contraction x (..., K) @ w (K, N); ``w`` may be a
-    per-tensor BFP (a load-time-quantized serving weight)."""
+    """Quantized linear contraction x (..., K) @ w (K, N) with the A.2
+    integer backward; ``w`` may be a per-tensor BFP (a load-time-quantized
+    serving weight: forward only)."""
     if not policy.enabled:
         wf = dequantize(w) if isinstance(w, BFP) else w
         return x @ wf
@@ -157,41 +219,141 @@ def qmatmul(x: torch.Tensor, w, key: Optional[prng.Key] = None,
         w = dequantize(w)
     if isinstance(w, BFP):
         return _qmatmul_pw_fwd(x, w, key, policy)
-    return _qmatmul_fwd(x, w, key, policy)
+    return _QMatmul.apply(x, w, key, policy)
 
 
 # ---------------------------------------------------------------------------
 # qbmm: a (*B, M, K) @ b (*B, K, N)
 # ---------------------------------------------------------------------------
 
-def qbmm(a: torch.Tensor, b: torch.Tensor, key: Optional[prng.Key] = None,
-         policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
-    """Quantized batched matmul (both operands quantized in the op)."""
-    if not policy.enabled:
-        return a @ b
-    if key is None:
-        raise ValueError("qbmm with an enabled integer policy needs a PRNG key")
+def _qbmm_fwd(a: torch.Tensor, b: torch.Tensor, key: prng.Key,
+              policy: NumericPolicy):
+    """-> (y, residuals (aq, bq, kres))."""
     cfg = _cfg_for_dim(policy.fwd_cfg(), a.shape[-1])
-    ka, kb_, _ = prng.split(key, 3)
+    ka, kb_, kres = prng.split(key, 3)
     nbatch = a.ndim - 2
     plan = _plan("qbmm_fwd", a.shape[-2], a.shape[-1], b.shape[-1], cfg,
                  policy, a.device)
     if plan.path == kd.JNP:
         aq = quantize(a, cfg, ka)
         bq = quantize(_t(b), cfg, kb_)
-        return _contract_q(aq, bq, nbatch, policy.accum_chunk)
-    y, _, _ = kd.contract_qq(a, _t(b), cfg, ka, kb_, plan, nbatch=nbatch)
-    return y
+        y = _contract_q(aq, bq, nbatch, policy.accum_chunk)
+    else:
+        y, aq, bq = kd.contract_qq(a, _t(b), cfg, ka, kb_, plan,
+                                   nbatch=nbatch)
+    return y, (aq, bq, kres)
+
+
+def _qbmm_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
+    """A.2 for the batched product: da = Ĝ B̂ᵀ (qi), db = Âᵀ Ĝ (ii)."""
+    aq, bq, kres = res
+    if policy.block != PER_TENSOR:
+        _per_block_bwd("qbmm")
+    cfg_b = policy.bwd_cfg()
+    kg, _, _, _ = prng.split(kres, 4)
+    nbatch = gy.ndim - 2
+    m, n = gy.shape[-2], gy.shape[-1]
+    k = aq.m.shape[-1]
+    plan_da = _plan("qbmm_dx", m, n, k, cfg_b, policy, gy.device, kind="qi",
+                    cfg2=bq.cfg)
+    if plan_da.path == kd.JNP:
+        gq = quantize(gy, cfg_b, kg)
+        da = _contract_q(gq, _tq(bq), nbatch, policy.accum_chunk)
+    else:
+        da, gq = kd.contract_qi(gy, _tq(bq), cfg_b, kg, plan_da,
+                                nbatch=nbatch)
+    plan_db = _plan("qbmm_dw", k, m, n, gq.cfg, policy, gy.device, kind="ii",
+                    cfg2=aq.cfg)
+    if plan_db.path == kd.JNP:
+        db = _contract_q(_tq(aq), _tq(gq), nbatch, policy.accum_chunk)
+    else:
+        db = kd.contract_ii(_tq(aq), _tq(gq), plan_db, nbatch=nbatch)
+    return da, db
+
+
+class _QBmm(torch.autograd.Function):
+    """a (*B, M, K) @ b (*B, K, N), both quantized in the op (``_qbmm``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, key, policy):
+        y, ctx.res = _qbmm_fwd(a, b, key, policy)
+        ctx.policy = policy
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        da, db = _qbmm_bwd(ctx.policy, ctx.res, gy)
+        return da, db, None, None
+
+
+def qbmm(a: torch.Tensor, b: torch.Tensor, key: Optional[prng.Key] = None,
+         policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
+    """Quantized batched matmul (both operands quantized in the op) with
+    the A.2 integer backward."""
+    if not policy.enabled:
+        return a @ b
+    if key is None:
+        raise ValueError("qbmm with an enabled integer policy needs a PRNG key")
+    return _QBmm.apply(a, b, key, policy)
 
 
 # ---------------------------------------------------------------------------
 # qembed: integer embedding gather
 # ---------------------------------------------------------------------------
 
+def _qembed_fwd(tokens: torch.Tensor, table: torch.Tensor, key: prng.Key,
+                policy: NumericPolicy):
+    cfg = _cfg_for_dim(policy.fwd_cfg(), table.shape[-1])
+    kt, kb = prng.split(key)
+    tq = quantize_weight(table, cfg, kt)
+    rows = tq.m[tokens]
+    scale = pow2(scale_exponent(tq.e, cfg))
+    if cfg.block == PER_TENSOR:
+        y = rows.to(torch.float32) * scale
+    else:
+        erows = scale[tokens]
+        y = (rows.reshape(*rows.shape[:-1], -1, cfg.block).to(torch.float32)
+             * erows[..., None]).reshape(rows.shape)
+    return y, kb
+
+
+def _qembed_bwd(policy: NumericPolicy, tokens: torch.Tensor, vocab: int,
+                kb: prng.Key, gy: torch.Tensor) -> torch.Tensor:
+    """dTable: the upstream gradient quantized once per tensor, its int8
+    mantissas scatter-added into int32 rows, one rescale."""
+    if policy.block != PER_TENSOR:
+        _per_block_bwd("qembed")
+    cfg_b = policy.bwd_cfg()
+    g2 = gy.reshape(-1, gy.shape[-1])
+    gq = quantize(g2, QuantConfig(cfg_b.bits, PER_TENSOR, cfg_b.stochastic,
+                                  cfg_b.rng), kb)
+    acc = torch.zeros((vocab, g2.shape[-1]), dtype=torch.int32,
+                      device=g2.device)
+    acc.index_add_(0, tokens.reshape(-1).long(), gq.m.to(torch.int32))
+    return acc.to(torch.float32) * pow2(scale_exponent(gq.e, gq.cfg))
+
+
+class _QEmbed(torch.autograd.Function):
+    """Integer gather forward, integer scatter-add backward (``_qembed``)."""
+
+    @staticmethod
+    def forward(ctx, tokens, table, key, policy):
+        y, kb = _qembed_fwd(tokens, table, key, policy)
+        ctx.res = (tokens, table.shape[0], kb)
+        ctx.policy = policy
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        tokens, vocab, kb = ctx.res
+        return None, _qembed_bwd(ctx.policy, tokens, vocab, kb, gy), None, None
+
+
 def qembed(tokens: torch.Tensor, table, key: Optional[prng.Key] = None,
            policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
-    """Integer embedding lookup: an int8 row gather scaled by 2^E.  A
-    per-tensor BFP table (``_qembed_p_fwd``) needs no quantization."""
+    """Integer embedding lookup: an int8 row gather scaled by 2^E, with the
+    int32 scatter-add backward.  A per-tensor BFP table
+    (``_qembed_p_fwd``, serving) needs no quantization."""
     if isinstance(table, BFP) and table.cfg.block != PER_TENSOR:
         table = dequantize(table)
     if not (policy.enabled and policy.quantize_embed):
@@ -202,21 +364,26 @@ def qembed(tokens: torch.Tensor, table, key: Optional[prng.Key] = None,
     if isinstance(table, BFP):
         rows = table.m[tokens]
         return rows.to(torch.float32) * pow2(scale_exponent(table.e, table.cfg))
-    cfg = _cfg_for_dim(policy.fwd_cfg(), table.shape[-1])
-    kt, _ = prng.split(key)
-    tq = quantize_weight(table, cfg, kt)
-    rows = tq.m[tokens]
-    scale = pow2(scale_exponent(tq.e, cfg))
-    if cfg.block == PER_TENSOR:
-        return rows.to(torch.float32) * scale
-    erows = scale[tokens]
-    return (rows.reshape(*rows.shape[:-1], -1, cfg.block).to(torch.float32)
-            * erows[..., None]).reshape(rows.shape)
+    return _QEmbed.apply(tokens, table, key, policy)
+
+
+class _QdqST(torch.autograd.Function):
+    """Stochastic quantize-dequantize, straight-through gradient."""
+
+    @staticmethod
+    def forward(ctx, x, key, cfg):
+        return dequantize(quantize(x, cfg, key))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 def qdq_st(x: torch.Tensor, key: prng.Key, cfg: QuantConfig) -> torch.Tensor:
-    """Stochastic quantize-dequantize (forward of the straight-through op)."""
-    return dequantize(quantize(x, cfg, key))
+    """Stochastic quantize-dequantize with a straight-through gradient: the
+    values land on the int8 grid, so later per-tensor requantizations at
+    the same scale are exact under nearest rounding."""
+    return _QdqST.apply(x, key, cfg)
 
 
 # ---------------------------------------------------------------------------

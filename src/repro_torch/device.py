@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -20,3 +20,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so a host
+    clock around it measures the work, not its enqueueing."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

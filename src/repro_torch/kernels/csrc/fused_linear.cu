@@ -3,6 +3,8 @@
 // Replaces the TPU kernels of src/repro/kernels/fused_linear.py:
 //   fused_qq_pt_pallas  (both operands f32, quantized in the kernel)
 //   fused_qi_pt_pallas  (a f32 quantized in the kernel, b pre-quantized int8)
+//   fused_ii_pt_pallas  (both operands pre-quantized int8: the backward's
+//                        dW = X^T G on the residual mantissas)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
 // The shared exponents are per tensor (over the whole batched tensor) and
@@ -13,22 +15,24 @@
 // On Hopper that cannot hold (the tied LM head alone is 151936 x 896 int8,
 // 136 MB), so the grid tiles M and N and the block loop walks K in 32-wide
 // slices: each slice of a (and of b for qq) is quantized in registers from
-// its f32 value and rounding bits, packed four int8 to a 32-bit word in
-// shared memory and contracted with __dp4a into int32 accumulators.  The
-// blocks of the first N tile write the a mantissas, those of the first M
-// tile the b mantissas (the residual outputs of the TPU kernel).  y is
-// float(int32) * 2^(sa + sb): exactly the plain version's arithmetic, so the
-// two agree bit for bit.
+// its f32 value and rounding bits, or loaded as int8 mantissas (b for qi,
+// both sides for ii), packed four int8 to a 32-bit word in shared memory and
+// contracted with __dp4a into int32 accumulators.  The blocks of the first N
+// tile write the a mantissas, those of the first M tile the b mantissas (the
+// residual outputs of the TPU kernel).  y is float(int32) * 2^(sa + sb):
+// exactly the plain version's arithmetic, so the two agree bit for bit.
 //
 // Bounds on the H100.  Each call must move (4+4)*M*K bytes of a and its
-// rounding bits, N*K (qi) or 8*N*K (qq) bytes of b, 4*M*N bytes of y and
-// the mantissas it writes, against 2*M*N*K int8 operations at 1979 TOP/s:
-// bytes over 3.35 TB/s bound every shape of the serving path, the prefill
-// projections (M = 512) and decode (M = batch = 4, where the N*K weight
-// read dominates).  This first kernel uses __dp4a, not the tensor cores
-// (wgmma), and no asynchronous copies: it is right first; fast is later
-// work.  A 16-row tile variant serves M <= 16 so decode wastes at most 4x
-// of the dot products on padding rows instead of 16x.
+// rounding bits (M*K for ii), N*K (qi, ii) or 8*N*K (qq) bytes of b, 4*M*N
+// bytes of y and the mantissas it writes, against 2*M*N*K int8 operations
+// at 1979 TOP/s: bytes over 3.35 TB/s bound every shape of the serving path,
+// the prefill projections (M = 512) and decode (M = batch = 4, where the
+// N*K weight read dominates), and the training dW (K = 512 tokens, where
+// the 4*M*N f32 output dominates: 545 MB at the tied LM head).  This first
+// kernel uses __dp4a, not the tensor cores (wgmma), and no asynchronous
+// copies: it is right first; fast is later work.  A 16-row tile variant
+// serves M <= 16 so decode wastes at most 4x of the dot products on padding
+// rows instead of 16x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,9 +99,10 @@ __device__ __forceinline__ void load_tile(
 }
 
 // TM rows per thread: the block covers 16*TM rows of a and BN columns of b.
-template <int TM, bool B_FLOAT, bool STOCH, bool VEC>
+template <int TM, bool A_FLOAT, bool B_FLOAT, bool STOCH, bool VEC>
 __global__ void __launch_bounds__(THREADS) qgemm_kernel(
     const float* __restrict__ a, const uint32_t* __restrict__ ra,
+    const int8_t* __restrict__ ai,
     const float* __restrict__ bf, const uint32_t* __restrict__ rb,
     const int8_t* __restrict__ bi, const int* __restrict__ ea_ptr,
     const int* __restrict__ eb_ptr, float* __restrict__ y,
@@ -107,8 +112,12 @@ __global__ void __launch_bounds__(THREADS) qgemm_kernel(
   __shared__ int As[BM][LD];
   __shared__ int Bs[BN][LD];
   const size_t z = blockIdx.z;
-  a += z * M * K;
-  if (STOCH) ra += z * M * K;
+  if (A_FLOAT) {
+    a += z * M * K;
+    if (STOCH) ra += z * M * K;
+  } else {
+    ai += z * M * K;
+  }
   if (B_FLOAT) {
     bf += z * N * K;
     if (STOCH) rb += z * N * K;
@@ -129,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) qgemm_kernel(
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile<BM, true, STOCH, VEC>(As, a, ra, nullptr, ea, pa, m0, M, k0, K, am_w);
+    load_tile<BM, A_FLOAT, STOCH, VEC>(As, a, ra, ai, ea, pa, m0, M, k0, K, am_w);
     load_tile<BN, B_FLOAT, STOCH, VEC>(Bs, bf, rb, bi, eb, pb, n0, N, k0, K, bm_w);
     __syncthreads();
 #pragma unroll
@@ -159,29 +168,33 @@ __global__ void __launch_bounds__(THREADS) qgemm_kernel(
   }
 }
 
-template <int TM, bool B_FLOAT, bool STOCH, bool VEC>
-cudaError_t launch(const float* a, const uint32_t* ra, const float* bf,
-                   const uint32_t* rb, const int8_t* bi, const int* ea,
-                   const int* eb, float* y, int8_t* am, int8_t* bm, int B,
-                   int M, int N, int K, int pa, int pb, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + 16 * TM - 1) / (16 * TM), B);
-  qgemm_kernel<TM, B_FLOAT, STOCH, VEC><<<grid, THREADS, 0, stream>>>(
-      a, ra, bf, rb, bi, ea, eb, y, am, bm, M, N, K, pa, pb);
+// One launch: the operands of a side that is not float (A_FLOAT / B_FLOAT
+// false) come as int8 mantissas (ai / bi) and are not quantized.
+struct Args {
+  const float* a; const uint32_t* ra; const int8_t* ai;
+  const float* bf; const uint32_t* rb; const int8_t* bi;
+  const int* ea; const int* eb; float* y; int8_t* am; int8_t* bm;
+  int B, M, N, K, pa, pb;
+};
+
+template <int TM, bool A_FLOAT, bool B_FLOAT, bool STOCH, bool VEC>
+cudaError_t launch(const Args& g, cudaStream_t stream) {
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + 16 * TM - 1) / (16 * TM), g.B);
+  qgemm_kernel<TM, A_FLOAT, B_FLOAT, STOCH, VEC><<<grid, THREADS, 0, stream>>>(
+      g.a, g.ra, g.ai, g.bf, g.rb, g.bi, g.ea, g.eb, g.y, g.am, g.bm, g.M,
+      g.N, g.K, g.pa, g.pb);
   return cudaGetLastError();
 }
 
-template <bool B_FLOAT, bool STOCH>
-cudaError_t dispatch(const float* a, const uint32_t* ra, const float* bf,
-                     const uint32_t* rb, const int8_t* bi, const int* ea,
-                     const int* eb, float* y, int8_t* am, int8_t* bm, int B,
-                     int M, int N, int K, int pa, int pb, cudaStream_t stream) {
-  const bool vec = K % 4 == 0;
-  if (M <= 16) {
-    return vec ? launch<1, B_FLOAT, STOCH, true>(a, ra, bf, rb, bi, ea, eb, y, am, bm, B, M, N, K, pa, pb, stream)
-               : launch<1, B_FLOAT, STOCH, false>(a, ra, bf, rb, bi, ea, eb, y, am, bm, B, M, N, K, pa, pb, stream);
+template <bool A_FLOAT, bool B_FLOAT, bool STOCH>
+cudaError_t dispatch(const Args& g, cudaStream_t stream) {
+  const bool vec = g.K % 4 == 0;
+  if (g.M <= 16) {
+    return vec ? launch<1, A_FLOAT, B_FLOAT, STOCH, true>(g, stream)
+               : launch<1, A_FLOAT, B_FLOAT, STOCH, false>(g, stream);
   }
-  return vec ? launch<4, B_FLOAT, STOCH, true>(a, ra, bf, rb, bi, ea, eb, y, am, bm, B, M, N, K, pa, pb, stream)
-             : launch<4, B_FLOAT, STOCH, false>(a, ra, bf, rb, bi, ea, eb, y, am, bm, B, M, N, K, pa, pb, stream);
+  return vec ? launch<4, A_FLOAT, B_FLOAT, STOCH, true>(g, stream)
+             : launch<4, A_FLOAT, B_FLOAT, STOCH, false>(g, stream);
 }
 
 }  // namespace
@@ -194,21 +207,15 @@ int repro_fused_qq(const void* a, const void* ra, const void* b, const void* rb,
                    const void* ea, const void* eb, void* y, void* am, void* bm,
                    int B, int M, int N, int K, int p, int stochastic,
                    void* stream) {
+  const Args g{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
+               nullptr, static_cast<const float*>(b),
+               static_cast<const uint32_t*>(rb), nullptr,
+               static_cast<const int*>(ea), static_cast<const int*>(eb),
+               static_cast<float*>(y), static_cast<int8_t*>(am),
+               static_cast<int8_t*>(bm), B, M, N, K, p, p};
   auto s = static_cast<cudaStream_t>(stream);
-  auto fa = static_cast<const float*>(a);
-  auto fb = static_cast<const float*>(b);
-  auto pe_a = static_cast<const int*>(ea);
-  auto pe_b = static_cast<const int*>(eb);
-  auto out = static_cast<float*>(y);
-  auto oa = static_cast<int8_t*>(am);
-  auto ob = static_cast<int8_t*>(bm);
-  cudaError_t err =
-      stochastic ? dispatch<true, true>(fa, static_cast<const uint32_t*>(ra), fb,
-                                        static_cast<const uint32_t*>(rb), nullptr,
-                                        pe_a, pe_b, out, oa, ob, B, M, N, K, p, p, s)
-                 : dispatch<true, false>(fa, nullptr, fb, nullptr, nullptr, pe_a,
-                                         pe_b, out, oa, ob, B, M, N, K, p, p, s);
-  return (int)err;
+  return (int)(stochastic ? dispatch<true, true, true>(g, s)
+                          : dispatch<true, true, false>(g, s));
 }
 
 // qi: a (B,M,K) f32 [+ ra], b_m (B,N,K) int8 -> y (B,M,N), am int8.
@@ -216,20 +223,25 @@ int repro_fused_qi(const void* a, const void* ra, const void* b_m,
                    const void* ea, const void* eb, void* y, void* am, int B,
                    int M, int N, int K, int pa, int pb, int stochastic,
                    void* stream) {
+  const Args g{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
+               nullptr, nullptr, nullptr, static_cast<const int8_t*>(b_m),
+               static_cast<const int*>(ea), static_cast<const int*>(eb),
+               static_cast<float*>(y), static_cast<int8_t*>(am), nullptr, B,
+               M, N, K, pa, pb};
   auto s = static_cast<cudaStream_t>(stream);
-  auto fa = static_cast<const float*>(a);
-  auto ib = static_cast<const int8_t*>(b_m);
-  auto pe_a = static_cast<const int*>(ea);
-  auto pe_b = static_cast<const int*>(eb);
-  auto out = static_cast<float*>(y);
-  auto oa = static_cast<int8_t*>(am);
-  cudaError_t err =
-      stochastic ? dispatch<false, true>(fa, static_cast<const uint32_t*>(ra), nullptr,
-                                         nullptr, ib, pe_a, pe_b, out, oa, nullptr,
-                                         B, M, N, K, pa, pb, s)
-                 : dispatch<false, false>(fa, nullptr, nullptr, nullptr, ib, pe_a,
-                                          pe_b, out, oa, nullptr, B, M, N, K, pa, pb, s);
-  return (int)err;
+  return (int)(stochastic ? dispatch<true, false, true>(g, s)
+                          : dispatch<true, false, false>(g, s));
+}
+
+// ii: a_m (B,M,K) int8, b_m (B,N,K) int8 -> y (B,M,N) f32.
+int repro_fused_ii(const void* a_m, const void* b_m, const void* ea,
+                   const void* eb, void* y, int B, int M, int N, int K,
+                   int pa, int pb, void* stream) {
+  const Args g{nullptr, nullptr, static_cast<const int8_t*>(a_m), nullptr,
+               nullptr, static_cast<const int8_t*>(b_m),
+               static_cast<const int*>(ea), static_cast<const int*>(eb),
+               static_cast<float*>(y), nullptr, nullptr, B, M, N, K, pa, pb};
+  return (int)dispatch<false, false, false>(g, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Routing between the hand-written CUDA kernels and the plain path.
 
 The port of the pieces of ``repro.kernels.dispatch`` that quantized serving
-uses.  ``core.qops`` asks :func:`plan_contract` for every integer
+and the int8 train step use.  ``core.qops`` asks :func:`plan_contract` for every integer
 contraction and ``models.attention`` asks :func:`plan_attention` for decode
 attention; each answer is a :class:`Decision` that ``record_decisions``
 can collect.  Paths:
@@ -42,7 +42,7 @@ from . import ref
 
 __all__ = ["FUSED", "JNP", "Decision", "plan_contract", "plan_attention",
            "record_decisions", "plain_kernels", "contract_qq", "contract_qi",
-           "attn_decode", "kernel_launches", "reset_kernel_launches"]
+           "contract_ii", "attn_decode", "kernel_launches", "reset_kernel_launches"]
 
 FUSED = "fused"
 JNP = "jnp"
@@ -93,14 +93,16 @@ def plain_kernels():
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the three kernel wrappers."""
+    """Launch counts of the kernel wrappers."""
     return {"qq": kfl.fused_qq_pt.launches, "qi": kfl.fused_qi_pt.launches,
+            "ii": kfl.fused_ii_pt.launches,
             "attn_decode": kfa.attn_decode.launches}
 
 
 def reset_kernel_launches() -> None:
     kfl.fused_qq_pt.launches = 0
     kfl.fused_qi_pt.launches = 0
+    kfl.fused_ii_pt.launches = 0
     kfa.attn_decode.launches = 0
 
 
@@ -146,7 +148,7 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
                            "(flush emulation stays on the plain path)")
     if k * 127 * 127 >= (1 << 31):
         return decide(JNP, f"K={k} overflows the int32 accumulator")
-    if kind not in ("qq", "qi"):
+    if kind not in ("qq", "qi", "ii"):
         return decide(JNP, f"kind {kind}: its kernel is not ported yet")
     return decide(FUSED, "fused kernel")
 
@@ -233,6 +235,21 @@ def contract_qi(a: torch.Tensor, bq: BFP, cfg: QuantConfig, ka: prng.Key,
                 pa=cfg.p, pb=bq.cfg.p, stochastic=sr)
     lead = a.shape[:nbatch]
     return y.reshape(*lead, *y.shape[1:]), BFP(am.reshape(a.shape), ea, cfg)
+
+
+def contract_ii(aq: BFP, bq: BFP, dec: Decision,
+                nbatch: int = 0) -> torch.Tensor:
+    """Contract two stored residual mantissa tensors on the ii kernel (the
+    backward's dW = X^T G): aq.m (*B, M, K) int8, bq.m (*B, N, K) int8, per
+    tensor -> y (*B, M, N) f32.  Transposed residuals arrive as views;
+    ``_flat3`` copies them contiguous."""
+    assert aq.cfg.block == PER_TENSOR and bq.cfg.block == PER_TENSOR
+    assert dec.path == FUSED
+    run = kfl.fused_ii_pt_plain if _plain_on_card else kfl.fused_ii_pt
+    y = run(_flat3(aq.m, nbatch), _flat3(bq.m, nbatch),
+            aq.e.to(torch.int32), bq.e.to(torch.int32), pa=aq.cfg.p,
+            pb=bq.cfg.p)
+    return y.reshape(*aq.m.shape[:nbatch], *y.shape[1:])
 
 
 def attn_decode(qm, km, vm, ek_rows, ev_rows, rp, eq, q_off, kv_len, *, p,

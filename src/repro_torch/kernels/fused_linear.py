@@ -1,6 +1,6 @@
 """Fused quantize -> int8 GEMM -> exponent-add rescale: CUDA kernels + plain.
 
-Ports of two TPU kernels of ``repro.kernels.fused_linear``:
+Ports of three TPU kernels of ``repro.kernels.fused_linear``:
 
   ``fused_qq_pt``  <- ``fused_qq_pt_pallas``: both operands f32, quantized
                    in the kernel (per-tensor exponents ``ea``/``eb``,
@@ -9,6 +9,9 @@ Ports of two TPU kernels of ``repro.kernels.fused_linear``:
   ``fused_qi_pt``  <- ``fused_qi_pt_pallas``: ``a`` quantized in the kernel
                    against pre-quantized int8 ``b``; returns y and a's
                    mantissas.
+  ``fused_ii_pt``  <- ``fused_ii_pt_pallas``: both operands int8 mantissas
+                   (the backward's dW on stored residuals), int8 x int8 ->
+                   int32 x 2^(sa + sb); no quantize stage, no rounding bits.
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
 -> y (B, M, N).  The CUDA source is ``csrc/fused_linear.cu``; its note
@@ -29,8 +32,8 @@ import torch
 from . import build
 
 __all__ = ["quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
-           "fused_qq_pt", "fused_qi_pt", "fused_qq_pt_plain",
-           "fused_qi_pt_plain", "as_u32"]
+           "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_pt_plain",
+           "fused_qi_pt_plain", "fused_ii_pt_plain", "as_u32"]
 
 _F32_EXP_BIAS = 127
 _F32_MANT_BITS = 23
@@ -103,6 +106,12 @@ def fused_qi_pt_plain(a, ra, b_m, ea, eb, *, pa=7, pb=7, stochastic=True):
     return y, am
 
 
+def fused_ii_pt_plain(a_m, b_m, ea, eb, *, pa=7, pb=7):
+    """Plain version of ``fused_ii_pt``: y."""
+    return int8_dot(a_m, b_m).to(torch.float32) * pow2_f32(
+        scale_exp(ea, pa) + scale_exp(eb, pb))
+
+
 def as_u32(r: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> int32 tensor with the same bits (an
     int32 tensor is taken as already converted)."""
@@ -142,6 +151,8 @@ def _lib_linear() -> ctypes.CDLL:
         lib.repro_fused_qq.restype = i
         lib.repro_fused_qi.argtypes = [vp] * 7 + [i] * 7 + [vp]
         lib.repro_fused_qi.restype = i
+        lib.repro_fused_ii.argtypes = [vp] * 5 + [i] * 6 + [vp]
+        lib.repro_fused_ii.restype = i
         lib._typed = True
     return lib
 
@@ -214,6 +225,28 @@ def fused_qi_pt(a: torch.Tensor, ra: Optional[torch.Tensor],
     return y, am
 
 
+def fused_ii_pt(a_m: torch.Tensor, b_m: torch.Tensor, ea: torch.Tensor,
+                eb: torch.Tensor, *, pa: int = 7, pb: int = 7) -> torch.Tensor:
+    """a_m (B, M, K) int8, b_m (B, N, K) int8 mantissas, int32 biased
+    exponents -> y (B, M, N) f32."""
+    if not a_m.is_cuda:
+        return fused_ii_pt_plain(a_m, b_m, ea, eb, pa=pa, pb=pb)
+    nb, m, k = a_m.shape
+    n = b_m.shape[1]
+    dev = a_m.device
+    _check("a_m", a_m, torch.int8, (nb, m, k), dev)
+    _check("b_m", b_m, torch.int8, (nb, n, k), dev)
+    ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
+    y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
+    err = _lib_linear().repro_fused_ii(
+        _ptr(a_m), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y), nb, m, n, k, pa,
+        pb, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "fused_ii_pt")
+    fused_ii_pt.launches += 1
+    return y
+
+
 # Launches of each kernel since the count was last set to 0.
 fused_qq_pt.launches = 0
 fused_qi_pt.launches = 0
+fused_ii_pt.launches = 0

@@ -25,7 +25,7 @@ import torch
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core import prng
 from ..core.policy import FLOAT32, PAPER_INT8, NumericPolicy
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from ..models.common import ArchConfig
 from ..models.registry import get_model
 from .steps import make_decode_step, make_prefill_step, quantize_serving_params
@@ -78,11 +78,6 @@ def load_params(cfg: ArchConfig, policy: NumericPolicy, seed: int,
     return params
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, policy_name: str = "int8",
           seed: int = 0, qweights: bool = True, qcache: bool = False,
@@ -105,12 +100,12 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     decode_fn = make_decode_step(cfg, policy, dev)
 
     with torch.inference_mode():
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         cache, logits = prefill_fn(params, {"tokens": prompts},
                                    prng.fold_in(key, 3))
         tok = logits.argmax(dim=-1)
-        _sync(dev)
+        synchronize(dev)
         t_prefill = time.perf_counter() - t0
         all_logits, out_tokens = [logits], [tok]
         t0 = time.perf_counter()
@@ -120,7 +115,7 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
             tok = logits.argmax(dim=-1)
             all_logits.append(logits)
             out_tokens.append(tok)
-        _sync(dev)
+        synchronize(dev)
         t_decode = time.perf_counter() - t0
     steps = max(gen - 1, 1)
     stats = {"prefill_s": t_prefill, "decode_s": t_decode,

@@ -1,10 +1,12 @@
-"""Quantized attention: chunked online softmax (prefill) and decode off the
-int8 cache.
+"""Quantized attention: chunked online softmax (prefill and training) and
+decode off the int8 cache.
 
-The port of ``repro.models.attention`` for the dense serving path.  QKᵀ and
-PV are integer contractions; the softmax stays float32 (paper §5).  The
-qflow branch (pre-quantized Q/K/V and the fused flash-attention kernels)
-is not ported yet.
+The port of ``repro.models.attention`` for the dense path.  QKᵀ and PV are
+integer contractions (``qbmm``, differentiable with the A.2 backward); the
+softmax stays float32 (paper §5) and is rounded as the reference rounds it
+(``core.fmath``), so ``chunked_attention`` is held against the reference's
+values and gradients.  The qflow branch (pre-quantized Q/K/V and the fused
+flash-attention kernels) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from ..core import prng
+from ..core import fmath, prng
 from ..core.bfp import BFP, PER_TENSOR, QuantConfig
 from ..core.policy import NumericPolicy
 from ..core.qops import (qbmm, qcache_attention, qcache_pv, qcache_qk,
@@ -46,6 +48,23 @@ def _qpos(s: int, g: int, offset: int, device) -> torch.Tensor:
 
 def _fold(key: Optional[prng.Key], data: int) -> Optional[prng.Key]:
     return None if key is None else prng.fold_in(key, data)
+
+
+class _Normalize(torch.autograd.Function):
+    """acc / l over the rows, with the reference's backward:
+    d acc = g / l, d l = sum_D((-g * acc) * (1 / (l * l)))."""
+
+    @staticmethod
+    def forward(ctx, acc, l):
+        ctx.save_for_backward(acc, l)
+        return acc / l[..., None]
+
+    @staticmethod
+    def backward(ctx, g):
+        acc, l = ctx.saved_tensors
+        lc = l[..., None]
+        dl = fmath.sum_windows((-g * acc) * (1.0 / (lc * lc)), (-1,))
+        return g / lc, dl
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,12 +116,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask &= kpos[None, :] < kv_len
         sck = torch.where(mask, sck, torch.full_like(sck, _NEG))
         m_new = torch.maximum(m, sck.amax(dim=-1))
-        p = torch.where(mask, torch.exp(sck - m_new[..., None]),
+        p = torch.where(mask, fmath.exp(sck - m_new[..., None]),
                         torch.zeros_like(sck))
-        alpha = torch.exp(m - m_new)
+        alpha = fmath.exp(m - m_new)
         pv = qbmm(p, vb, _fold(ckey, 1), policy)
-        m, l, acc = m_new, l * alpha + p.sum(dim=-1), acc * alpha[..., None] + pv
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+        m, l, acc = (m_new, fmath.fma(l, alpha, fmath.sum_windows(p, (-1,))),
+                     fmath.fma(acc, alpha[..., None], pv))
+    out = _Normalize.apply(acc, torch.clamp(l, min=1e-30))
     return _ungroup(out, hq)
 
 

@@ -1,9 +1,12 @@
-"""Decoder-only transformer, dense family: serving forward passes.
+"""Decoder-only transformer, dense family: training loss, prefill, decode.
 
 The port of the dense path of ``repro.models.transformer``: integer
 embedding, integer RMS/LayerNorm, quantized Q/K/V/O and gated-MLP
-projections, chunked attention at prefill and decode attention over the
-(int8) KV cache.  Softmax, SiLU and RoPE stay float32 (paper §5).  Layer
+projections, chunked attention at prefill and in training, decode
+attention over the (int8) KV cache, and the next-token loss.  Every op is
+differentiable with the reference's backward (the integer ops' A.2 rule,
+the float ops rounded as in ``core.fmath``).  Softmax, SiLU and RoPE stay
+float32 (paper §5).  Layer
 weights are stacked along a leading ``(L, ...)`` axis; a Python loop over
 layer slices replaces ``lax.scan``.  Keys follow the JAX package's
 ``split``/``fold_in`` chain, so with the same parameters and key the two
@@ -25,11 +28,11 @@ from ..core.policy import (QC_ROWS, QW_NONE, QW_STACKED, QW_TENSOR,
 from ..core.qnorm import qlayernorm, qrmsnorm
 from ..core.qops import qcache_append, qcache_prefill, qembed, qmatmul
 from .attention import chunked_attention, decode_attention
-from .common import (ArchConfig, CachePageSpec, apply_rope, dense_init, rope,
-                     weight_t)
+from .common import (ArchConfig, CachePageSpec, add_bias, apply_rope,
+                     dense_init, glu_act, rope, softmax_xent, weight_t)
 
 __all__ = ["init_params", "weight_mask", "cache_layout", "cache_page_spec",
-           "init_cache", "forward_hidden", "prefill", "decode_step"]
+           "init_cache", "forward_hidden", "loss_fn", "prefill", "decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -157,19 +160,21 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _attn_block(h, lp, key, policy, cfg, *, positions, kv=None, pos=None):
+def _attn_block(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
     """Self-attention: prefill when ``kv`` is None, else decode against the
-    cache (updated in place)."""
+    cache (updated in place); ``cos_sin`` are the rope tables of the
+    pass's positions."""
     kq, ka, ko = prng.split(key, 3)
     q = qmatmul(h, lp["wq"], prng.fold_in(kq, 0), policy)
     k = qmatmul(h, lp["wk"], prng.fold_in(kq, 1), policy)
     v = qmatmul(h, lp["wv"], prng.fold_in(kq, 2), policy)
     if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q, k, v = (add_bias(q, lp["bq"]), add_bias(k, lp["bk"]),
+                   add_bias(v, lp["bv"]))
     q = _heads(q, cfg.n_heads, cfg.hd)
     k = _heads(k, cfg.n_kv_heads, cfg.hd)
     v = _heads(v, cfg.n_kv_heads, cfg.hd)
-    cos, sin = rope(positions, cfg.hd, cfg.rope_theta)
+    cos, sin = cos_sin
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if kv is None:
@@ -198,19 +203,15 @@ def _mlp_block(h, lp, key, policy, cfg):
     k1, k2, k3 = prng.split(key, 3)
     gate = qmatmul(h, lp["w_gate"], k1, policy)
     up = qmatmul(h, lp["w_up"], k2, policy)
-    if cfg.act == "silu":
-        act = gate * torch.sigmoid(gate) * up
-    else:
-        act = torch.nn.functional.gelu(gate, approximate="tanh") * up
-    return qmatmul(act, lp["w_down"], k3, policy)
+    return qmatmul(glu_act(up, gate, cfg.act), lp["w_down"], k3, policy)
 
 
-def _layer(h, lp, key, policy, cfg, *, positions, kv=None, pos=None):
+def _layer(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
     if policy.enabled and (policy.fused_proj or policy.qflow):
         raise NotImplementedError("fused_proj / qflow seams are not ported yet")
     kn1, kattn, kn2, kmlp = prng.split(key, 4)
     hn = _norm(h, lp["ln1_g"], lp.get("ln1_b"), kn1, policy, cfg)
-    a, new_kv = _attn_block(hn, lp, kattn, policy, cfg, positions=positions,
+    a, new_kv = _attn_block(hn, lp, kattn, policy, cfg, cos_sin=cos_sin,
                             kv=kv, pos=pos)
     h = h + a
     hn = _norm(h, lp["ln2_g"], lp.get("ln2_b"), kn2, policy, cfg)
@@ -233,17 +234,26 @@ def forward_hidden(params, tokens: torch.Tensor, key: prng.Key,
     _check_family(cfg)
     b, s = tokens.shape
     h = qembed(tokens, params["embed"], prng.fold_in(key, 0xE0), policy)
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    cos_sin = rope(0, s, cfg.hd, cfg.rope_theta, tokens.device)
     kvs = []
     for i in range(cfg.n_layers):
         lp = _layer_slice(params["layers"], i)
         h, kv = _layer(h, lp, prng.fold_in(key, i), policy, cfg,
-                       positions=positions)
+                       cos_sin=cos_sin)
         if collect_kv:
             kvs.append(kv)
     h = _norm(h, params["fn_g"], params.get("fn_b"), prng.fold_in(key, 0xF1),
               policy, cfg)
     return h, (kvs if collect_kv else None)
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], key: prng.Key,
+            policy: NumericPolicy, cfg: ArchConfig) -> torch.Tensor:
+    """Next-token cross entropy on {tokens, labels} (a dense model has no
+    auxiliary loss)."""
+    h, _ = forward_hidden(params, batch["tokens"], key, policy, cfg)
+    logits = _lm_logits(params, h, prng.fold_in(key, 0xF2), policy, cfg)
+    return softmax_xent(logits, batch["labels"])
 
 
 def prefill(params, tokens: torch.Tensor, key: prng.Key,
@@ -275,7 +285,7 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, key: prng.Key,
     _check_family(cfg)
     h = qembed(token[:, None], params["embed"], prng.fold_in(key, 0xE0),
                policy)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=token.device)
+    cos_sin = rope(pos, 1, cfg.hd, cfg.rope_theta, token.device)
     for i in range(cfg.n_layers):
         lp = _layer_slice(params["layers"], i)
         kc, vc = cache["k"], cache["v"]
@@ -284,7 +294,7 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, key: prng.Key,
         else:
             kv = (kc[i], vc[i])
         h, _ = _layer(h, lp, prng.fold_in(key, i), policy, cfg,
-                      positions=positions, kv=kv, pos=pos)
+                      cos_sin=cos_sin, kv=kv, pos=pos)
     h = _norm(h, params["fn_g"], params.get("fn_b"), prng.fold_in(key, 0xF1),
               policy, cfg)
     logits = _lm_logits(params, h, prng.fold_in(key, 0xF2), policy, cfg)

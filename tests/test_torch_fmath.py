@@ -1,0 +1,74 @@
+"""core.fmath against the reference's float32 ops as its XLA CPU build
+runs them under ``jax.jit``: the contracted multiply-add, exp, the
+logistic, and sums in the reference's order ``==`` on random inputs; log
+within one ulp (its Cephes evaluation order is reproduced up to a rare
+last-bit difference, about 3 in 10^4 inputs)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.common import rope as jax_rope
+from repro_torch.core import fmath
+from repro_torch.models.common import rope
+
+
+def _f32(rng, n, scale):
+    return (rng.randn(n) * scale).astype(np.float32)
+
+
+def test_elementwise_equal_jax():
+    rng = np.random.RandomState(0)
+    x = _f32(rng, 20000, 10)
+    a, b, c = (_f32(rng, 20000, 3) for _ in range(3))
+    T = torch.from_numpy
+    np.testing.assert_array_equal(fmath.exp(T(x)).numpy(),
+                                  np.asarray(jax.jit(jnp.exp)(x)))
+    np.testing.assert_array_equal(fmath.logistic(T(x)).numpy(),
+                                  np.asarray(jax.jit(jax.nn.sigmoid)(x)))
+    np.testing.assert_array_equal(
+        fmath.fma(T(a), T(b), T(c)).numpy(),
+        np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c)))
+    pos = np.exp(_f32(rng, 20000, 4)).astype(np.float32)
+    got = fmath.log(T(pos)).numpy().view(np.int32).astype(np.int64)
+    want = np.asarray(jax.jit(jnp.log)(pos)).view(np.int32).astype(np.int64)
+    assert np.abs(got - want).max() <= 1
+    assert (got != want).mean() < 1e-3
+
+
+@pytest.mark.parametrize("shape,dims", [((33,), (0,)), ((151936,), (0,)),
+                                        ((2, 16, 56), (0, 1)),
+                                        ((4, 128, 96), (0, 1)),
+                                        ((112, 16), (1,)), ((40, 3, 50), (0, 2))])
+def test_sum_order_equal_jax(shape, dims):
+    rng = np.random.RandomState(len(shape))
+    x = (rng.randn(*shape) * np.exp(rng.randn(*shape) * 2)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=dims))(x))
+    np.testing.assert_array_equal(
+        fmath.sum_windows(torch.from_numpy(x), dims).numpy(), want)
+
+
+@pytest.mark.parametrize("start,length", [(0, 128), (37, 5), (1500, 1)])
+def test_rope_tables_equal_jax_runtime_tables(start, length):
+    """The reference computes its rope tables inside the jitted step (the
+    C library's sinf/cosf); the port's host tables equal them, for a
+    prefill's positions and for a decode step's slice."""
+    pos = np.arange(start, start + length, dtype=np.int32)
+    want = jax.jit(lambda p: jax_rope(p, 64, 1_000_000.0))(pos)
+    got = rope(start, length, 64, 1_000_000.0, "cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_rope_tables_cached_under_inference_mode_serve_training():
+    """Tables first made while serving (inference mode) are ordinary
+    tensors: a later training pass saves them for its backward."""
+    from repro_torch.models.common import _rope_tables, apply_rope
+    _rope_tables.cache_clear()
+    with torch.inference_mode():
+        rope(0, 8, 16, 10000.0, "cpu")
+    x = torch.randn(1, 8, 16, requires_grad=True)
+    apply_rope(x, *rope(0, 8, 16, 10000.0, "cpu")).sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape

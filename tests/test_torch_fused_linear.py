@@ -1,6 +1,6 @@
-"""The qq / qi kernels' plain versions and dispatch.contract_qq/qi against
-the JAX package's fused_qq_pt_pallas / fused_qi_pt_pallas run in
-interpret mode (through repro.kernels.dispatch, which pads to the TPU
+"""The qq / qi / ii kernels' plain versions and dispatch.contract_qq/qi/ii
+against the JAX package's fused_qq_pt_pallas / fused_qi_pt_pallas /
+fused_ii_pt_pallas run in interpret mode (through repro.kernels.dispatch, which pads to the TPU
 tiling): y, mantissas and exponents ``==`` at prime, non-padded shapes
 and with a leading batch.  The CUDA kernels themselves are held against
 the plain versions on the card by tests/test_torch_kernels_cuda.py."""
@@ -85,6 +85,33 @@ def test_contract_qi_equal_jax_interpret(lead, m, k, n, stochastic):
     assert int(at.e) == int(aj.e)
 
 
+@pytest.mark.parametrize("lead,m,k,n", [((), 37, 67, 29), ((3,), 13, 41, 17),
+                                        ((), 5, 130, 300)])
+def test_contract_ii_equal_jax_interpret(lead, m, k, n):
+    rng = np.random.RandomState(m + n)
+    am = rng.randint(-127, 128, (*lead, m, k)).astype(np.int8)
+    bm = rng.randint(-127, 128, (*lead, n, k)).astype(np.int8)
+    from repro.core.bfp import BFP as JBFP
+    cfg_j, cfg_t = JQ(8, 0, True), QuantConfig(8, 0, True)
+    yj = jd.contract_ii(JBFP(jnp.asarray(am), jnp.int32(124), cfg_j),
+                        JBFP(jnp.asarray(bm), jnp.int32(117), cfg_j),
+                        _jdec("qmatmul_dw", m, k, n), nbatch=len(lead))
+    aq = BFP(torch.from_numpy(am), torch.tensor(124, dtype=torch.int32), cfg_t)
+    bq = BFP(torch.from_numpy(bm), torch.tensor(117, dtype=torch.int32), cfg_t)
+    yt = kd.contract_ii(aq, bq, _tdec("qmatmul_dw", m, k, n, "ii"),
+                        nbatch=len(lead))
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+    # transposed residual views (the backward's X̂ᵀ, Ĝᵀ) give the same y
+    yv = kd.contract_ii(BFP(aq.m.transpose(-1, -2).contiguous()
+                            .transpose(-1, -2), aq.e, cfg_t), bq,
+                        _tdec("qmatmul_dw", m, k, n, "ii"), nbatch=len(lead))
+    assert torch.equal(yv, yt)
+    if not lead:
+        yp = kfl.fused_ii_pt_plain(aq.m[None], bq.m[None], aq.e, bq.e)[0]
+        assert torch.equal(yp, yt)
+        assert torch.equal(yp, kd._jnp_matmul(aq.m, bq.m, aq.e, bq.e, 7, 7))
+
+
 def test_plain_versions_equal_quantize_then_matmul():
     """The plain kernels = core.bfp.quantize + the exact integer GEMM."""
     rng = np.random.RandomState(3)
@@ -134,7 +161,11 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     y, _, _ = kfl.fused_qq_pt(a, r, a, r, e, e)
     y2, _, _ = kfl.fused_qq_pt_plain(a, r, a, r, e, e)
     assert torch.equal(y, y2)
-    assert kd.kernel_launches() == {"qq": 0, "qi": 0, "attn_decode": 0}
+    assert torch.equal(kfl.fused_ii_pt(am_i8 := torch.ones(1, 5, 8, dtype=torch.int8),
+                                       am_i8, e, e),
+                       kfl.fused_ii_pt_plain(am_i8, am_i8, e, e))
+    assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0,
+                                    "attn_decode": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [
@@ -150,6 +181,16 @@ def test_plan_contract_routes(mode, device, bits, k, want):
         d = kd.plan_contract("qmatmul_fwd", 4, k, 8, QuantConfig(bits),
                              kind="qi", kernel_mode=mode, device=device)
     assert d.path == want and log == [d] and d.reason
+
+
+@pytest.mark.parametrize("mode,device,k,want", [
+    ("auto", "cpu", 512, kd.JNP), ("auto", "cuda", 512, kd.FUSED),
+    ("fused", "cpu", 512, kd.FUSED), ("fused", "cuda", 140000, kd.JNP)])
+def test_plan_contract_routes_dw_to_ii(mode, device, k, want):
+    d = kd.plan_contract("qmatmul_dw", 896, k, 151936, QuantConfig(),
+                         kind="ii", cfg2=QuantConfig(), kernel_mode=mode,
+                         device=device)
+    assert d.path == want and d.kind == "ii" and d.reason
 
 
 def test_plan_contract_rejects_unported_unfused_mode():

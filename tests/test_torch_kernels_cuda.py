@@ -48,7 +48,30 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want = kfl.fused_qi_pt_plain(a, ra, bm, ea, eb, stochastic=stochastic)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert kd.kernel_launches() == {"qq": 2, "qi": 1, "attn_decode": 0}
+    assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0,
+                                    "attn_decode": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,m,k,n", [(1, 896, 512, 1000), (1, 37, 67, 29),
+                                      (8, 64, 896, 128), (2, 13, 130, 70),
+                                      (3, 5, 33, 17)])
+def test_ii_kernel_equal_plain(cuda, nb, m, k, n):
+    """K not a multiple of the 32-wide slice nor of 4 (the unvectorised
+    load), M under and over the 16-row tile, a batch grid dimension."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    am = torch.randint(-127, 128, (nb, m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    bm = torch.randint(-127, 128, (nb, n, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    ea = torch.tensor(125, dtype=torch.int32, device=cuda)
+    eb = torch.tensor(119, dtype=torch.int32, device=cuda)
+    kd.reset_kernel_launches()
+    got = kfl.fused_ii_pt(am, bm, ea, eb, pa=7, pb=7)
+    want = kfl.fused_ii_pt_plain(am, bm, ea, eb, pa=7, pb=7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kd.kernel_launches()["ii"] == 1
 
 
 @pytest.mark.cuda
@@ -85,3 +108,7 @@ def test_wrappers_reject_wrong_operands(cuda):
         kfl.fused_qi_pt(a, None, torch.zeros((1, 3, 8), dtype=torch.int16,
                                              device=cuda), e, e,
                         stochastic=False)
+    with pytest.raises(ValueError):
+        kfl.fused_ii_pt(torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda),
+                        torch.zeros((1, 3, 7), dtype=torch.int8, device=cuda),
+                        e, e)

@@ -1,6 +1,7 @@
-"""repro_torch.core.qnorm forward against repro.core.qnorm: the integer
-RMSNorm and LayerNorm outputs are ``==`` for the same key (every shift,
-rsqrt step and rounding bit is integer)."""
+"""repro_torch.core.qnorm against repro.core.qnorm: the integer RMSNorm and
+LayerNorm outputs and their integer backward (dx, dgamma, dbeta) are
+``==`` for the same key (every shift, rsqrt step and rounding bit is
+integer)."""
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,48 @@ def test_qlayernorm_equal_jax(shape):
                         torch.from_numpy(b), prng.key(9),
                         tpol.NumericPolicy())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _port_vjp(fn, args, g):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y = fn(*ts)
+    return y.detach().numpy(), [d.numpy() for d in
+                                torch.autograd.grad(y, ts, torch.from_numpy(g))]
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 56), (7, 33)])
+def test_qrmsnorm_backward_equal_jax(shape):
+    x, g, _ = _inputs(11, shape)
+    gy = np.random.RandomState(12).randn(*shape).astype(np.float32)
+
+    def jfn(x, g, gy):
+        y, vjp = jax.vjp(lambda x, g: jq.qrmsnorm(x, g, jax.random.key(3),
+                                                  jpol.NumericPolicy()), x, g)
+        return y, vjp(gy)
+
+    jy, (jdx, jdg) = jax.jit(jfn)(x, g, gy)
+    ty, (tdx, tdg) = _port_vjp(lambda x, g: tq.qrmsnorm(
+        x, g, prng.key(3), tpol.NumericPolicy()), (x, g), gy)
+    np.testing.assert_array_equal(ty, np.asarray(jy))
+    np.testing.assert_array_equal(tdx, np.asarray(jdx))
+    np.testing.assert_array_equal(tdg, np.asarray(jdg))
+
+
+def test_qlayernorm_backward_equal_jax():
+    x, g, b = _inputs(13, (6, 40))
+    gy = np.random.RandomState(14).randn(6, 40).astype(np.float32)
+
+    def jfn(x, g, b, gy):
+        y, vjp = jax.vjp(lambda x, g, b: jq.qlayernorm(
+            x, g, b, jax.random.key(4), jpol.NumericPolicy()), x, g, b)
+        return y, vjp(gy)
+
+    jy, jd = jax.jit(jfn)(x, g, b, gy)
+    ty, td = _port_vjp(lambda x, g, b: tq.qlayernorm(
+        x, g, b, prng.key(4), tpol.NumericPolicy()), (x, g, b), gy)
+    np.testing.assert_array_equal(ty, np.asarray(jy))
+    for t, j in zip(td, jd):
+        np.testing.assert_array_equal(t, np.asarray(j))
 
 
 def test_fx_rsqrt_equal_jax():

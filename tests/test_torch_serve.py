@@ -193,7 +193,11 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.launch.serve, "
-            "repro_torch.convert, repro_torch.kernels.dispatch; "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.convert, repro_torch.kernels.dispatch, "
+            "repro_torch.core.fmath, repro_torch.core.integer_sgd, "
+            "repro_torch.optim, repro_torch.data, "
+            "repro_torch.models.transformer; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,0 +1,165 @@
+"""The trainer's options on the CPU, against the JAX package: microbatch
+gradient accumulation, the WSD schedule and the float32 baseline.
+
+* Three ``PAPER_INT8`` steps of the qwen2 smoke config with two
+  microbatches and a decaying WSD learning rate end, on the port and on
+  live JAX, with every int16 master and momentum leaf ``==``.
+* Float32 SGD equals the reference's jitted float32
+  arithmetic ``==``.
+* Three float32-baseline steps (``make_float_train_step``) stay within a
+  measured bound of JAX's: the float matmuls sum in another order than the
+  reference's XLA dot (``torch.matmul`` is not rounded as XLA rounds it),
+  so parameters and losses drift by ulps.  Measured here (qwen2 smoke
+  config, 3 steps of 2x16 tokens): every parameter and momentum leaf
+  within 2.2e-6 of its largest magnitude (bk's momentum; 1.2e-7 absolute
+  on the parameters, 6.0e-7 on the momentum), losses within 1 ulp; held to
+  ``FLOAT_REL`` of each leaf's largest magnitude and ``LOSS_ULPS``, with
+  room for another thread count's matmul blocking.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.core import PAPER_INT8
+from repro.core import integer_sgd as jsgd
+from repro.launch import steps as jsteps
+from repro.models import get_model
+from repro.optim import optimizers as jopt
+from repro_torch.configs import get_smoke_config as torch_smoke_config
+from repro_torch.convert import params_from_numpy, state_leaves_numpy
+from repro_torch.core import prng
+from repro_torch.core import integer_sgd as tsgd
+from repro_torch.core.policy import NumericPolicy
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch.train import train_hyper
+from repro_torch.optim import optimizers as topt
+
+ARCH, STEPS, BATCH, SEQ = "qwen2_0_5b", 3, 2, 16
+FLOAT_REL = 8e-6
+LOSS_ULPS = 4
+
+
+def _ulps(a, b):
+    a, b = np.float32(a), np.float32(b)
+    return abs(int(a.view(np.int32)) - int(b.view(np.int32)))
+
+
+def _wsd_port(s):
+    return topt.wsd_schedule(s, 0.05, 0, 0, 3)
+
+
+def _wsd_jax(s):
+    return jopt.wsd_schedule(s, 0.05, 0, 0, 3)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = get_smoke_config(ARCH)
+    with jax.threefry_partitionable(False):
+        params = get_model(cfg).init_params(jax.random.key(0), cfg)
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH, seed=0)
+    batches = [ds.batch_for_step(i) for i in range(STEPS)]
+    return cfg, jax.tree_util.tree_map(np.array, params), batches
+
+
+def _jax_run(step_fn, state, batches, key):
+    losses = []
+    for i, b in enumerate(batches):
+        state, loss = step_fn(state, {k: jnp.asarray(v) for k, v in b.items()},
+                              jax.random.fold_in(key, i))
+        losses.append(float(loss))
+    return losses, state
+
+
+def _port_run(step_fn, state, batches, key):
+    losses = []
+    for i, b in enumerate(batches):
+        state, loss = step_fn(state, b, prng.fold_in(key, i))
+        losses.append(float(loss))
+    return losses, state
+
+
+def test_microbatch_and_wsd_steps_equal_live_jax(setup):
+    cfg, np_params, batches = setup
+    hyper = dataclasses.replace(train_hyper(STEPS, microbatch=2),
+                                schedule=_wsd_port)
+    key = prng.key(0, partitionable=False)
+    state = tsgd.integer_sgd_init(params_from_numpy(np_params, "cpu"),
+                                  NumericPolicy(), key=key)
+    init = state_leaves_numpy(state)
+    step = tsteps.make_train_step(torch_smoke_config(ARCH), NumericPolicy(),
+                                  hyper, "cpu")
+    losses, state = _port_run(step, state, batches, key)
+    with jax.threefry_partitionable(False):
+        jkey = jax.random.key(0)
+        treedef = jax.tree_util.tree_structure(jax.eval_shape(
+            lambda: jsgd.integer_sgd_init(np_params, PAPER_INT8, key=jkey)))
+        jstate = jax.tree_util.tree_unflatten(treedef,
+                                              [jnp.asarray(a) for a in init])
+        jhyper = jsteps.TrainHyper(lr=0.05, momentum=0.9, microbatch=2,
+                                   schedule=_wsd_jax)
+        jlosses, jstate = _jax_run(
+            jax.jit(jsteps.make_train_step(cfg, PAPER_INT8, jhyper)), jstate,
+            batches, jkey)
+    jleaves = jax.tree_util.tree_leaves(jstate)
+    assert len(jleaves) == 57
+    for i, (got, want) in enumerate(zip(state_leaves_numpy(state), jleaves)):
+        np.testing.assert_array_equal(got, np.asarray(want),
+                                      err_msg=f"state leaf {i}")
+    for got, want in zip(losses, jlosses):
+        assert _ulps(got, want) <= LOSS_ULPS, (losses, jlosses)
+
+
+def test_float32_baseline_steps_within_bound_of_jax(setup):
+    cfg, np_params, batches = setup
+    params = params_from_numpy(np_params, "cpu")
+    step = tsteps.make_float_train_step(torch_smoke_config(ARCH),
+                                        tsteps.TrainHyper(lr=0.05,
+                                                          momentum=0.9),
+                                        "cpu")
+    losses, (params, opt) = _port_run(step, (params, topt.sgd_init(params)),
+                                      batches, prng.key(0))
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jstep = jax.jit(jsteps.make_float_train_step(
+        cfg, jsteps.TrainHyper(lr=0.05, momentum=0.9)))
+    jlosses, (jparams, jopt_state) = _jax_run(
+        jstep, (jparams, jopt.sgd_init(jparams)), batches, jax.random.key(0))
+    assert opt.step == int(jopt_state.step) == STEPS
+    for tree, jtree in ((params, jparams), (opt.momentum, jopt_state.momentum)):
+        got = [x.numpy() for _, x in tsgd.tree_items(tree)]
+        want = [np.asarray(x) for x in jax.tree_util.tree_leaves(jtree)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() <= FLOAT_REL * np.abs(w).max()
+    for got, want in zip(losses, jlosses):
+        assert _ulps(got, want) <= LOSS_ULPS, (losses, jlosses)
+
+
+def test_sgd_step_equals_jax():
+    rng = np.random.RandomState(0)
+    tree = {"a": rng.randn(7, 33).astype(np.float32),
+            "b": {"c": rng.randn(50).astype(np.float32) * 1e-3}}
+    grads = [tsgd.tree_map(lambda x: (rng.randn(*x.shape) * 1e-2)
+                           .astype(np.float32), tree) for _ in range(3)]
+    jfn = jax.jit(jopt.sgd_step, static_argnames=("momentum", "weight_decay"))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    js = jopt.sgd_init(jp)
+    tp = tsgd.tree_map(torch.from_numpy, tree)
+    ts = topt.sgd_init(tp)
+    for i, g in enumerate(grads):
+        lr = 0.05 / (i + 1)
+        js, jp = jfn(js, jp, jax.tree_util.tree_map(jnp.asarray, g),
+                     jnp.float32(lr), momentum=0.9, weight_decay=1e-3)
+        ts, tp = topt.sgd_step(ts, tp, tsgd.tree_map(torch.from_numpy, g),
+                               float(np.float32(lr)), 0.9, 1e-3)
+    for t, j in ((tp, jp), (ts.momentum, js.momentum)):
+        for (_, got), want in zip(tsgd.tree_items(t),
+                                  jax.tree_util.tree_leaves(j)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
