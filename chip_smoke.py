@@ -10,8 +10,10 @@ Phases, any of which failing exits non-zero:
    and hold it against its plain torch version on the same inputs: ``qq``,
    ``qi`` and ``ii`` y and mantissas ``==``, ``attn_decode`` y within
    ``DECODE_Y_RTOL`` (kernels/fused_attention.py) of the plain y's largest
-   magnitude; time kernel, plain version and one library call, and
-   compute the card's bound for the same work;
+   magnitude, ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
+   at the qwen2 training slice and at an odd shape; time kernel, plain
+   version and one library call where there is one, and compute the
+   card's bound for the same work;
 3. serve full-width qwen2-0.5b (random weights from a seeded generator):
    4 prompts x 128 tokens, 32 greedy tokens, int8 weights quantized once
    and an int8 KV cache, with the launch counts set to 0 just before and
@@ -20,16 +22,20 @@ Phases, any of which failing exits non-zero:
    ``==``, decode logits within ``DECODE_LOGIT_RTOL`` of their largest
    magnitude (decode attention's softmax sum differs in order, and a
    stochastic-rounding decision downstream can move with it);
-4. train full-width qwen2-0.5b: 3 int8 steps (int8 forward, A.2 integer
-   backward, int16 SGD; batch 4 x 128 tokens of ``SyntheticLM(seed=0)``,
-   random weights from ``torch.Generator(0)``) through ``launch.train``,
-   the launch counts set to 0 just before and read just after; then replay
-   the same 3 steps from the same state with every kernel swapped for its
-   plain version: the losses and every int16 master and momentum leaf
-   ``==``.  Also the step's device busy share under ``torch.profiler``
+4. train full-width qwen2-0.5b: ``TRAIN_STEPS_INT8`` int8 steps (int8
+   forward, A.2 integer backward, int16 SGD; batch 4 x 128 tokens of
+   ``SyntheticLM(seed=0)``, random weights from ``torch.Generator(0)``)
+   through ``launch.train``, the launch counts set to 0 just before and
+   read just after; then replay the same steps from the same state with
+   every kernel swapped for its plain version: the losses and every int16
+   master and momentum leaf ``==``.  Also the step's device busy share under ``torch.profiler``
    and the peak device memory.  The phase runs under
    ``torch.use_deterministic_algorithms`` (warn-only: an op without a
-   deterministic implementation is named in the record, not hidden).
+   deterministic implementation is named in the record, not hidden);
+5. the same for ``int8_qflow`` training (quantized activations between
+   layers, attention through the fused ``attn_fwd`` / ``attn_bwd``
+   kernels): 3 steps, the launch counts read around them, the plain
+   replay ``==`` in losses and every master and momentum leaf.
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -59,6 +65,12 @@ INT8_OPS_PER_S = 1979e12
 
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen2_0_5b", 4, 128, 32, 0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 3, 4, 128, 0.05
+# Phase 4 (int8) steps, cut from 3 to 1 when phase 5 pushed the script
+# past 900 s of its 1200 s (PERF.md): phase 5 keeps all TRAIN_STEPS.
+TRAIN_STEPS_INT8 = 1
+# Kernels each training phase must launch.
+TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
+                 "int8_qflow": ("qq", "qi", "ii", "attn_fwd", "attn_bwd")}
 
 
 def _fail(msg: str) -> int:
@@ -284,6 +296,97 @@ def check_kernels(torch, dev, rec):
                     library_note="no single PyTorch call computes int8 "
                                  "scores, softmax, the per-row p quantize "
                                  "and int8 PV"))
+    out += check_attn_train(torch, dev, g, bits)
+    return out
+
+
+def check_attn_train(torch, dev, g, bits):
+    """attn_fwd and attn_bwd against their plain versions: the qwen2
+    training slice (B*Hkv = 8, GS = 7 x 128, T = 128, D = 64, causal) and
+    an odd shape (GS = 21, T = 200, kv_len = 170, two KV blocks, not
+    causal); timed at the training slice."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import fused_attention as kfa
+    from repro_torch.kernels import fused_linear as kfl
+
+    out = []
+    shapes = {"train": (TRAIN_BATCH * 2, 7 * TRAIN_SEQ, TRAIN_SEQ, 64,
+                        TRAIN_SEQ, TRAIN_SEQ, True),
+              "odd": (2, 21, 200, 12, 3, 170, False)}
+    timed = {}
+    for label, (bh, gs, t, d, s, kv_len, causal) in shapes.items():
+        def i8(*shape):
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+
+        qm, gm, km, vm = i8(bh, gs, d), i8(bh, gs, d), i8(bh, t, d), i8(bh, t, d)
+        rp, rs, rp2 = (bits(k, (bh, gs, t)) for k in (5, 6, 7))
+        eq, ek, ev, eg = (torch.tensor(v, dtype=torch.int32, device=dev)
+                          for v in (125, 125, 124, 110))
+        kw = dict(p=7, s=s, bt=dispatch.attn_block_t(t), causal=causal,
+                  window=0, stochastic=True)
+        fwd = (qm, km, vm, rp, eq, ek, ev, 0, kv_len)
+        got = kfa.attn_fwd(*fwd, **kw)
+        want = kfa.attn_fwd_plain(*fwd, **kw)
+        torch.cuda.synchronize()
+        err_f = max((x - y).abs().max().item() for x, y in zip(got, want))
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"attn_fwd {label}: kernel != plain "
+                                 f"(max |d| {err_f})")
+        _, m, l = want
+        delta = torch.randn((bh, gs, 1), generator=g, device=dev) * 1e-3
+        bwd = (qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, 0, kv_len)
+        got = kfa.attn_bwd(*bwd, **kw)
+        want = kfa.attn_bwd_plain(*bwd, **kw)
+        torch.cuda.synchronize()
+        err_b = max((x - y).abs().max().item() for x, y in zip(got, want))
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"attn_bwd {label}: kernel != plain "
+                                 f"(max |d| {err_b})")
+        if label == "train":
+            timed = dict(fwd=fwd, bwd=bwd, kw=kw, err_f=err_f, err_b=err_b,
+                         shape=[bh, gs, t, d], kv_len=kv_len, s=s,
+                         causal=causal)
+
+    bh, gs, t, d = timed["shape"]
+    kw = timed["kw"]
+    fwd32 = timed["fwd"][:3] + (kfl.as_u32(timed["fwd"][3]),) + timed["fwd"][4:]
+    b = timed["bwd"]
+    bwd32 = b[:7] + (kfl.as_u32(b[7]), kfl.as_u32(b[8])) + b[9:]
+    # the (row, position) pairs the masks leave visible: the work each
+    # integer product must do on this run's data
+    # and the rounding bits they read: a masked p, pn or dS is 0 whatever
+    # its bits are
+    qpos = torch.arange(gs, device=dev) % timed["s"]
+    kpos = torch.arange(t, device=dev)
+    vis = (kpos[None, :] < timed["kv_len"]).expand(gs, t)
+    if timed["causal"]:
+        vis = vis & (kpos[None, :] <= qpos[:, None])
+    pairs = bh * int(vis.sum().item())
+    for name, fn, plain, args, nbytes, ops, err, line in (
+            ("attn_fwd", kfa.attn_fwd, kfa.attn_fwd_plain, (fwd32, timed["fwd"]),
+             bh * (gs * d + 2 * t * d + 4 * gs * d + 8 * gs) + 4 * pairs + 12,
+             2 * 2 * d * pairs, timed["err_f"], 292),
+            ("attn_bwd", kfa.attn_bwd, kfa.attn_bwd_plain, (bwd32, timed["bwd"]),
+             bh * (2 * gs * d + 2 * t * d + 12 * gs + 4 * gs * d + 8 * t * d)
+             + 8 * pairs + 16,
+             5 * 2 * d * pairs, timed["err_b"], 402)):
+        ms = _device_ms(torch, lambda: fn(*args[0], **kw))
+        call = _time_ms(torch, lambda: fn(*args[0], **kw))
+        pms = _device_ms(torch, lambda: plain(*args[1], **kw), iters=3)
+        bound, by = _bound_ms(nbytes, ops)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/attn_train.cu",
+                        replaces=f"src/repro/kernels/fused_attention.py:{line}",
+                        shape=[bh, gs, t, d], max_abs_err=err, ms=ms,
+                        call_ms=call, plain_ms=pms, bound_ms=bound,
+                        bound_by=by, bytes=nbytes, ops=ops,
+                        library_ms=None,
+                        library_note="no single PyTorch call computes int8 "
+                                     "scores, the online softmax and the "
+                                     "in-kernel quantizations"))
+        print(f"{name}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
+              f"{by}; plain {pms:.3f} ms), kernel == plain at both shapes")
     return out
 
 
@@ -380,49 +483,57 @@ def serve_and_compare(torch, dev, rec):
     return launches
 
 
-def train_and_compare(torch, dev, rec):
+def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
+    """Train full-width qwen2-0.5b under ``policy_name`` for ``steps``
+    steps, the launch counts read around them, and replay the steps with
+    the plain versions (losses and every state leaf ``==``)."""
     import warnings
 
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.core.integer_sgd import tree_items
-    from repro_torch.core.policy import PAPER_INT8
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import dispatch
     from repro_torch.launch.steps import TrainHyper, make_train_step
-    from repro_torch.launch.train import train
+    from repro_torch.launch.train import POLICIES, train
 
-    kw = dict(smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-              seq=TRAIN_SEQ, lr=TRAIN_LR, momentum=0.9, seed=SEED, quiet=True)
+    kw = dict(smoke=False, steps=steps, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, lr=TRAIN_LR, momentum=0.9, seed=SEED, quiet=True,
+              policy_name=policy_name)
+    label = "train" if policy_name == "int8" else f"train_{policy_name}"
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(True, warn_only=True)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_kernel_launches()
+        t0 = time.perf_counter()
         with dispatch.record_decisions() as log:
             losses, state, stats = train(ARCH, **kw)
         torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
         launches = dispatch.kernel_launches()
         peak = torch.cuda.max_memory_allocated()
-        for name in ("qq", "qi", "ii"):
+        for name in TRAIN_KERNELS[policy_name]:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
-                                     f"training path")
+                                     f"{label} path")
         if not all(x == x and abs(x) < float("inf") for x in losses):
             raise AssertionError(f"non-finite training loss {losses}")
         step_s = sorted(stats["step_s"])[len(stats["step_s"]) // 2]
         tokens = TRAIN_BATCH * TRAIN_SEQ
-        per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+        per_step = {k: v / steps for k, v in launches.items()}
         jnp = sorted({(d.op, d.reason) for d in log if d.path == dispatch.JNP})
-        print(f"train qwen2-0.5b full width: {TRAIN_STEPS} steps of "
+        print(f"{label} qwen2-0.5b full width: {steps} steps of "
               f"{TRAIN_BATCH}x{TRAIN_SEQ}, {step_s:.3f} s/step (median), "
               f"{tokens / step_s:.1f} tokens/s, losses {losses}, launches "
               f"per step {per_step}, peak memory {peak / 2**30:.2f} GiB")
 
         # the same steps from the same state with the kernels' plain versions
+        t0 = time.perf_counter()
         with dispatch.plain_kernels():
-            losses_p, state_p, _ = train(ARCH, **kw)
+            losses_p, state_p, stats_p = train(ARCH, **kw)
+        replay_s = time.perf_counter() - t0
         if losses_p != losses:
             raise AssertionError(f"losses: kernel path {losses} != plain "
                                  f"path {losses_p}")
@@ -438,22 +549,24 @@ def train_and_compare(torch, dev, rec):
 
         # one more kernel-path step under the profiler
         cfg = get_config(ARCH)
-        step = make_train_step(cfg, PAPER_INT8,
+        step = make_train_step(cfg, POLICIES[policy_name],
                                TrainHyper(lr=TRAIN_LR, momentum=0.9), dev)
         batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                             global_batch=TRAIN_BATCH,
-                            seed=SEED).batch_for_step(TRAIN_STEPS)
+                            seed=SEED).batch_for_step(steps)
         step_profile(torch, lambda: step(state, batch, prng.fold_in(
-            prng.key(SEED), TRAIN_STEPS)), 1e3 * step_s, rec,
-            "train_step_profile")
+            prng.key(SEED), steps)), 1e3 * step_s, rec,
+            f"{label}_step_profile")
     torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message)[:200] for w in caught
                      if "deterministic" in str(w.message)})
-    rec["train"] = dict(stats, losses=losses, launches=launches,
-                        launches_per_step=per_step, step_s_median=step_s,
-                        tokens_per_s=tokens / step_s, peak_bytes=peak,
-                        plain_replay_equal=True, jnp_decisions=jnp,
-                        nondeterministic_ops=nondet)
+    rec[label] = dict(stats, losses=losses, launches=launches,
+                      launches_per_step=per_step, step_s_median=step_s,
+                      tokens_per_s=tokens / step_s, peak_bytes=peak,
+                      plain_replay_equal=True, jnp_decisions=jnp,
+                      nondeterministic_ops=nondet, train_call_s=train_s,
+                      replay_call_s=replay_s,
+                      replay_step_s=stats_p["step_s"])
     return launches
 
 
@@ -466,7 +579,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch", "kernels", "csrc")):
         return _fail(f"no src/repro_torch beside {__file__}")
     sys.path.insert(0, src)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, dispatch
 
     # cuBLAS is deterministic only with a fixed workspace (phase 4)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -480,12 +593,23 @@ def main() -> int:
     rec["nvcc"] = reports
     print(f"build: {sorted(build.SOURCES)} in {rec['build_s']:.1f} s")
 
-    kernels = check_kernels(torch, dev, rec)
-    by_path = {"serve": serve_and_compare(torch, dev, rec),
-               "train": train_and_compare(torch, dev, rec)}
+    phases = [("kernels", lambda: check_kernels(torch, dev, rec)),
+              ("serve", lambda: serve_and_compare(torch, dev, rec)),
+              ("train", lambda: train_and_compare(torch, dev, rec,
+                                                  steps=TRAIN_STEPS_INT8)),
+              ("train_int8_qflow", lambda: train_and_compare(
+                  torch, dev, rec, "int8_qflow"))]
+    results, rec["phase_s"] = {}, {}
+    for name, run in phases:
+        t1 = time.perf_counter()
+        results[name] = run()
+        rec["phase_s"][name] = time.perf_counter() - t1
+        print(f"phase {name}: {rec['phase_s'][name]:.1f} s")
+    kernels = results.pop("kernels")
+    by_path = results
     line = []
     for kern in kernels:
-        if kern["name"] not in ("qq", "qi", "ii", "attn_decode"):
+        if kern["name"] not in dispatch.kernel_launches():
             continue           # extra shapes of a kernel: the json record
         name = kern["name"]
         line.append({k: kern[k] for k in (

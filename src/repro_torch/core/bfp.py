@@ -22,6 +22,7 @@ from . import prng
 
 __all__ = ["BFP", "QuantConfig", "PER_TENSOR", "quantize", "quantize_weight",
            "quantize_cache", "dequantize", "pow2", "rounding_bits",
+           "bfp_from_fx", "bfp_value",
            "storage_dtype", "scale_exponent", "biased_exponent", "bit_length",
            "sr_shift_signed"]
 
@@ -72,11 +73,17 @@ class QuantConfig:
 @dataclasses.dataclass
 class BFP:
     """Integer mantissas ``m`` (logical shape) + IEEE-biased shared
-    exponent(s) ``e`` (int32: shape ``()`` per tensor, or one per group)."""
+    exponent(s) ``e`` (int32: shape ``()`` per tensor, or one per group).
+
+    ``g`` is the optional float32 gradient carrier of the qflow currency:
+    a float tensor on the autograd graph whose value no op reads; a
+    consumer takes it as an input and returns its input gradient as the
+    carrier's gradient, so the gradient crosses the integer seam."""
 
     m: torch.Tensor
     e: torch.Tensor
     cfg: QuantConfig
+    g: Optional[torch.Tensor] = None
 
     @property
     def shape(self):
@@ -94,6 +101,22 @@ def scale_exponent(e_biased, cfg: QuantConfig):
 def biased_exponent(e_unbiased, cfg: QuantConfig):
     """Inverse of :func:`scale_exponent`."""
     return e_unbiased + _F32_EXP_BIAS + _F32_MANT_BITS - cfg.base_shift
+
+
+def bfp_from_fx(m: torch.Tensor, e_unbiased, cfg: QuantConfig,
+                g: Optional[torch.Tensor] = None) -> BFP:
+    """Wrap a fixed-point mantissa (already within ``cfg.p`` magnitude
+    bits) and its unbiased power-of-two exponent as a BFP; no rounding."""
+    e = torch.as_tensor(biased_exponent(e_unbiased, cfg), device=m.device)
+    return BFP(m.to(storage_dtype(cfg.bits)), e.to(torch.int32), cfg, g)
+
+
+def bfp_value(x):
+    """Float32 view of ``f32 | BFP``: the carrier when there is one (it
+    keeps the autograd edge), else the dequantized value."""
+    if isinstance(x, BFP):
+        return x.g if x.g is not None else dequantize(x)
+    return x
 
 
 def pow2(e: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,15 @@ so the same key gives the same rounding bits and results compare with
 ``==``.  The per-block (MX-style) scales have their forward here; their
 backward needs the per-block kernel and raises.
 
+The qflow currency: ``qmatmul`` and ``qbmm`` also take per-tensor BFP
+operands (q-in: the mantissas are contracted as they are, kinds ``iq``,
+``qi`` and ``pp``) and ``qmatmul(out_q=True)`` returns a BFP (q-out).  A
+BFP operand's float32 carrier ``g`` is an input of the op's
+``autograd.Function`` that its forward never reads; the backward returns
+the operand's A.2 gradient there.  ``qattention`` is fused integer flash
+attention over pre-quantized Q/K/V (the ``attn_fwd`` / ``attn_bwd``
+kernels), its gradients on the carriers too.
+
 Also here: the load-time-quantized weight path (``_qmatmul_pw_fwd``,
 serving only), ``qdq_st`` and the qcache ops (cache rows quantized once at
 append time, one exponent per row, nearest rounding).
@@ -26,16 +35,17 @@ from typing import Optional
 import torch
 
 from ..kernels import dispatch as kd
+from ..kernels import fused_attention as kfa
 from ..kernels.fused_linear import int8_dot
-from . import prng
-from .bfp import (BFP, PER_TENSOR, QuantConfig, biased_exponent, dequantize,
-                  pow2, quantize, quantize_cache, quantize_weight,
+from . import fmath, prng
+from .bfp import (BFP, PER_TENSOR, QuantConfig, bfp_value, biased_exponent,
+                  dequantize, pow2, quantize, quantize_cache, quantize_weight,
                   rounding_bits, scale_exponent)
 from .policy import NumericPolicy
 
-__all__ = ["qmatmul", "qbmm", "qembed", "qdq_st", "qcache_quantize",
-           "qcache_prefill", "qcache_append", "qcache_qk", "qcache_pv",
-           "qcache_attention"]
+__all__ = ["qmatmul", "qbmm", "qattention", "qembed", "qdq_st",
+           "qcache_quantize", "qcache_prefill", "qcache_append", "qcache_qk",
+           "qcache_pv", "qcache_attention"]
 
 
 def _t(m: torch.Tensor) -> torch.Tensor:
@@ -170,19 +180,59 @@ def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
     return dx.reshape(*lead, dx.shape[-1]), dw
 
 
-class _QMatmul(torch.autograd.Function):
-    """x (..., K) @ w (K, N), both quantized in the op (``_qmatmul``)."""
+def _carrier_grads(q_in: bool, has_g: bool, grad):
+    """(gradient of the float input, gradient of the carrier) of one
+    operand: a BFP operand's gradient goes to its carrier."""
+    if not q_in:
+        return grad, None
+    return None, grad if has_g else None
+
+
+def _quantize_out(y: torch.Tensor, n: int, policy: NumericPolicy,
+                  kq: prng.Key):
+    """q-out: quantize the f32 output once -> (m, e, carrier value)."""
+    yq = quantize(y, _cfg_for_dim(policy.fwd_cfg(), n), kq)
+    return yq.m, yq.e, dequantize(yq)
+
+
+class _QMatmulFlex(torch.autograd.Function):
+    """``_qmatmul_flex``, every enabled ``qmatmul`` on a float weight: x
+    (..., K) f32 (``xcfg`` None: both operands quantized in the op), or
+    per-tensor BFP mantissas with exponent ``xe`` and carrier ``xg`` (kind
+    iq: only the weight is quantized in the op), @ w (K, N); ``out_q``
+    returns (m, e, carrier)."""
 
     @staticmethod
-    def forward(ctx, x, w, key, policy):
-        y, ctx.res = _qmatmul_fwd(x, w, key, policy)
-        ctx.policy = policy
-        return y
+    def forward(ctx, x, xg, w, xe, key, policy, xcfg, out_q):
+        lead = x.shape[:-1]
+        k, n = x.shape[-1], w.shape[-1]
+        if xcfg is None:
+            y, res = _qmatmul_fwd(x, w, key, policy)
+        else:
+            _, kw, kb = prng.split(key, 3)
+            xq = BFP(x.reshape(-1, k), xe, xcfg)
+            wcfg = _wcfg_for(xcfg, policy)
+            plan = _plan("qmatmul_fwd", xq.m.shape[0], k, n, wcfg, policy,
+                         x.device, kind="iq", cfg2=xcfg)
+            if plan.path == kd.JNP:
+                wq = quantize_weight(_t(w), wcfg, kw)
+                y = _contract_q(xq, wq, 0, policy.accum_chunk)
+            else:
+                y, wq = kd.contract_iq(xq, _t(w), wcfg, kw, plan)
+            y, res = y.reshape(*lead, n), (xq, wq, kb, lead)
+        ctx.res, ctx.policy, ctx.out_q = res, policy, out_q
+        ctx.q_in, ctx.has_g = xcfg is not None, xg is not None
+        if not out_q:
+            return y
+        out = _quantize_out(y, n, policy, prng.fold_in(key, 0xD0))
+        ctx.mark_non_differentiable(out[0], out[1])
+        return out
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, *cts):
+        gy = cts[2] if ctx.out_q else cts[0]
         dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy)
-        return dx, dw, None, None
+        return (*_carrier_grads(ctx.q_in, ctx.has_g, dx), dw) + (None,) * 5
 
 
 def _qmatmul_pw_fwd(x: torch.Tensor, w: BFP, key: prng.Key,
@@ -204,22 +254,37 @@ def _qmatmul_pw_fwd(x: torch.Tensor, w: BFP, key: prng.Key,
     return y.reshape(*lead, n)
 
 
-def qmatmul(x: torch.Tensor, w, key: Optional[prng.Key] = None,
-            policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
+def qmatmul(x, w, key: Optional[prng.Key] = None,
+            policy: NumericPolicy = NumericPolicy(), *, out_q: bool = False):
     """Quantized linear contraction x (..., K) @ w (K, N) with the A.2
-    integer backward; ``w`` may be a per-tensor BFP (a load-time-quantized
-    serving weight: forward only)."""
+    integer backward.  ``x`` may be a per-tensor BFP (q-in: no activation
+    quantize, kind iq; its gradient goes to the carrier) and ``out_q=True``
+    returns a BFP with carrier.  ``w`` may be a per-tensor BFP (a
+    load-time-quantized serving weight: float x, forward only)."""
     if not policy.enabled:
-        wf = dequantize(w) if isinstance(w, BFP) else w
-        return x @ wf
+        return bfp_value(x) @ bfp_value(w)
     if key is None:
         raise ValueError("qmatmul with an enabled integer policy needs a PRNG key")
+    if isinstance(x, BFP) and x.cfg.block != PER_TENSOR \
+            and policy.block == PER_TENSOR:
+        x = bfp_value(x)       # residuals follow the policy's blocking
     if isinstance(w, BFP) and (w.cfg.block != PER_TENSOR
                                or policy.block != PER_TENSOR):
         w = dequantize(w)
     if isinstance(w, BFP):
+        if isinstance(x, BFP) or out_q:
+            raise NotImplementedError(
+                "BFP activations against BFP weights (kind pp, qflow "
+                "serving and qweights) are not ported yet: ROADMAP queue 1")
         return _qmatmul_pw_fwd(x, w, key, policy)
-    return _QMatmul.apply(x, w, key, policy)
+    if isinstance(x, BFP):
+        out = _QMatmulFlex.apply(x.m, x.g, w, x.e, key, policy, x.cfg, out_q)
+    else:
+        out = _QMatmulFlex.apply(x, None, w, None, key, policy, None, out_q)
+    if not out_q:
+        return out
+    m, e, g = out
+    return BFP(m, e, _cfg_for_dim(policy.fwd_cfg(), w.shape[-1]), g)
 
 
 # ---------------------------------------------------------------------------
@@ -286,15 +351,167 @@ class _QBmm(torch.autograd.Function):
         return da, db, None, None
 
 
-def qbmm(a: torch.Tensor, b: torch.Tensor, key: Optional[prng.Key] = None,
+class _QBmmFlex(torch.autograd.Function):
+    """``_qbmm_flex``: a (*B, M, K) @ b (*B, K, N), each f32 or per-tensor
+    BFP mantissas (exponent ``ae``/``be``, carrier ``ag``/``bg``): kind pp
+    (both pre-quantized), iq (a) or qi (b)."""
+
+    @staticmethod
+    def forward(ctx, a, ag, b, bg, ae, be, key, policy, acfg, bcfg):
+        ka, kb_, kres = prng.split(key, 3)
+        nbatch = a.ndim - 2
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        if acfg is not None and bcfg is not None:
+            aq, bq = BFP(a, ae, acfg), _tq(BFP(b, be, bcfg))
+            plan = _plan("qbmm_fwd", m, k, n, acfg, policy, a.device,
+                         kind="pp", cfg2=bcfg)
+            if plan.path == kd.JNP:
+                y = _contract_q(aq, bq, nbatch, policy.accum_chunk)
+            else:
+                y = kd.contract_ii(aq, bq, plan, nbatch=nbatch)
+        elif acfg is not None:
+            aq = BFP(a, ae, acfg)
+            bcfg_f = _wcfg_for(acfg, policy)
+            plan = _plan("qbmm_fwd", m, k, n, bcfg_f, policy, a.device,
+                         kind="iq", cfg2=acfg)
+            if plan.path == kd.JNP:
+                bq = quantize(_t(b), bcfg_f, kb_)
+                y = _contract_q(aq, bq, nbatch, policy.accum_chunk)
+            else:
+                y, bq = kd.contract_iq(aq, _t(b), bcfg_f, kb_, plan,
+                                       nbatch=nbatch)
+        else:
+            bq = _tq(BFP(b, be, bcfg))
+            acfg_f = _wcfg_for(bcfg, policy)
+            plan = _plan("qbmm_fwd", m, k, n, acfg_f, policy, a.device,
+                         kind="qi", cfg2=bcfg)
+            if plan.path == kd.JNP:
+                aq = quantize(a, acfg_f, ka)
+                y = _contract_q(aq, bq, nbatch, policy.accum_chunk)
+            else:
+                y, aq = kd.contract_qi(a, bq, acfg_f, ka, plan, nbatch=nbatch)
+        ctx.res, ctx.policy = (aq, bq, kres), policy
+        ctx.flags = (acfg is not None, ag is not None, bcfg is not None,
+                     bg is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        da, db = _qbmm_bwd(ctx.policy, ctx.res, gy)
+        a_q, a_g, b_q, b_g = ctx.flags
+        return (*_carrier_grads(a_q, a_g, da), *_carrier_grads(b_q, b_g, db),
+                None, None, None, None, None, None)
+
+
+def qbmm(a, b, key: Optional[prng.Key] = None,
          policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
-    """Quantized batched matmul (both operands quantized in the op) with
-    the A.2 integer backward."""
+    """Quantized batched matmul a (*B, M, K) @ b (*B, K, N) with the A.2
+    integer backward.  Either operand may be a pre-quantized BFP (q-in;
+    ``b`` only with a per-tensor scale, a pair only with matching
+    blockings: otherwise its float view is taken); gradients of a BFP
+    operand go to its carrier."""
     if not policy.enabled:
-        return a @ b
+        return bfp_value(a) @ bfp_value(b)
     if key is None:
         raise ValueError("qbmm with an enabled integer policy needs a PRNG key")
-    return _QBmm.apply(a, b, key, policy)
+    a_q, b_q = isinstance(a, BFP), isinstance(b, BFP)
+    if a_q and a.cfg.block != PER_TENSOR and policy.block == PER_TENSOR:
+        a, a_q = bfp_value(a), False
+    if b_q and b.cfg.block != PER_TENSOR:
+        b, b_q = bfp_value(b), False
+    if b_q and a_q and a.cfg.block != PER_TENSOR:
+        b, b_q = bfp_value(b), False
+    if not (a_q or b_q):
+        return _QBmm.apply(a, b, key, policy)
+    am, ag, ae, acfg = (a.m, a.g, a.e, a.cfg) if a_q else (a, None, None, None)
+    bm, bg, be, bcfg = (b.m, b.g, b.e, b.cfg) if b_q else (b, None, None, None)
+    return _QBmmFlex.apply(am, ag, bm, bg, ae, be, key, policy, acfg, bcfg)
+
+
+# ---------------------------------------------------------------------------
+# qattention: fused integer flash attention over pre-quantized Q/K/V
+# ---------------------------------------------------------------------------
+
+class _QAttn(torch.autograd.Function):
+    """``_qattn``: the forward kernel saves only the operand mantissas and
+    the two per-row softmax stats; the backward quantizes dO once (per
+    tensor) and recomputes the probabilities in its own kernel.  dQ, dK,
+    dV go to the carriers ``qg``, ``kg``, ``vg``."""
+
+    @staticmethod
+    def forward(ctx, qm, qg, km, kg, vm, vg, qe, ke, ve, q_off, kv_len, key,
+                policy, s, causal, window, plan):
+        lead = qm.shape[:-2]
+        gs, d = qm.shape[-2], qm.shape[-1]
+        t = km.shape[-2]
+        cfg = policy.fwd_cfg()
+        sr = cfg.stochastic
+        q3, k3, v3 = (x.reshape(-1, x.shape[-2], d) for x in (qm, km, vm))
+        rp = (rounding_bits(prng.fold_in(key, 0), (q3.shape[0], gs, t),
+                            cfg.rng, qm.device) if sr else None)
+        y3, m3, l3 = kd.attn_fwd(q3, k3, v3, rp, qe, ke, ve, q_off, kv_len,
+                                 p=cfg.p, s=s, bt=plan.bt, causal=causal,
+                                 window=window, stochastic=sr)
+        y = y3.reshape(*lead, gs, d)
+        ctx.save_for_backward(y)
+        ctx.res = (q3, qe, k3, ke, v3, ve, m3, l3, prng.fold_in(key, 1))
+        ctx.args = (policy, s, causal, window, q_off, kv_len, lead)
+        ctx.has_g = (qg is not None, kg is not None, vg is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        q3, qe, k3, ke, v3, ve, m3, l3, kb = ctx.res
+        y, = ctx.saved_tensors
+        policy, s, causal, window, q_off, kv_len, lead = ctx.args
+        nbh, gs, d = q3.shape
+        t = k3.shape[1]
+        cb = policy.bwd_cfg()
+        cfg_b = QuantConfig(cb.bits, PER_TENSOR, cb.stochastic, cb.rng)
+        kg, krs, krp = prng.split(kb, 3)
+        gq = quantize(gy.reshape(-1, gs, d), cfg_b, kg)
+        delta = fmath.sum_windows(gy * y, (-1,)).reshape(-1, gs, 1)
+        plan_b = kd.plan_attention("attn_bwd", gs, t, d, cfg_b, s=s, kind="ii",
+                                   kernel_mode=policy.kernel_mode,
+                                   device=gy.device.type)
+        sr = cfg_b.stochastic
+        rs = (rounding_bits(krs, (nbh, gs, t), cfg_b.rng, gy.device)
+              if sr else None)
+        rp2 = (rounding_bits(krp, (nbh, gs, t), cfg_b.rng, gy.device)
+               if sr else None)
+        if plan_b.path == kd.FUSED:
+            run = kd.attn_bwd
+        elif gy.is_cuda:
+            raise NotImplementedError(
+                f"the fused attention backward has no kernel for this "
+                f"shape or policy ({plan_b.reason}); its plain version "
+                f"runs only on the CPU")
+        else:
+            run = kfa.attn_bwd_plain
+        dq, dk, dv = run(q3, gq.m, k3, v3, m3, l3, delta, rs, rp2, qe, ke, ve,
+                         gq.e, q_off, kv_len, p=cfg_b.p, s=s,
+                         bt=plan_b.bt or kd.attn_block_t(t), causal=causal,
+                         window=window, stochastic=sr)
+        grads = [None] * 17
+        for i, g, has in ((1, dq.reshape(*lead, gs, d), ctx.has_g[0]),
+                          (3, dk.reshape(*lead, t, d), ctx.has_g[1]),
+                          (5, dv.reshape(*lead, t, d), ctx.has_g[2])):
+            grads[i] = g if has else None
+        return tuple(grads)
+
+
+def qattention(qb: BFP, kb: BFP, vb: BFP, q_off: int, kv_len: int,
+               key: prng.Key, policy: NumericPolicy, *, s: int, causal: bool,
+               window: int, plan: kd.Decision) -> torch.Tensor:
+    """Fused integer flash attention over pre-quantized per-tensor BFPs:
+    qb (*B, GS, D) the grouped, pre-scaled query (g-major GQA rows, group
+    length ``s``), kb/vb (*B, T, D).  ``plan`` is a FUSED ``attn_fwd``
+    decision of ``kernels.dispatch.plan_attention``.  Returns f32
+    (*B, GS, D); dQ/dK/dV go to the operands' carriers."""
+    assert qb.cfg.block == PER_TENSOR and plan.path == kd.FUSED
+    return _QAttn.apply(qb.m, qb.g, kb.m, kb.g, vb.m, vb.g, qb.e, kb.e, vb.e,
+                        int(q_off), int(kv_len), key, policy, s, causal,
+                        window, plan)
 
 
 # ---------------------------------------------------------------------------

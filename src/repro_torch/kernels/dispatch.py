@@ -1,23 +1,28 @@
 """Routing between the hand-written CUDA kernels and the plain path.
 
-The port of the pieces of ``repro.kernels.dispatch`` that quantized serving
-and the int8 train step use.  ``core.qops`` asks :func:`plan_contract` for every integer
-contraction and ``models.attention`` asks :func:`plan_attention` for decode
-attention; each answer is a :class:`Decision` that ``record_decisions``
-can collect.  Paths:
+The port of the pieces of ``repro.kernels.dispatch`` that quantized
+serving and training use.  ``core.qops`` asks :func:`plan_contract` for
+every integer contraction and ``models.attention`` asks
+:func:`plan_attention` for fused attention; each answer is a
+:class:`Decision` that ``record_decisions`` can collect.  Paths:
 
   ``fused``  the kernel: ``kernels.fused_linear`` / ``fused_attention`` —
              the CUDA kernel for CUDA tensors, its plain version (the same
              arithmetic in torch) for CPU tensors;
   ``jnp``    the plain oracle path of ``core.qops`` (quantize, then an
-             exact integer contraction) — the JAX package's jnp path.
+             exact integer contraction), or for attention the scan of
+             separately dispatched contractions — the JAX package's jnp
+             path.
 
-Rules (the JAX package's, with "off-TPU -> jnp" read as "off-CUDA ->
-plain"): ``kernel_mode="jnp"`` or bits != 8 -> jnp; ``"auto"`` -> the
-kernel on CUDA when feasible, jnp elsewhere; ``"fused"`` -> the kernel
-numerics wherever feasible.  Feasibility is the kernels' own limits: K
-inside one int32 accumulator, and for decode attention the band T that the
-kernel's shared memory holds.  An infeasible plan says why.  Nothing here
+Contraction kinds: ``qq`` (both operands quantized in the kernel), ``qi``
+(a fresh, b pre-quantized), ``iq`` (a pre-quantized, b fresh: the ``qi``
+kernel with the roles swapped), ``ii`` and ``pp`` (both pre-quantized:
+the ``ii`` kernel).  Rules (the JAX package's, with "off-TPU -> jnp" read
+as "off-CUDA -> plain"): ``kernel_mode="jnp"`` or bits != 8 -> jnp;
+``"auto"`` -> the kernel on CUDA when feasible, jnp elsewhere; ``"fused"``
+-> the kernel numerics wherever feasible.  Feasibility is the kernels' own
+limits: K inside one int32 accumulator, and for attention the shared
+memory one block holds.  An infeasible plan says why.  Nothing here
 catches a kernel failure and drops to another path: a failed build or
 launch raises.
 
@@ -41,8 +46,10 @@ from . import fused_linear as kfl
 from . import ref
 
 __all__ = ["FUSED", "JNP", "Decision", "plan_contract", "plan_attention",
-           "record_decisions", "plain_kernels", "contract_qq", "contract_qi",
-           "contract_ii", "attn_decode", "kernel_launches", "reset_kernel_launches"]
+           "attn_block_t", "record_decisions", "plain_kernels", "contract_qq",
+           "contract_qi", "contract_iq", "contract_ii",
+           "attn_decode", "attn_fwd", "attn_bwd", "kernel_launches",
+           "reset_kernel_launches"]
 
 FUSED = "fused"
 JNP = "jnp"
@@ -51,7 +58,7 @@ JNP = "jnp"
 @dataclasses.dataclass(frozen=True)
 class Decision:
     """One routing decision (m, k, n: the contraction; for attention gs,
-    d, t)."""
+    d, t, and ``bt`` the KV block of the training attention kernels)."""
 
     op: str
     path: str
@@ -61,6 +68,7 @@ class Decision:
     n: int
     kind: str = "qq"
     device: str = "cpu"
+    bt: int = 0
 
 
 _decision_log: Optional[List[Decision]] = None
@@ -92,18 +100,19 @@ def plain_kernels():
         _plain_on_card = prev
 
 
+_WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
+             "ii": kfl.fused_ii_pt, "attn_decode": kfa.attn_decode,
+             "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd}
+
+
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers."""
-    return {"qq": kfl.fused_qq_pt.launches, "qi": kfl.fused_qi_pt.launches,
-            "ii": kfl.fused_ii_pt.launches,
-            "attn_decode": kfa.attn_decode.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_kernel_launches() -> None:
-    kfl.fused_qq_pt.launches = 0
-    kfl.fused_qi_pt.launches = 0
-    kfl.fused_ii_pt.launches = 0
-    kfa.attn_decode.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
 def _record(d: Decision) -> Decision:
@@ -132,6 +141,8 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
         return _record(Decision(op, path, reason, m, k, n, kind, device))
 
     _check_mode(kernel_mode)
+    if kind not in ("qq", "qi", "iq", "ii", "pp"):
+        raise ValueError(f"unknown contraction kind {kind!r}")
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
     bits = {cfg.bits} | ({cfg2.bits} if cfg2 is not None else set())
@@ -148,9 +159,20 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
                            "(flush emulation stays on the plain path)")
     if k * 127 * 127 >= (1 << 31):
         return decide(JNP, f"K={k} overflows the int32 accumulator")
-    if kind not in ("qq", "qi", "ii"):
-        return decide(JNP, f"kind {kind}: its kernel is not ported yet")
     return decide(FUSED, "fused kernel")
+
+
+def attn_block_t(t: int) -> int:
+    """KV block ``bt`` of the training attention kernels for band length
+    ``t`` (``repro.kernels.dispatch.attn_block_t``): part of the numerics
+    (p's per-row exponent spans one block, pn's and dS's one block of
+    every row), so forward, backward and the plain versions derive it from
+    the shape alone."""
+    if t <= 1024:
+        return 128
+    if t <= 4096:
+        return 256
+    return 512
 
 
 def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
@@ -158,12 +180,18 @@ def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
                    device: str = "cpu") -> Decision:
     """Choose the path for one fused-attention op (``gs`` grouped query
     rows, band ``t``, head dim ``d``).  JNP means the caller keeps the
-    scan of separately dispatched GEMMs."""
+    jnp path: the scan of separately dispatched GEMMs (``attn_fwd``,
+    ``attn_decode``) or the backward's plain version (``attn_bwd``, CPU
+    only).  A fused forward commits its backward to the fused numerics,
+    so ``attn_fwd`` is FUSED only where the ``attn_bwd`` kernels fit too."""
 
-    def decide(path, reason):
-        return _record(Decision(op, path, reason, gs, d, t, kind, device))
+    def decide(path, reason, bt=0):
+        return _record(Decision(op, path, reason, gs, d, t, kind, device,
+                                bt))
 
     _check_mode(kernel_mode)
+    if op not in ("attn_fwd", "attn_bwd", "attn_decode"):
+        raise ValueError(f"unknown attention op {op!r}")
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
     if cfg.bits != 8:
@@ -173,14 +201,22 @@ def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
     if kernel_mode == "auto" and device != "cuda":
         return decide(JNP, f"auto keeps the scan path on device={device}")
     if op != "attn_decode":
-        return decide(JNP, f"the {op} kernel is not ported yet")
+        bt = attn_block_t(t)
+        for k in (op, "attn_bwd"):
+            need = kfa.train_smem_bytes(k, d, bt)
+            if need > kfa.SMEM_LIMIT:
+                return decide(JNP, f"D={d}, bt={bt} needs {need} B of "
+                                   f"shared memory, over the {k} kernel's "
+                                   f"{kfa.SMEM_LIMIT}")
+        return decide(FUSED, "fused attention fits the kernels' shared "
+                             "memory", bt)
     if d % 4 or d > 256:
         return decide(JNP, f"decode kernel needs D % 4 == 0 and D <= 256, "
                            f"got D={d}")
     need = kfa.decode_smem_bytes(gs, t, d)
-    if need > kfa.DECODE_SMEM_LIMIT:
+    if need > kfa.SMEM_LIMIT:
         return decide(JNP, f"T={t} needs {need} B of shared memory, over "
-                           f"the decode kernel's {kfa.DECODE_SMEM_LIMIT}")
+                           f"the decode kernel's {kfa.SMEM_LIMIT}")
     return decide(FUSED, "decode band fits the kernel's shared memory")
 
 
@@ -237,6 +273,26 @@ def contract_qi(a: torch.Tensor, bq: BFP, cfg: QuantConfig, ka: prng.Key,
     return y.reshape(*lead, *y.shape[1:]), BFP(am.reshape(a.shape), ea, cfg)
 
 
+def contract_iq(aq: BFP, b: torch.Tensor, cfg: QuantConfig, kb: prng.Key,
+                dec: Decision, nbatch: int = 0) -> Tuple[torch.Tensor, BFP]:
+    """Contract pre-quantized mantissas against a freshly quantized ``b``:
+    aq.m (*B, M, K) int8 per tensor, b (*B, N, K) f32 -> (y (*B, M, N),
+    bq).  The qi kernel with the operand roles swapped: ``b`` is the side
+    quantized in the kernel, and its (N, M) tile output is transposed
+    back."""
+    assert cfg.block == PER_TENSOR and aq.cfg.block == PER_TENSOR
+    assert dec.path == FUSED
+    sr = cfg.stochastic
+    rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
+    eb = ref.max_biased_exp_ref(b)
+    run = kfl.fused_qi_pt_plain if _plain_on_card else kfl.fused_qi_pt
+    yt, bm = run(_flat3(b, nbatch), None if rb is None else _flat3(rb, nbatch),
+                 _flat3(aq.m, nbatch), eb, aq.e.to(torch.int32), pa=cfg.p,
+                 pb=aq.cfg.p, stochastic=sr)
+    y = yt.transpose(-1, -2).reshape(*aq.m.shape[:-1], b.shape[-2])
+    return y, BFP(bm.reshape(b.shape), eb, cfg)
+
+
 def contract_ii(aq: BFP, bq: BFP, dec: Decision,
                 nbatch: int = 0) -> torch.Tensor:
     """Contract two stored residual mantissa tensors on the ii kernel (the
@@ -250,6 +306,28 @@ def contract_ii(aq: BFP, bq: BFP, dec: Decision,
             aq.e.to(torch.int32), bq.e.to(torch.int32), pa=aq.cfg.p,
             pb=bq.cfg.p)
     return y.reshape(*aq.m.shape[:nbatch], *y.shape[1:])
+
+
+def attn_fwd(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, *, p, s, bt, causal,
+             window, stochastic):
+    """Run a FUSED training-attention forward (see
+    ``kernels.fused_attention.attn_fwd``)."""
+    run = kfa.attn_fwd_plain if _plain_on_card else kfa.attn_fwd
+    return run(qm.contiguous(), km.contiguous(), vm.contiguous(),
+               None if rp is None else rp.contiguous(), eq, ek, ev, q_off,
+               kv_len, p=p, s=s, bt=bt, causal=causal, window=window,
+               stochastic=stochastic)
+
+
+def attn_bwd(qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,
+             kv_len, *, p, s, bt, causal, window, stochastic):
+    """Run a FUSED training-attention backward (see
+    ``kernels.fused_attention.attn_bwd``)."""
+    run = kfa.attn_bwd_plain if _plain_on_card else kfa.attn_bwd
+    c = (lambda x: None if x is None else x.contiguous())
+    return run(c(qm), c(gm), c(km), c(vm), c(m), c(l), c(delta), c(rs),
+               c(rp2), eq, ek, ev, eg, q_off, kv_len, p=p, s=s, bt=bt,
+               causal=causal, window=window, stochastic=stochastic)
 
 
 def attn_decode(qm, km, vm, ek_rows, ev_rows, rp, eq, q_off, kv_len, *, p,

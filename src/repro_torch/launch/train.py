@@ -1,25 +1,29 @@
 """Trainer: synthetic data -> integer train step, on the card.
 
 The port of ``repro.launch.train``: the paper's integer pipeline (int8
-forward and A.2 backward, int16 SGD; policy ``int8``) or the float32
+forward and A.2 backward, int16 SGD; policy ``int8``), the same with
+quantized activations as the inter-layer currency (``int8_qflow``, or
+``qflow=True``: norms emit int8 BFP that the projections contract as they
+are, attention runs through the fused attention kernels) or the float32
 baseline (``float32``) on a ported architecture, full or smoke config,
 with random initial weights from a seeded ``torch.Generator``.  On the
 card every contraction runs on the hand-written kernels (``qq`` forward,
-``qi`` dX, ``ii`` dW).  It runs on the card unless it is given
-``device="cpu"``.
+``qi`` dX and the q-in forward, ``ii`` dW; under qflow ``attn_fwd`` and
+``attn_bwd``).  It runs on the card unless it is given ``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 3 \\
-        --batch 4 --seq 128
+        --batch 4 --seq 128 [--qflow]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
 
-Checkpoints, the health supervisor, the qflow and qweights currencies and
-the JAX package's other policies are not ported yet; asking for one
-raises and names the ROADMAP item that ports it.
+Checkpoints, the health supervisor, the qweights currency and the JAX
+package's other policies are not ported yet; asking for one raises and
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -28,7 +32,7 @@ import torch
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..core import prng
 from ..core.integer_sgd import integer_sgd_init
-from ..core.policy import FLOAT32, PAPER_INT8
+from ..core.policy import FLOAT32, PAPER_INT8, NumericPolicy
 from ..data import SyntheticLM
 from ..device import resolve_device, synchronize
 from ..models.registry import get_model
@@ -37,12 +41,12 @@ from .steps import TrainHyper, make_float_train_step, make_train_step
 
 __all__ = ["POLICIES", "train_hyper", "train", "main"]
 
-POLICIES = {"int8": PAPER_INT8, "float32": FLOAT32}
+POLICIES = {"int8": PAPER_INT8, "float32": FLOAT32,
+            "int8_qflow": NumericPolicy(qflow=True)}
 
 # The JAX package's other options, each with the ROADMAP item that ports it.
 _UNPORTED_POLICIES = {
     "int8_block": "per-block scales (ROADMAP queue 2, fused_qq_blk)",
-    "int8_qflow": "qflow (ROADMAP queue 1, qflow + fused attention)",
     "int8_qweights": "qweights training (ROADMAP queue 1, qweights training)",
     "int8_qfull": "qflow and qweights training (ROADMAP queue 1)",
     "int4": "int4 policies (ROADMAP queue 2, the unfused rung)",
@@ -52,7 +56,6 @@ _UNPORTED_OPTIONS = {
     "health": "the health report and supervisor (ROADMAP queue 1, "
               "robustness)",
     "fault_plan": "fault injection (ROADMAP queue 1, robustness)",
-    "qflow": "qflow (ROADMAP queue 1, qflow + fused attention)",
     "qweights": "qweights training (ROADMAP queue 1, qweights training)",
 }
 
@@ -107,7 +110,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     ``stats["step_s"]`` holds each step's wall time (the device
     synchronised)."""
     _refuse_unported(policy_name, {"ckpt_dir": ckpt_dir, "health": health,
-                                   "fault_plan": fault_plan, "qflow": qflow,
+                                   "fault_plan": fault_plan,
                                    "qweights": qweights})
     if steps < 1 or batch < 1 or seq < 1 or batch % microbatch:
         raise ValueError(f"need steps, batch, seq >= 1 and microbatch | "
@@ -116,6 +119,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     policy = POLICIES[policy_name]
+    if qflow and policy.enabled:
+        policy = dataclasses.replace(policy, qflow=True)
     key = prng.key(seed)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                      seed=seed)

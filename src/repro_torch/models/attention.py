@@ -5,8 +5,11 @@ The port of ``repro.models.attention`` for the dense path.  QKᵀ and PV are
 integer contractions (``qbmm``, differentiable with the A.2 backward); the
 softmax stays float32 (paper §5) and is rounded as the reference rounds it
 (``core.fmath``), so ``chunked_attention`` is held against the reference's
-values and gradients.  The qflow branch (pre-quantized Q/K/V and the fused
-flash-attention kernels) is not ported yet.
+values and gradients.  Under qflow, Q, K and V are quantized once, per
+tensor, and either go through the fused attention kernels (``attn_fwd`` /
+``attn_bwd``, when ``plan_attention`` plans them) or through the chunk
+scan as BFP operands of ``qbmm``; their float32 carriers take the
+gradients.
 """
 
 from __future__ import annotations
@@ -18,10 +21,10 @@ from typing import Optional
 import torch
 
 from ..core import fmath, prng
-from ..core.bfp import BFP, PER_TENSOR, QuantConfig
+from ..core.bfp import BFP, PER_TENSOR, QuantConfig, quantize
 from ..core.policy import NumericPolicy
-from ..core.qops import (qbmm, qcache_attention, qcache_pv, qcache_qk,
-                         qdq_st)
+from ..core.qops import (_cfg_for_dim, qattention, qbmm, qcache_attention,
+                         qcache_pv, qcache_qk, qdq_st)
 from ..kernels import dispatch as kd
 
 __all__ = ["chunked_attention", "cache_decode_attention", "decode_attention"]
@@ -67,14 +70,19 @@ class _Normalize(torch.autograd.Function):
         return g / lc, dl
 
 
+def _fused_attn_eligible(policy: NumericPolicy, key) -> bool:
+    """Whether the call may ask for the fused attention kernels: Q/K/V
+    arrive quantized once (qflow) and both directions are int8."""
+    return (policy.enabled and policy.qflow and key is not None
+            and policy.fwd_bits == 8 and policy.bwd_bits == 8)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key: Optional[prng.Key], policy: NumericPolicy, *,
                       causal: bool = True, q_offset: int = 0, window: int = 0,
                       chunk: int = 1024, scale: float = 0.0,
                       kv_len: Optional[int] = None) -> torch.Tensor:
     """q (B, Hq, S, D); k, v (B, Hkv, T, D) -> (B, Hq, S, D)."""
-    if policy.enabled and policy.qflow:
-        raise NotImplementedError("qflow attention is not ported yet")
     b, hq, s, d = q.shape
     n_kv, t = k.shape[1], k.shape[2]
     g = hq // n_kv
@@ -87,7 +95,29 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = _group_q(q, n_kv) * sc
     qpos = _qpos(s, g, q_offset, q.device)
     qk_policy = policy
-    if policy.enabled and policy.stochastic and n_chunks > 1 and key is not None:
+    qg_b = kq = vq = None
+    if policy.enabled and policy.qflow and key is not None:
+        # qflow: Q, K and V quantized once; the carriers are the floats
+        # before quantization (straight-through)
+        cfg_d = _cfg_for_dim(policy.fwd_cfg(), d)
+        qgq = quantize(qg.detach(), cfg_d, prng.fold_in(key, 0x71))
+        qg_b = BFP(qgq.m, qgq.e, qgq.cfg, qg)
+        if cfg_d.block == PER_TENSOR:
+            kq = quantize(k.detach(), cfg_d, prng.fold_in(key, 0x72))
+            vq = quantize(v.detach(), cfg_d, prng.fold_in(key, 0x73))
+            if _fused_attn_eligible(policy, key):
+                plan = kd.plan_attention("attn_fwd", g * s, t, d, cfg_d, s=s,
+                                         kind="pp",
+                                         kernel_mode=policy.kernel_mode,
+                                         device=q.device.type)
+                if plan.path == kd.FUSED:
+                    o = qattention(qg_b, BFP(kq.m, kq.e, cfg_d, k),
+                                   BFP(vq.m, vq.e, cfg_d, v), q_offset,
+                                   t if kv_len is None else kv_len,
+                                   prng.fold_in(key, 0x74), policy, s=s,
+                                   causal=causal, window=window, plan=plan)
+                    return _ungroup(o, hq)
+    elif policy.enabled and policy.stochastic and n_chunks > 1 and key is not None:
         # one stochastic QDQ of Q and K puts them on the int8 grid, so the
         # per-chunk QKᵀ requantizes them exactly with nearest rounding
         cfgf = policy.fwd_cfg()
@@ -100,10 +130,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, n_kv, g * s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, n_kv, g * s, d), dtype=torch.float32, device=q.device)
     for ci in range(n_chunks):
-        kb = k[:, :, ci * chunk:(ci + 1) * chunk]
-        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
+        cs = slice(ci * chunk, (ci + 1) * chunk)
+        kb, vb = k[:, :, cs], v[:, :, cs]
         ckey = _fold(key, ci)
-        sck = qbmm(qg, kb.transpose(-1, -2), _fold(ckey, 0), qk_policy)
+        kb_in = kb.transpose(-1, -2)                        # logical (D, C)
+        if kq is not None:
+            kb_in = BFP(kq.m[:, :, cs].transpose(-1, -2), kq.e, kq.cfg, kb_in)
+            vb = BFP(vq.m[:, :, cs], vq.e, vq.cfg, vb)
+        sck = qbmm(qg if qg_b is None else qg_b, kb_in, _fold(ckey, 0),
+                   qk_policy)
         kpos = ci * chunk + torch.arange(chunk, dtype=torch.int32,
                                          device=q.device)
         mask = torch.ones((qpos.shape[0], chunk), dtype=torch.bool,

@@ -10,8 +10,12 @@ float32 (paper §5).  Layer
 weights are stacked along a leading ``(L, ...)`` axis; a Python loop over
 layer slices replaces ``lax.scan``.  Keys follow the JAX package's
 ``split``/``fold_in`` chain, so with the same parameters and key the two
-packages compute on the same rounding bits.  MoE, the qflow seams and the
-whole-layer decode kernel are not ported yet.
+packages compute on the same rounding bits.  Under qflow
+(``policy.qflow_seams``) the pre-norms and the final norm emit per-tensor
+BFP activations that the projections and the LM head contract as they are
+(quantize once); the residual stream stays float32.  MoE, qflow serving
+(prefill and decode) and the whole-layer decode kernel are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -144,10 +148,10 @@ def _layer_slice(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in layers.items()}
 
 
-def _norm(x, g, b, key, policy, cfg):
+def _norm(x, g, b, key, policy, cfg, out_q=False):
     if cfg.norm == "layernorm":
-        return qlayernorm(x, g, b, key, policy)
-    return qrmsnorm(x, g, key, policy)
+        return qlayernorm(x, g, b, key, policy, out_q=out_q)
+    return qrmsnorm(x, g, key, policy, out_q=out_q)
 
 
 def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -207,14 +211,21 @@ def _mlp_block(h, lp, key, policy, cfg):
 
 
 def _layer(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
-    if policy.enabled and (policy.fused_proj or policy.qflow):
-        raise NotImplementedError("fused_proj / qflow seams are not ported yet")
+    # Under qflow both pre-norms emit BFP: the norm -> projection seams
+    # (QKV and gate/up) exchange int8 mantissas, quantized exactly once.
+    oq = policy.qflow_seams
+    if policy.enabled and policy.fused_proj:
+        raise NotImplementedError("fused_proj (the norm -> GEMM chain) is "
+                                  "not ported yet: ROADMAP queue 1")
+    if oq and kv is not None:
+        raise NotImplementedError("qflow decode is not ported yet: ROADMAP "
+                                  "queue 1, qflow serving")
     kn1, kattn, kn2, kmlp = prng.split(key, 4)
-    hn = _norm(h, lp["ln1_g"], lp.get("ln1_b"), kn1, policy, cfg)
+    hn = _norm(h, lp["ln1_g"], lp.get("ln1_b"), kn1, policy, cfg, out_q=oq)
     a, new_kv = _attn_block(hn, lp, kattn, policy, cfg, cos_sin=cos_sin,
                             kv=kv, pos=pos)
     h = h + a
-    hn = _norm(h, lp["ln2_g"], lp.get("ln2_b"), kn2, policy, cfg)
+    hn = _norm(h, lp["ln2_g"], lp.get("ln2_b"), kn2, policy, cfg, out_q=oq)
     return h + _mlp_block(hn, lp, kmlp, policy, cfg), new_kv
 
 
@@ -243,7 +254,7 @@ def forward_hidden(params, tokens: torch.Tensor, key: prng.Key,
         if collect_kv:
             kvs.append(kv)
     h = _norm(h, params["fn_g"], params.get("fn_b"), prng.fold_in(key, 0xF1),
-              policy, cfg)
+              policy, cfg, out_q=policy.qflow_seams)
     return h, (kvs if collect_kv else None)
 
 
@@ -260,6 +271,9 @@ def prefill(params, tokens: torch.Tensor, key: prng.Key,
             policy: NumericPolicy, cfg: ArchConfig, max_len: int):
     """Populate the cache from a prompt -> (cache, last-token logits).
     Under ``policy.qcache`` the K/V rows are quantized exactly once here."""
+    if policy.qflow_seams:
+        raise NotImplementedError("qflow prefill is not ported yet: ROADMAP "
+                                  "queue 1, qflow serving")
     b, s = tokens.shape
     h, kvs = forward_hidden(params, tokens, key, policy, cfg, collect_kv=True)
     k = torch.stack([kv[0] for kv in kvs])                # (L, B, Hkv, S, hd)

@@ -108,6 +108,11 @@ def test_plan_attention_decode(mode, device, t, want):
 
 
 def test_plan_attention_unported_ops_keep_scan_path():
+    """Every attention op is ported now: a shape its kernel cannot hold
+    keeps the scan path, with the reason."""
     d = kd.plan_attention("attn_fwd", 7, 64, 64, QuantConfig(), s=1,
                           kernel_mode="fused", device="cuda")
-    assert d.path == kd.JNP and "not ported" in d.reason
+    assert d.path == kd.FUSED and d.bt == 128
+    d = kd.plan_attention("attn_fwd", 7, 8192, 512, QuantConfig(), s=1,
+                          kernel_mode="fused", device="cuda")
+    assert d.path == kd.JNP and "shared memory" in d.reason

@@ -49,7 +49,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0,
-                                    "attn_decode": 0}
+                                    "attn_decode": 0, "attn_fwd": 0,
+                                    "attn_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -100,6 +101,61 @@ def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
     assert err <= kfa.DECODE_Y_RTOL * want.abs().max().item()
 
 
+# (BH, GS, T, D, s, q_off, kv_len, causal, window): the qwen2-0.5b
+# training slice; odd GS, T and D with kv_len < T; T over 3 KV blocks; a
+# sliding window over 4 blocks; a 1500-position band (bt = 256) behind an
+# offset; the backward's narrow query strips: D = 128 over 9 blocks of
+# bt = 512 (the last one ragged) and D = 256 with bt = 256, 8-row strips.
+TRAIN_SHAPES = [(8, 896, 128, 64, 128, 0, 128, True, 0),
+                (2, 21, 200, 12, 3, 0, 170, False, 0),
+                (3, 35, 300, 16, 5, 0, 300, True, 0),
+                (2, 64, 400, 64, 64, 0, 400, True, 100),
+                (1, 14, 1500, 8, 2, 1498, 1500, True, 0),
+                (1, 20, 4100, 128, 10, 0, 4100, False, 0),
+                (1, 24, 2000, 256, 24, 1500, 1990, True, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_attn_train_kernels_equal_plain(cuda, shape, stochastic):
+    """attn_fwd (y, m, l) and attn_bwd (dq, dk, dv) == their plain
+    versions: the kernels reproduce the plain float order op for op."""
+    bh, gs, t, d, s, q_off, kv_len, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def i8(*shp):
+        return torch.randint(-127, 128, shp, generator=g, device=cuda,
+                             dtype=torch.int8)
+
+    def e(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda)
+
+    qm, gm, km, vm = i8(bh, gs, d), i8(bh, gs, d), i8(bh, t, d), i8(bh, t, d)
+    rp, rs, rp2 = (prng.bits(prng.key(i), (bh, gs, t), cuda) if stochastic
+                   else None for i in (4, 5, 6))
+    eq, ek, ev, eg = e(125), e(125), e(124), e(110)
+    kw = dict(p=7, s=s, bt=kd.attn_block_t(t), causal=causal, window=window,
+              stochastic=stochastic)
+    kd.reset_kernel_launches()
+    got = kfa.attn_fwd(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, **kw)
+    want = kfa.attn_fwd_plain(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("y", "m", "l"), got, want):
+        assert torch.equal(x, y), (name, (x - y).abs().max().item())
+    _, m, l = want
+    delta = torch.randn((bh, gs, 1), generator=g, device=cuda) * 1e-3
+    args = (qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,
+            kv_len)
+    got = kfa.attn_bwd(*args, **kw)
+    want = kfa.attn_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(x, y), (name, (x - y).abs().max().item())
+    assert kd.kernel_launches()["attn_fwd"] == 1
+    assert kd.kernel_launches()["attn_bwd"] == 1
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_wrong_operands(cuda):
     a = torch.randn((1, 4, 8), device=cuda)
@@ -112,3 +168,10 @@ def test_wrappers_reject_wrong_operands(cuda):
         kfl.fused_ii_pt(torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda),
                         torch.zeros((1, 3, 7), dtype=torch.int8, device=cuda),
                         e, e)
+    i8 = torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):      # float keys
+        kfa.attn_fwd(i8, i8.float(), i8, None, e, e, e, 0, 4, p=7, s=4,
+                     bt=128, causal=True, window=0, stochastic=False)
+    with pytest.raises(ValueError):      # bt not a multiple of 128
+        kfa.attn_fwd(i8, i8, i8, None, e, e, e, 0, 4, p=7, s=4, bt=64,
+                     causal=True, window=0, stochastic=False)

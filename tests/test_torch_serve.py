@@ -197,7 +197,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.convert, repro_torch.kernels.dispatch, "
             "repro_torch.core.fmath, repro_torch.core.integer_sgd, "
             "repro_torch.optim, repro_torch.data, "
-            "repro_torch.models.transformer; "
+            "repro_torch.models.transformer, repro_torch.models.attention, "
+            "repro_torch.kernels.fused_attention, repro_torch.core.qnorm; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

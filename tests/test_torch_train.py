@@ -220,7 +220,8 @@ def test_train_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.train(ARCH, steps=1)
-    for kw in ({"ckpt_dir": "x"}, {"health": True}, {"qflow": True},
+    for kw in ({"ckpt_dir": "x"}, {"health": True},
+               {"qflow": True, "qweights": True},
                {"qweights": True}, {"fault_plan": object()},
                {"policy_name": "int8_qfull"}, {"policy_name": "int4"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
