@@ -11,7 +11,10 @@ Phases, any of which failing exits non-zero:
    ``qi`` and ``ii`` y and mantissas ``==``, ``attn_decode`` y within
    ``DECODE_Y_RTOL`` (kernels/fused_attention.py) of the plain y's largest
    magnitude, ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
-   at the qwen2 training slice and at an odd shape; time kernel, plain
+   at the qwen2 training slice and at an odd shape, ``qq_blk`` y and
+   mantissas ``==`` at the per-block training shapes and odd ones (blocks
+   of 128 and 32, more than 32 blocks, a batch, both rounding modes, with
+   and without residuals, a flushed block scale); time kernel, plain
    version and one library call where there is one, and compute the
    card's bound for the same work;
 3. serve full-width qwen2-0.5b (random weights from a seeded generator):
@@ -35,7 +38,12 @@ Phases, any of which failing exits non-zero:
 5. the same for ``int8_qflow`` training (quantized activations between
    layers, attention through the fused ``attn_fwd`` / ``attn_bwd``
    kernels): 3 steps, the launch counts read around them, the plain
-   replay ``==`` in losses and every master and momentum leaf.
+   replay ``==`` in losses and every master and momentum leaf;
+6. the same for ``int8_block`` training (one exponent per 128 elements of
+   each contraction axis): one step, every per-block contraction, forward
+   and A.2 backward, on ``qq_blk`` and the per-tensor rest on ``qq``
+   (``EXPECTED_PER_STEP`` launches), no contraction planned on a plain
+   path, the plain replay ``==``.
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -70,7 +78,14 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 3, 4, 128, 0.05
 TRAIN_STEPS_INT8 = 1
 # Kernels each training phase must launch.
 TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
-                 "int8_qflow": ("qq", "qi", "ii", "attn_fwd", "attn_bwd")}
+                 "int8_qflow": ("qq", "qi", "ii", "attn_fwd", "attn_bwd"),
+                 "int8_block": ("qq", "qq_blk")}
+# Launches per int8_block step (qwen2-0.5b, 4 x 128 tokens): 25 per-block
+# contractions a layer (7 projections x forward, dX, dW; QKᵀ's dA and dB;
+# PV's forward and dB) and 3 of the tied LM head; QKᵀ's forward and PV's
+# dA contract the head dim 64, per tensor.
+EXPECTED_PER_STEP = {"int8_block": {"qq_blk": 24 * 25 + 3, "qq": 24 * 2,
+                                    "qi": 0, "ii": 0}}
 
 
 def _fail(msg: str) -> int:
@@ -88,21 +103,21 @@ def _device_ms(torch, fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
+    total_us = sum(us for _, us in _device_events(prof))
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return total_us / iters / 1e3
 
 
-def _self_device_us(e) -> float:
-    """Device time of a profiler event that runs on the card (a kernel,
-    memcpy or memset); 0 for host-side ops, whose device time is already
-    counted by the kernels they launch."""
+def _device_events(prof):
+    """(name, µs) of every event of a finished torch.profiler run that ran
+    on the card (a kernel, memcpy or memset), read from the raw trace:
+    turning a training step's half a million launches into the profiler's
+    per-op event objects (``key_averages``) took 80-150 s a step."""
     from torch.autograd import DeviceType
-    if e.device_type != DeviceType.CUDA:
-        return 0.0
-    t = getattr(e, "self_device_time_total", None)
-    return getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
 def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -297,7 +312,112 @@ def check_kernels(torch, dev, rec):
                                  "scores, softmax, the per-row p quantize "
                                  "and int8 PV"))
     out += check_attn_train(torch, dev, g, bits)
+    out += check_qq_blk(torch, dev, g, bits)
     return out
+
+
+def _int_mm_blocks_ms(torch, am, bm, blk):
+    """The per-block sum of torch._int_mm products on the same mantissas
+    (one _int_mm per block, no block scales): a yardstick of the int8
+    work in many calls, not one; the port never calls it."""
+    a, b = am[0], bm[0]
+    parts = [(a[:, i:i + blk], b[:, i:i + blk].t())
+             for i in range(0, a.shape[1], blk)]
+
+    def run():
+        acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int32,
+                          device=a.device)
+        for x, y in parts:
+            acc += torch._int_mm(x, y)
+        return acc
+    try:
+        return _device_ms(torch, run, iters=3)
+    except RuntimeError as err:       # the yardstick only; not the port
+        print(f"library call unavailable: {err}", file=sys.stderr)
+        return None
+
+
+def check_qq_blk(torch, dev, g, bits):
+    """qq_blk against its plain version, y and both mantissa arrays ==:
+    stochastic with residuals, half up, and y alone; the first block of
+    row 0 of both operands is tiny, so its scale 2^(sa + sb) is below
+    2^-126 and flushes to 0.  Timed at the gate's forward, the tied LM
+    head's forward and its dX over 1187 blocks of the vocabulary."""
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.kernels import ref
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # name: (B, M, K, N, blk, residuals); the names starting with qq_blk
+    # are timed
+    shapes = {"qq_blk": (1, tokens, 896, 4864, 128, True),
+              "qq_blk_lm_head": (1, tokens, 896, 151936, 128, True),
+              "qq_blk_lm_head_dx": (1, tokens, 151936, 896, 128, False),
+              "pv": (TRAIN_BATCH * 2, 7 * TRAIN_SEQ, TRAIN_SEQ, 64, 128, True),
+              "odd": (2, 37, 40 * 32, 29, 32, True)}
+    out = []
+    for name, (nb, m, k, n, blk, res) in shapes.items():
+        a = torch.randn((nb, m, k), generator=g, device=dev)
+        b = torch.randn((nb, n, k), generator=g, device=dev)
+        a[:, 0, :blk] *= 2.0 ** -70
+        b[:, 0, :blk] *= 2.0 ** -70
+        ra, rb = bits(8, a.shape), bits(9, b.shape)
+        ea = ref.max_biased_exp_blocks_ref(a, blk)
+        eb = ref.max_biased_exp_blocks_ref(b, blk)
+        if int(kfl.scale_exp(ea[0, 0, 0], 7) + kfl.scale_exp(eb[0, 0, 0], 7)) >= -126:
+            raise AssertionError(f"{name}: the flush case is not below 2^-126")
+        err = 0.0
+        for sr in (True, False):
+            r = (ra, rb) if sr else (None, None)
+            kw = dict(blk=blk, stochastic=sr)
+            got = kfl.fused_qq_blk(a, r[0], ea, b, r[1], eb, **kw)
+            want = kfl.fused_qq_blk_plain(a, r[0], ea, b, r[1], eb, **kw)
+            y_only = kfl.fused_qq_blk(a, r[0], ea, b, r[1], eb,
+                                      emit_residuals=False, **kw)[0]
+            torch.cuda.synchronize()
+            err = max(err, (got[0] - want[0]).abs().max().item())
+            for x, y in list(zip(got, want)) + [(y_only, want[0])]:
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: qq_blk kernel != plain "
+                                         f"(max |dy| {err})")
+        if name.startswith("qq_blk"):
+            out.append(_time_qq_blk(torch, kfl, name, (a, ra, ea, b, rb, eb),
+                                    want[1], want[2], blk, res, err))
+        del a, b, ra, rb, got, want, y_only
+        torch.cuda.empty_cache()
+    print("qq_blk == plain at every shape (pv and odd shapes untimed)")
+    return out
+
+
+def _time_qq_blk(torch, kfl, name, args, am, bm, blk, res, err):
+    a, ra, ea, b, rb, eb = args
+    nb, m, k = a.shape
+    n = b.shape[1]
+    args32 = (a, kfl.as_u32(ra), ea, b, kfl.as_u32(rb), eb)
+    kw = dict(blk=blk, emit_residuals=res)
+    ms = _device_ms(torch, lambda: kfl.fused_qq_blk(*args32, **kw))
+    call = _time_ms(torch, lambda: kfl.fused_qq_blk(*args32, **kw))
+    pms = _device_ms(torch, lambda: kfl.fused_qq_blk_plain(*args, **kw),
+                     iters=2)
+    blocks_ms = _int_mm_blocks_ms(torch, am, bm, blk)
+    # f32 values and u32 bits of both operands, the block exponents, y,
+    # and the mantissas when they are written
+    nbytes = nb * (8 * m * k + 8 * n * k + 4 * (m + n) * (k // blk)
+                   + 4 * m * n + ((m + n) * k if res else 0))
+    bound, by = _bound_ms(nbytes, 2.0 * nb * m * n * k)
+    print(f"{name} {[m, k, n]}: {ms:.4f} ms device time (bound "
+          f"{bound:.5f} ms by {by}; plain {pms:.3f} ms; per-block "
+          f"_int_mm {blocks_ms}), kernel == plain")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/fused_linear.cu",
+                replaces="src/repro/kernels/fused_linear.py:367",
+                shape=[nb, m, k, n], blk=blk, residuals=res, max_abs_err=err,
+                ms=ms, call_ms=call, plain_ms=pms, bound_ms=bound,
+                bound_by=by, bytes=nbytes, library_ms=None,
+                int_mm_blocks_ms=blocks_ms,
+                library_note="no single PyTorch call applies a scale per "
+                             "row and block inside the contraction; "
+                             "int_mm_blocks_ms times one torch._int_mm per "
+                             "block, summed unscaled")
 
 
 def check_attn_train(torch, dev, g, bits):
@@ -393,17 +513,24 @@ def check_attn_train(torch, dev, g, bits):
 def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):
     """One kernel-path step under torch.profiler: summed device time, the
     top kernels, and the card's idle share against ``step_ms``, the same
-    step's wall time measured without the profiler."""
+    step's wall time measured without the profiler.  Only device activity
+    is traced: the busy time and launch counts come from the device
+    events alone, and tracing every host op of a training step (about half
+    a million launches) cost the profiler some 250 s to process."""
+    import collections
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [(e.key, _self_device_us(e) / 1e3, e.count)
-              for e in prof.key_averages() if _self_device_us(e) > 0]
-    events.sort(key=lambda x: -x[1])
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for key, us in _device_events(prof):
+        by_name[key][0] += us / 1e3
+        by_name[key][1] += 1
+    events = sorted(((k, t, c) for k, (t, c) in by_name.items()),
+                    key=lambda x: -x[1])
     busy_ms = sum(t for _, t, _ in events)
     idle = 1.0 - busy_ms / step_ms
     rec[name] = dict(
@@ -424,9 +551,11 @@ def serve_and_compare(torch, dev, rec):
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
     dispatch.reset_kernel_launches()
+    t0 = time.perf_counter()
     toks, stats = srv.serve(ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
                             gen=GEN, seed=SEED, qcache=True, quiet=True)
     torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
     launches = dispatch.kernel_launches()
     logits = stats.pop("logits")
     cfg = get_config(ARCH)
@@ -440,7 +569,8 @@ def serve_and_compare(torch, dev, rec):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
-    rec["serve"] = dict(stats, launches=launches, tokens=toks.tolist())
+    rec["serve"] = dict(stats, launches=launches, tokens=toks.tolist(),
+                        serve_call_s=serve_s)
     print(f"serve qwen2-0.5b full width: prefill {BATCH}x{PROMPT} in "
           f"{stats['prefill_s']:.4f} s, decode {stats['decode_ms_per_step']:.3f}"
           f" ms/step, {stats['tok_per_s']:.1f} tok/s, launches {launches}")
@@ -455,6 +585,7 @@ def serve_and_compare(torch, dev, rec):
     prefill = make_prefill_step(cfg, policy, PROMPT + GEN, dev)
     decode = make_decode_step(cfg, policy, dev)
     dev_toks = toks.to(dev)
+    t0 = time.perf_counter()
     with torch.inference_mode(), dispatch.plain_kernels():
         cache, lg0 = prefill(params, {"tokens": prompts}, prng.fold_in(key, 3))
         if not torch.equal(lg0, logits[0]):
@@ -468,13 +599,16 @@ def serve_and_compare(torch, dev, rec):
             rel = ((lg - ref_lg).abs().max() / ref_lg.abs().max()).item()
             worst = max(worst, rel)
             agree += int(torch.equal(lg.argmax(-1), ref_lg.argmax(-1)))
+    replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with torch.inference_mode():
         step_profile(torch, lambda: decode(
             params, cache, dev_toks[:, -1], PROMPT + GEN - 1,
             prng.fold_in(key, 10 + GEN)), stats["decode_ms_per_step"], rec)
     rec["compare"] = dict(prefill_equal=True, decode_max_rel_err=worst,
                           decode_steps_argmax_agree=agree,
-                          decode_steps=GEN - 1)
+                          decode_steps=GEN - 1, replay_call_s=replay_s,
+                          profile_call_s=time.perf_counter() - t0)
     print(f"plain-version replay: prefill logits ==, decode max rel err "
           f"{worst:.3e}, argmax agrees on {agree}/{GEN - 1} steps")
     if not worst <= DECODE_LOGIT_RTOL:
@@ -524,6 +658,13 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
         tokens = TRAIN_BATCH * TRAIN_SEQ
         per_step = {k: v / steps for k, v in launches.items()}
         jnp = sorted({(d.op, d.reason) for d in log if d.path == dispatch.JNP})
+        for name, want in EXPECTED_PER_STEP.get(policy_name, {}).items():
+            if per_step[name] != want:
+                raise AssertionError(f"{label}: {per_step[name]} {name} "
+                                     f"launches per step, expected {want}")
+        if policy_name == "int8_block" and jnp:
+            raise AssertionError(f"{label}: contractions planned on the "
+                                 f"plain path: {jnp}")
         print(f"{label} qwen2-0.5b full width: {steps} steps of "
               f"{TRAIN_BATCH}x{TRAIN_SEQ}, {step_s:.3f} s/step (median), "
               f"{tokens / step_s:.1f} tokens/s, losses {losses}, launches "
@@ -554,9 +695,11 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
         batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                             global_batch=TRAIN_BATCH,
                             seed=SEED).batch_for_step(steps)
+        t0 = time.perf_counter()
         step_profile(torch, lambda: step(state, batch, prng.fold_in(
             prng.key(SEED), steps)), 1e3 * step_s, rec,
             f"{label}_step_profile")
+        profile_s = time.perf_counter() - t0
     torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message)[:200] for w in caught
                      if "deterministic" in str(w.message)})
@@ -565,7 +708,7 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
                       tokens_per_s=tokens / step_s, peak_bytes=peak,
                       plain_replay_equal=True, jnp_decisions=jnp,
                       nondeterministic_ops=nondet, train_call_s=train_s,
-                      replay_call_s=replay_s,
+                      replay_call_s=replay_s, profile_call_s=profile_s,
                       replay_step_s=stats_p["step_s"])
     return launches
 
@@ -598,7 +741,9 @@ def main() -> int:
               ("train", lambda: train_and_compare(torch, dev, rec,
                                                   steps=TRAIN_STEPS_INT8)),
               ("train_int8_qflow", lambda: train_and_compare(
-                  torch, dev, rec, "int8_qflow"))]
+                  torch, dev, rec, "int8_qflow")),
+              ("train_int8_block", lambda: train_and_compare(
+                  torch, dev, rec, "int8_block", steps=1))]
     results, rec["phase_s"] = {}, {}
     for name, run in phases:
         t1 = time.perf_counter()

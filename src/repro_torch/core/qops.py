@@ -11,8 +11,17 @@ contraction asks ``kernels.dispatch`` for a path: the hand-written kernel
 (``fused``: ``qq`` forward, ``qi`` dX, ``ii`` dW) or the plain oracle path
 below (``jnp``).  Keys are split and folded exactly as in the JAX package,
 so the same key gives the same rounding bits and results compare with
-``==``.  The per-block (MX-style) scales have their forward here; their
-backward needs the per-block kernel and raises.
+``==``.
+
+Per-block (MX-style) scales, one exponent per ``policy.block`` elements of
+each contraction axis that the block divides (per tensor otherwise): the
+forward quantizes both operands along K (the ``qq_blk`` kernel), and each
+backward contraction re-blocks its stored residual along its own axis
+(dequantize, transpose, quantize again with a fresh key) and quantizes
+the gradient along that axis too, so dX and dW are kind ``qq`` as well.
+The plain path sums the per-block partials in the reference's jnp order
+(``_blk_dot``), the kernel in block order (the reference's Pallas order).
+The embedding's per-block backward scatters the float gradient.
 
 The qflow currency: ``qmatmul`` and ``qbmm`` also take per-tensor BFP
 operands (q-in: the mantissas are contracted as they are, kinds ``iq``,
@@ -77,7 +86,11 @@ def _pt_dot(am: torch.Tensor, bm: torch.Tensor, nbatch: int,
 
 
 def _blk_dot(aq: BFP, bq: BFP, nbatch: int) -> torch.Tensor:
-    """Integer dot with per-block scales along the contraction axis."""
+    """Integer dot with per-block scales along the contraction axis: the
+    exact per-block partials, each times its exact block scale, summed
+    over the block axis in the reference's jnp order (XLA CPU's windows
+    of 32).  The ``qq_blk`` kernel sums in block order instead, as the
+    reference's Pallas kernel does."""
     blk = aq.cfg.block
     nb = aq.m.shape[-1] // blk
     a4 = aq.m.reshape(*aq.m.shape[:-1], nb, blk).movedim(-2, nbatch)
@@ -85,7 +98,7 @@ def _blk_dot(aq: BFP, bq: BFP, nbatch: int) -> torch.Tensor:
     acc = int8_dot(a4, b4).to(torch.float32)
     ea = scale_exponent(aq.e, aq.cfg).movedim(-1, nbatch)[..., :, None]
     eb = scale_exponent(bq.e, bq.cfg).movedim(-1, nbatch)[..., None, :]
-    return (acc * pow2(ea + eb)).sum(dim=nbatch)
+    return fmath.sum_windows(acc * pow2(ea + eb), (nbatch,))
 
 
 def _contract_q(aq: BFP, bq: BFP, nbatch: int, chunk: int) -> torch.Tensor:
@@ -109,12 +122,6 @@ def _tq(q: BFP) -> BFP:
     return BFP(_t(q.m), q.e, q.cfg)
 
 
-def _per_block_bwd(op: str):
-    raise NotImplementedError(
-        f"{op} backward with per-block scales needs the per-block kernel "
-        "(fused_qq_blk_pallas), which is not ported yet")
-
-
 def _wcfg_for(xcfg: QuantConfig, policy: NumericPolicy) -> QuantConfig:
     return QuantConfig(policy.fwd_bits, xcfg.block, policy.stochastic,
                        policy.rng)
@@ -127,6 +134,24 @@ def _plan(op: str, m: int, k: int, n: int, cfg: QuantConfig,
                             kernel_mode=policy.kernel_mode,
                             accum_chunk=policy.accum_chunk,
                             device=device.type)
+
+
+def _requant_contract(op: str, a: torch.Tensor, b: torch.Tensor,
+                      cfg: QuantConfig, ka: prng.Key, kb: prng.Key,
+                      nbatch: int, policy: NumericPolicy) -> torch.Tensor:
+    """One backward contraction under a per-block policy: a (*B, M, K) and
+    b (*B, N, K) f32, both quantized along K with ``cfg`` (per block when
+    the block divides K), kind qq.  One operand is the upstream gradient,
+    the other a dequantized residual: the reference's ``_requant_t`` on the
+    plain path, its in-kernel requantization on the kernel path (no
+    mantissa written)."""
+    plan = _plan(op, a.shape[-2], a.shape[-1], b.shape[-2], cfg, policy,
+                 a.device)
+    if plan.path == kd.JNP:
+        return _contract_q(quantize(a, cfg, ka), quantize(b, cfg, kb), nbatch,
+                           policy.accum_chunk)
+    return kd.contract_qq(a, b, cfg, ka, kb, plan, nbatch=nbatch,
+                          want_residuals=False)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +179,21 @@ def _qmatmul_fwd(x: torch.Tensor, w: torch.Tensor, key: prng.Key,
 
 def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
     """A.2: Ĝ quantized once; dX = Ĝ Ŵᵀ (kind qi), dW = X̂ᵀ Ĝ (kind ii)
-    on the stored mantissas.  -> (dx, dw)."""
+    on the stored mantissas; under per-block scales both are kind qq on
+    re-blocked residuals (``_requant_contract``).  -> (dx, dw)."""
     xq, wq, kb, lead = res
-    if policy.block != PER_TENSOR:
-        _per_block_bwd("qmatmul")
     cfg_b = policy.bwd_cfg()
-    kg, _, _, _ = prng.split(kb, 4)
+    kg, kg2, kx2, kw2 = prng.split(kb, 4)
     g2 = gy.reshape(-1, gy.shape[-1])
     m, n = g2.shape
     k = xq.m.shape[-1]
+    if policy.block != PER_TENSOR:
+        # dX = G W^T contracts N, dW = X^T G contracts M
+        dx = _requant_contract("qmatmul_dx", g2, _t(dequantize(wq)),
+                               _cfg_for_dim(cfg_b, n), kg, kw2, 0, policy)
+        dw = _requant_contract("qmatmul_dw", _t(dequantize(xq)), _t(g2),
+                               _cfg_for_dim(cfg_b, m), kx2, kg2, 0, policy)
+        return dx.reshape(*lead, k), dw
     plan_dx = _plan("qmatmul_dx", m, n, k, cfg_b, policy, gy.device,
                     kind="qi", cfg2=wq.cfg)
     if plan_dx.path == kd.JNP:
@@ -310,15 +341,22 @@ def _qbmm_fwd(a: torch.Tensor, b: torch.Tensor, key: prng.Key,
 
 
 def _qbmm_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
-    """A.2 for the batched product: da = Ĝ B̂ᵀ (qi), db = Âᵀ Ĝ (ii)."""
+    """A.2 for the batched product: da = Ĝ B̂ᵀ (qi), db = Âᵀ Ĝ (ii); per
+    block both kind qq on re-blocked residuals, as in ``_qmatmul_bwd``."""
     aq, bq, kres = res
-    if policy.block != PER_TENSOR:
-        _per_block_bwd("qbmm")
     cfg_b = policy.bwd_cfg()
-    kg, _, _, _ = prng.split(kres, 4)
+    kg, kg2, ka2, kb2 = prng.split(kres, 4)
     nbatch = gy.ndim - 2
     m, n = gy.shape[-2], gy.shape[-1]
     k = aq.m.shape[-1]
+    if policy.block != PER_TENSOR:
+        da = _requant_contract("qbmm_dx", gy, _t(dequantize(bq)),
+                               _cfg_for_dim(cfg_b, n), kg, kb2, nbatch,
+                               policy)
+        db = _requant_contract("qbmm_dw", _t(dequantize(aq)), _t(gy),
+                               _cfg_for_dim(cfg_b, m), ka2, kg2, nbatch,
+                               policy)
+        return da, db
     plan_da = _plan("qbmm_dx", m, n, k, cfg_b, policy, gy.device, kind="qi",
                     cfg2=bq.cfg)
     if plan_da.path == kd.JNP:
@@ -534,14 +572,37 @@ def _qembed_fwd(tokens: torch.Tensor, table: torch.Tensor, key: prng.Key,
     return y, kb
 
 
+def _scatter_rows_in_order(g: torch.Tensor, idx: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """(n, D) float sums of the rows of ``g`` (T, D) by ``idx`` (T,), each
+    row 0 + g[i0] + g[i1] + ... over its indices in ascending i (the
+    reference's scatter order), on any device: round r adds the r-th
+    occurrence of every index, so no round writes a row twice and no
+    atomics decide the order.  One host read (the rounds' count)."""
+    idx = idx.long()
+    order = torch.sort(idx, stable=True).indices
+    sidx = idx[order]
+    pos = torch.arange(idx.numel(), device=idx.device)
+    start = torch.ones_like(sidx, dtype=torch.bool)
+    start[1:] = sidx[1:] != sidx[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    out = torch.zeros((n, g.shape[-1]), dtype=g.dtype, device=g.device)
+    for r in range(int(rank.max()) + 1 if idx.numel() else 0):
+        pick = order[rank == r]
+        rows = idx[pick]
+        out[rows] = out[rows] + g[pick]
+    return out
+
+
 def _qembed_bwd(policy: NumericPolicy, tokens: torch.Tensor, vocab: int,
                 kb: prng.Key, gy: torch.Tensor) -> torch.Tensor:
     """dTable: the upstream gradient quantized once per tensor, its int8
-    mantissas scatter-added into int32 rows, one rescale."""
-    if policy.block != PER_TENSOR:
-        _per_block_bwd("qembed")
-    cfg_b = policy.bwd_cfg()
+    mantissas scatter-added into int32 rows, one rescale.  Under per-block
+    scales the rows' scales differ, so the float gradient is scattered."""
     g2 = gy.reshape(-1, gy.shape[-1])
+    if policy.block != PER_TENSOR:
+        return _scatter_rows_in_order(g2, tokens.reshape(-1), vocab)
+    cfg_b = policy.bwd_cfg()
     gq = quantize(g2, QuantConfig(cfg_b.bits, PER_TENSOR, cfg_b.stochastic,
                                   cfg_b.rng), kb)
     acc = torch.zeros((vocab, g2.shape[-1]), dtype=torch.int32,

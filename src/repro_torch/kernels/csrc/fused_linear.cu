@@ -5,6 +5,8 @@
 //   fused_qi_pt_pallas  (a f32 quantized in the kernel, b pre-quantized int8)
 //   fused_ii_pt_pallas  (both operands pre-quantized int8: the backward's
 //                        dW = X^T G on the residual mantissas)
+//   fused_qq_blk_pallas (both operands f32, quantized in the kernel with one
+//                        exponent per blk elements of K; see qq_blk below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
 // The shared exponents are per tensor (over the whole batched tensor) and
@@ -197,6 +199,182 @@ cudaError_t dispatch(const Args& g, cudaStream_t stream) {
              : launch<4, A_FLOAT, B_FLOAT, STOCH, false>(g, stream);
 }
 
+// ---------------------------------------------------------------------------
+// qq_blk: per-K-block exponents (the MX-style variant, fused_qq_blk_pallas).
+//
+// Every row of a and b has one biased exponent per blk elements of K (ea
+// (B, M, K/blk), eb (B, N, K/blk), computed before the launch as the
+// reference computes them outside its kernel).  The block loop walks K one
+// exponent block at a time, in order: its a and b tiles are quantized in
+// 32-wide slices against their rows' block exponents, contracted with
+// __dp4a into an int32 partial (exact: blk x 127^2 < 2^24 for blk <= 1040,
+// so its conversion to f32 is exact too), and the partial times
+// 2^(sa + sb) (0 below 2^-126) is added to the f32 accumulator, each step
+// rounded on its own (__fmul_rn / __fadd_rn: the product is exact, the sum
+// rounds once, in block order, as the plain version's does).
+//
+// Bounds on the H100: the same bytes as qq (f32 + bits of both operands in,
+// y out, the mantissas when asked for) plus 4 bytes per row and block of
+// exponents, against 2*M*N*K int8 operations: bytes bound every shape of
+// the training path.  Each N tile quantizes its a tile again (and each M
+// tile its b tile); the grid runs the M tiles of one N tile next to each
+// other, so the b tile they share comes from L2.  Quantizing each operand
+// once, wgmma and TMA are later work.
+
+constexpr int BLK_TM = 4;                 // rows per thread
+constexpr int BLK_BM = 16 * BLK_TM;       // a rows per block
+
+// Quantize elements [k_lo, k_lo + w) of ROWS rows (w <= BK) against each
+// row's exponent of block bi into packed words; words past w hold zeros.
+template <int ROWS, bool STOCH, bool VEC>
+__device__ __forceinline__ void load_blk_tile(
+    int (*tile)[LD], const float* __restrict__ x,
+    const uint32_t* __restrict__ xr, const int* __restrict__ e, int nb,
+    int bi, int p, int row0, int rows, int k_lo, int w, int K,
+    int8_t* __restrict__ m_out) {
+  for (int t = threadIdx.x; t < ROWS * KW; t += THREADS) {
+    const int row = t / KW, off = (t % KW) * 4;
+    const int gr = row0 + row;
+    uint32_t packed = 0;
+    if (gr < rows && off < w) {
+      const size_t idx = (size_t)gr * K + k_lo + off;
+      const int es = e[(size_t)gr * nb + bi];
+      int q[4];
+      if (VEC) {                 // K, blk multiples of 4: off + 3 < w
+        const float4 v = *reinterpret_cast<const float4*>(x + idx);
+        uint4 r = make_uint4(0u, 0u, 0u, 0u);
+        if (STOCH) r = *reinterpret_cast<const uint4*>(xr + idx);
+        q[0] = quantize_one(v.x, r.x, es, p, STOCH);
+        q[1] = quantize_one(v.y, r.y, es, p, STOCH);
+        q[2] = quantize_one(v.z, r.z, es, p, STOCH);
+        q[3] = quantize_one(v.w, r.w, es, p, STOCH);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          q[j] = off + j < w ? quantize_one(x[idx + j], STOCH ? xr[idx + j] : 0u,
+                                            es, p, STOCH)
+                             : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        packed |= ((uint32_t)q[j] & 0xFFu) << (8 * j);
+        if (m_out != nullptr && off + j < w) m_out[idx + j] = (int8_t)q[j];
+      }
+    }
+    tile[row][t % KW] = (int)packed;
+  }
+}
+
+// Grid (M tiles, N tiles, B); 256 threads, each 4 x 4 outputs.
+template <bool STOCH, bool VEC>
+__global__ void __launch_bounds__(THREADS) qq_blk_kernel(
+    const float* __restrict__ a, const uint32_t* __restrict__ ra,
+    const int* __restrict__ ea, const float* __restrict__ b,
+    const uint32_t* __restrict__ rb, const int* __restrict__ eb,
+    float* __restrict__ y, int8_t* __restrict__ am_out,
+    int8_t* __restrict__ bm_out, int M, int N, int K, int blk, int p) {
+  __shared__ int As[BLK_BM][LD];
+  __shared__ int Bs[BN][LD];
+  const int nb = K / blk;
+  const size_t z = blockIdx.z;
+  a += z * M * K;
+  b += z * N * K;
+  if (STOCH) {
+    ra += z * M * K;
+    rb += z * N * K;
+  }
+  ea += z * M * nb;
+  eb += z * N * nb;
+  y += z * M * N;
+  const int m0 = blockIdx.x * BLK_BM, n0 = blockIdx.y * BN;
+  int8_t* am_w = (am_out != nullptr && blockIdx.y == 0) ? am_out + z * M * K : nullptr;
+  int8_t* bm_w = (bm_out != nullptr && blockIdx.x == 0) ? bm_out + z * N * K : nullptr;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float acc[BLK_TM][4];
+#pragma unroll
+  for (int i = 0; i < BLK_TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int bi = 0; bi < nb; ++bi) {
+    int part[BLK_TM][4];
+#pragma unroll
+    for (int i = 0; i < BLK_TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = 0;
+    for (int s0 = 0; s0 < blk; s0 += BK) {
+      const int k_lo = bi * blk + s0;
+      const int w = blk - s0 < BK ? blk - s0 : BK;
+      load_blk_tile<BLK_BM, STOCH, VEC>(As, a, ra, ea, nb, bi, p, m0, M, k_lo,
+                                        w, K, am_w);
+      load_blk_tile<BN, STOCH, VEC>(Bs, b, rb, eb, nb, bi, p, n0, N, k_lo, w,
+                                    K, bm_w);
+      __syncthreads();
+#pragma unroll
+      for (int kw = 0; kw < KW; ++kw) {
+        int av[BLK_TM], bv[4];
+#pragma unroll
+        for (int i = 0; i < BLK_TM; ++i) av[i] = As[ty + 16 * i][kw];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[tx + 16 * j][kw];
+#pragma unroll
+        for (int i = 0; i < BLK_TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[i][j] = __dp4a(av[i], bv[j], part[i][j]);
+      }
+      __syncthreads();
+    }
+    int sb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      sb[j] = gn < N ? scale_exp(eb[(size_t)gn * nb + bi], p) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < BLK_TM; ++i) {
+      const int gm = m0 + ty + 16 * i;
+      const int sa = gm < M ? scale_exp(ea[(size_t)gm * nb + bi], p) : 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(__int2float_rn(part[i][j]),
+                                                   pow2f(sa + sb[j])));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BLK_TM; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn < N) y[(size_t)gm * N + gn] = acc[i][j];
+    }
+  }
+}
+
+struct BlkArgs {
+  const float* a; const uint32_t* ra; const int* ea;
+  const float* b; const uint32_t* rb; const int* eb;
+  float* y; int8_t* am; int8_t* bm;
+  int B, M, N, K, blk, p;
+};
+
+template <bool STOCH>
+cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
+  const dim3 grid((g.M + BLK_BM - 1) / BLK_BM, (g.N + BN - 1) / BN, g.B);
+  if (g.K % 4 == 0 && g.blk % 4 == 0) {
+    qq_blk_kernel<STOCH, true><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.ea, g.b, g.rb, g.eb, g.y, g.am, g.bm, g.M, g.N, g.K,
+        g.blk, g.p);
+  } else {
+    qq_blk_kernel<STOCH, false><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.ea, g.b, g.rb, g.eb, g.y, g.am, g.bm, g.M, g.N, g.K,
+        g.blk, g.p);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,6 +420,21 @@ int repro_fused_ii(const void* a_m, const void* b_m, const void* ea,
                static_cast<const int*>(ea), static_cast<const int*>(eb),
                static_cast<float*>(y), nullptr, nullptr, B, M, N, K, pa, pb};
   return (int)dispatch<false, false, false>(g, static_cast<cudaStream_t>(stream));
+}
+
+// qq_blk: a (B,M,K) f32 [+ ra], ea (B,M,K/blk) int32, b (B,N,K) f32 [+ rb],
+// eb (B,N,K/blk) int32 -> y (B,M,N) f32 [+ am, bm int8 when not null].
+int repro_fused_qq_blk(const void* a, const void* ra, const void* ea,
+                       const void* b, const void* rb, const void* eb, void* y,
+                       void* am, void* bm, int B, int M, int N, int K, int blk,
+                       int p, int stochastic, void* stream) {
+  const BlkArgs g{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
+                  static_cast<const int*>(ea), static_cast<const float*>(b),
+                  static_cast<const uint32_t*>(rb), static_cast<const int*>(eb),
+                  static_cast<float*>(y), static_cast<int8_t*>(am),
+                  static_cast<int8_t*>(bm), B, M, N, K, blk, p};
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(stochastic ? launch_blk<true>(g, s) : launch_blk<false>(g, s));
 }
 
 }  // extern "C"

@@ -21,10 +21,12 @@ the ``ii`` kernel).  Rules (the JAX package's, with "off-TPU -> jnp" read
 as "off-CUDA -> plain"): ``kernel_mode="jnp"`` or bits != 8 -> jnp;
 ``"auto"`` -> the kernel on CUDA when feasible, jnp elsewhere; ``"fused"``
 -> the kernel numerics wherever feasible.  Feasibility is the kernels' own
-limits: K inside one int32 accumulator, and for attention the shared
-memory one block holds.  An infeasible plan says why.  Nothing here
-catches a kernel failure and drops to another path: a failed build or
-launch raises.
+limits: K inside one int32 accumulator (per tensor; a per-block partial
+sums only one block), and for attention the shared memory one block
+holds.  Per-block scales have a kernel for kind ``qq`` only (``qq_blk``);
+any other per-block kind plans jnp on the CPU and raises on the card.  An
+infeasible plan says why.  Nothing here catches a kernel failure and drops
+to another path: a failed build or launch raises.
 
 :func:`plain_kernels` is the one explicit switch that makes fused
 decisions run the kernels' plain versions on the card, so the whole path
@@ -101,7 +103,8 @@ def plain_kernels():
 
 
 _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
-             "ii": kfl.fused_ii_pt, "attn_decode": kfa.attn_decode,
+             "ii": kfl.fused_ii_pt, "qq_blk": kfl.fused_qq_blk,
+             "attn_decode": kfa.attn_decode,
              "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd}
 
 
@@ -148,12 +151,21 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
     bits = {cfg.bits} | ({cfg2.bits} if cfg2 is not None else set())
     if bits != {8}:
         return decide(JNP, f"bits={sorted(bits)} (kernels are int8-only)")
-    if cfg.block != PER_TENSOR or (cfg2 is not None
-                                   and cfg2.block != PER_TENSOR):
-        return decide(JNP, "per-block scales: the per-block kernel is not "
-                           "ported yet")
+    per_block = cfg.block != PER_TENSOR or (cfg2 is not None
+                                            and cfg2.block != PER_TENSOR)
+    if per_block and kind != "qq":
+        why = (f"per-block scales have a kernel only for kind qq (both "
+               f"operands quantized in it), not {kind}")
+        if device == "cuda":
+            raise NotImplementedError(f"{op}: {why}; its plain path runs "
+                                      f"only on the CPU")
+        return decide(JNP, why)
     if kernel_mode == "auto" and device != "cuda":
         return decide(JNP, f"auto keeps the plain path on device={device}")
+    if per_block:
+        # a per-block partial sums only ``block`` products: no flush
+        # emulation, no int32 overflow
+        return decide(FUSED, "per-block kernel (qq_blk)")
     if k > accum_chunk:
         return decide(JNP, f"K={k} > accum_chunk={accum_chunk} "
                            "(flush emulation stays on the plain path)")
@@ -221,7 +233,7 @@ def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# execution (contraction-last layout, per-tensor scales)
+# execution (contraction-last layout)
 # ---------------------------------------------------------------------------
 
 def _flat3(x: torch.Tensor, nbatch: int) -> torch.Tensor:
@@ -233,22 +245,36 @@ def contract_qq(a: torch.Tensor, b: torch.Tensor, cfg: QuantConfig,
                 want_residuals: bool = True
                 ) -> Tuple[torch.Tensor, Optional[BFP], Optional[BFP]]:
     """Quantize both contraction-last operands and contract on the qq
-    kernel: a (*B, M, K), b (*B, N, K) f32 -> (y (*B, M, N), aq, bq), or
-    (y, None, None) when ``want_residuals`` is False (no mantissa is
-    written).  The shared exponents are the maxima over the whole
-    (batched) tensors and the rounding bits are drawn on their logical
-    shapes, exactly as ``core.bfp.quantize`` would."""
-    assert cfg.block == PER_TENSOR and dec.path == FUSED
+    kernel (per-tensor ``cfg``) or the qq_blk kernel (per-block ``cfg``):
+    a (*B, M, K), b (*B, N, K) f32 -> (y (*B, M, N), aq, bq), or (y, None,
+    None) when ``want_residuals`` is False (no mantissa is written).  The
+    shared exponents are the maxima over the whole (batched) tensors, or
+    over each row's blocks of K ((*B, M, K/blk) int32), and the rounding
+    bits are drawn on the logical shapes, exactly as ``core.bfp.quantize``
+    would.  The reference pads K with blocks of exponent 1, which add exact
+    zeros; the kernels take K as it is."""
+    assert dec.path == FUSED
     sr = cfg.stochastic
     ra = rounding_bits(ka, a.shape, cfg.rng, a.device) if sr else None
     rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
-    ea = ref.max_biased_exp_ref(a)
-    eb = ref.max_biased_exp_ref(b)
-    run = kfl.fused_qq_pt_plain if _plain_on_card else kfl.fused_qq_pt
-    y, am, bm = run(_flat3(a, nbatch), None if ra is None else _flat3(ra, nbatch),
-                    _flat3(b, nbatch), None if rb is None else _flat3(rb, nbatch),
-                    ea, eb, p=cfg.p, stochastic=sr,
-                    emit_residuals=want_residuals)
+    ra3 = None if ra is None else _flat3(ra, nbatch)
+    rb3 = None if rb is None else _flat3(rb, nbatch)
+    if cfg.block == PER_TENSOR:
+        ea = ref.max_biased_exp_ref(a)
+        eb = ref.max_biased_exp_ref(b)
+        run = kfl.fused_qq_pt_plain if _plain_on_card else kfl.fused_qq_pt
+        y, am, bm = run(_flat3(a, nbatch), ra3, _flat3(b, nbatch), rb3, ea,
+                        eb, p=cfg.p, stochastic=sr,
+                        emit_residuals=want_residuals)
+    else:
+        a, b = a.contiguous(), b.contiguous()
+        ea = ref.max_biased_exp_blocks_ref(a, cfg.block)
+        eb = ref.max_biased_exp_blocks_ref(b, cfg.block)
+        run = kfl.fused_qq_blk_plain if _plain_on_card else kfl.fused_qq_blk
+        y, am, bm = run(_flat3(a, nbatch), ra3, _flat3(ea, nbatch),
+                        _flat3(b, nbatch), rb3, _flat3(eb, nbatch), p=cfg.p,
+                        blk=cfg.block, stochastic=sr,
+                        emit_residuals=want_residuals)
     y = y.reshape(*a.shape[:nbatch], *y.shape[1:])
     if not want_residuals:
         return y, None, None
@@ -348,3 +374,12 @@ def _jnp_matmul(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
     sea = ea - 127 - 23 + (24 - pa)
     seb = eb - 127 - 23 + (24 - pb)
     return kfl.int8_dot(am, bmant).to(torch.float32) * pow2(sea + seb)
+
+
+def _jnp_block_matmul(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
+                      pb: int, blk: int) -> torch.Tensor:
+    """Plain mirror of the per-block kernel: exact per-block partials of
+    contraction-last mantissas, each times its block scale, summed in
+    block order (the kernel's order, not ``core.qops._blk_dot``'s)."""
+    return kfl.blk_combine(am, bmant, kfl.scale_exp(ea, pa),
+                           kfl.scale_exp(eb, pb), blk)

@@ -1,6 +1,6 @@
 """Fused quantize -> int8 GEMM -> exponent-add rescale: CUDA kernels + plain.
 
-Ports of three TPU kernels of ``repro.kernels.fused_linear``:
+Ports of four TPU kernels of ``repro.kernels.fused_linear``:
 
   ``fused_qq_pt``  <- ``fused_qq_pt_pallas``: both operands f32, quantized
                    in the kernel (per-tensor exponents ``ea``/``eb``,
@@ -12,14 +12,21 @@ Ports of three TPU kernels of ``repro.kernels.fused_linear``:
   ``fused_ii_pt``  <- ``fused_ii_pt_pallas``: both operands int8 mantissas
                    (the backward's dW on stored residuals), int8 x int8 ->
                    int32 x 2^(sa + sb); no quantize stage, no rounding bits.
+  ``fused_qq_blk`` <- ``fused_qq_blk_pallas``: both operands f32, quantized
+                   in the kernel with one exponent per ``blk`` elements of
+                   the contraction axis (``ea`` (B, M, K/blk), ``eb`` (B, N,
+                   K/blk)); each block's exact int32 partial times
+                   2^(sa + sb) is added to a float32 accumulator in block
+                   order; also returns both mantissas.
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
 -> y (B, M, N).  The CUDA source is ``csrc/fused_linear.cu``; its note
 says what bounds it.  Each wrapper runs the kernel for CUDA tensors and
 the plain version (same file, below) for CPU tensors, and nothing else:
 a CUDA tensor never reaches the plain version through a wrapper.
-Exponents are int32 device scalars (no host synchronisation); rounding
-bits are uint32 values held in int64 (``core.prng``).
+Exponents are int32 device tensors, a scalar per tensor or one per row
+and block (no host synchronisation); rounding bits are uint32 values held
+in int64 (``core.prng``).
 """
 
 from __future__ import annotations
@@ -32,8 +39,9 @@ import torch
 from . import build
 
 __all__ = ["quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
-           "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_pt_plain",
-           "fused_qi_pt_plain", "fused_ii_pt_plain", "as_u32"]
+           "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
+           "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
+           "fused_qq_blk_plain", "blk_combine", "as_u32"]
 
 _F32_EXP_BIAS = 127
 _F32_MANT_BITS = 23
@@ -112,6 +120,38 @@ def fused_ii_pt_plain(a_m, b_m, ea, eb, *, pa=7, pb=7):
         scale_exp(ea, pa) + scale_exp(eb, pb))
 
 
+def _bcast_blk(e: torch.Tensor, blk: int) -> torch.Tensor:
+    """Per-block exponents (..., nb) -> per-element (..., nb * blk)."""
+    return torch.repeat_interleave(e, blk, dim=-1)
+
+
+def blk_combine(am: torch.Tensor, bm: torch.Tensor, sea: torch.Tensor,
+                seb: torch.Tensor, blk: int) -> torch.Tensor:
+    """Per-block contraction of mantissas (..., M, K) x (..., N, K) with
+    unbiased scale exponents (..., M, K/blk), (..., N, K/blk): each block's
+    exact integer partial times 2^(sa + sb) (0 below 2^-126) added to a
+    float32 accumulator from a zero start, in block order (the product is
+    exact, so the order of the adds is the only float choice)."""
+    acc = torch.zeros((*am.shape[:-1], bm.shape[-2]), dtype=torch.float32,
+                      device=am.device)
+    for i in range(am.shape[-1] // blk):
+        part = int8_dot(am[..., i * blk:(i + 1) * blk],
+                        bm[..., i * blk:(i + 1) * blk]).to(torch.float32)
+        acc = acc + part * pow2_f32(sea[..., :, i, None]
+                                    + seb[..., None, :, i])
+    return acc
+
+
+def fused_qq_blk_plain(a, ra, ea, b, rb, eb, *, p=7, blk=32,
+                       stochastic=True, emit_residuals=True):
+    """Plain version of ``fused_qq_blk``: (y, a mantissas, b mantissas),
+    the mantissas None when ``emit_residuals`` is False."""
+    am = quantize_tile(a, ra, _bcast_blk(ea, blk), p, stochastic)
+    bm = quantize_tile(b, rb, _bcast_blk(eb, blk), p, stochastic)
+    y = blk_combine(am, bm, scale_exp(ea, p), scale_exp(eb, p), blk)
+    return (y, am, bm) if emit_residuals else (y, None, None)
+
+
 def as_u32(r: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> int32 tensor with the same bits (an
     int32 tensor is taken as already converted)."""
@@ -153,6 +193,8 @@ def _lib_linear() -> ctypes.CDLL:
         lib.repro_fused_qi.restype = i
         lib.repro_fused_ii.argtypes = [vp] * 5 + [i] * 6 + [vp]
         lib.repro_fused_ii.restype = i
+        lib.repro_fused_qq_blk.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        lib.repro_fused_qq_blk.restype = i
         lib._typed = True
     return lib
 
@@ -246,7 +288,51 @@ def fused_ii_pt(a_m: torch.Tensor, b_m: torch.Tensor, ea: torch.Tensor,
     return y
 
 
+def fused_qq_blk(a: torch.Tensor, ra: Optional[torch.Tensor],
+                 ea: torch.Tensor, b: torch.Tensor,
+                 rb: Optional[torch.Tensor], eb: torch.Tensor, *, p: int = 7,
+                 blk: int = 32, stochastic: bool = True,
+                 emit_residuals: bool = True
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """a (B, M, K) f32, b (B, N, K) f32, ra/rb their bits (None for half
+    up), ea (B, M, K/blk) / eb (B, N, K/blk) int32 biased exponents of
+    each block -> (y (B, M, N) f32, a and b int8 mantissas); without
+    residuals the kernel writes no mantissa and both come back None."""
+    if not a.is_cuda:
+        return fused_qq_blk_plain(a, ra, ea, b, rb, eb, p=p, blk=blk,
+                                  stochastic=stochastic,
+                                  emit_residuals=emit_residuals)
+    nb, m, k = a.shape
+    n = b.shape[1]
+    dev = a.device
+    if blk < 1 or k % blk:
+        raise ValueError(f"K={k} is not a multiple of the block {blk}")
+    _check("a", a, torch.float32, (nb, m, k), dev)
+    _check("b", b, torch.float32, (nb, n, k), dev)
+    _check("ea", ea, torch.int32, (nb, m, k // blk), dev)
+    _check("eb", eb, torch.int32, (nb, n, k // blk), dev)
+    if stochastic:
+        ra, rb = as_u32(ra), as_u32(rb)
+        _check("ra", ra, torch.int32, (nb, m, k), dev)
+        _check("rb", rb, torch.int32, (nb, n, k), dev)
+    y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
+    am = bm = None
+    if emit_residuals:
+        am = torch.empty((nb, m, k), dtype=torch.int8, device=dev)
+        bm = torch.empty((nb, n, k), dtype=torch.int8, device=dev)
+    err = _lib_linear().repro_fused_qq_blk(
+        _ptr(a), _ptr(ra if stochastic else None), _ptr(ea), _ptr(b),
+        _ptr(rb if stochastic else None), _ptr(eb), _ptr(y), _ptr(am),
+        _ptr(bm), nb, m, n, k, blk, p, int(stochastic),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "fused_qq_blk")
+    fused_qq_blk.launches += 1
+    return y, am, bm
+
+
 # Launches of each kernel since the count was last set to 0.
 fused_qq_pt.launches = 0
 fused_qi_pt.launches = 0
 fused_ii_pt.launches = 0
+fused_qq_blk.launches = 0

@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bfp_quantize_ref", "max_biased_exp_ref", "int8_matmul_ref"]
+__all__ = ["bfp_quantize_ref", "max_biased_exp_ref",
+           "max_biased_exp_blocks_ref", "bfp_block_quantize_ref",
+           "bfp_block_matmul_ref", "int8_matmul_ref"]
 
 _BASE_SHIFT = 17  # 24-bit mantissa -> 7 magnitude bits (int8)
 _M32 = 0xFFFFFFFF
@@ -48,6 +50,42 @@ def max_biased_exp_ref(x: torch.Tensor, axis=None) -> torch.Tensor:
     eff = ((x.to(torch.float32).contiguous().view(torch.int32) >> 23)
            & 0xFF).clamp(min=1)
     return eff.amax() if axis is None else eff.amax(dim=axis)
+
+
+def max_biased_exp_blocks_ref(x: torch.Tensor, blk: int) -> torch.Tensor:
+    """Shared exponent per trailing-axis block: (..., K) -> (..., K/blk)."""
+    eff = ((x.to(torch.float32).contiguous().view(torch.int32) >> 23)
+           & 0xFF).clamp(min=1)
+    return eff.reshape(*eff.shape[:-1], eff.shape[-1] // blk, blk).amax(-1)
+
+
+def bfp_block_quantize_ref(x: torch.Tensor, rand: torch.Tensor,
+                           e_blocks: torch.Tensor, blk: int) -> torch.Tensor:
+    """Per-K-block quantization: e_blocks (..., K/blk) broadcast to every
+    element of its block."""
+    return bfp_quantize_ref(x, rand,
+                            torch.repeat_interleave(e_blocks, blk, dim=-1))
+
+
+def bfp_block_matmul_ref(a_m: torch.Tensor, b_m: torch.Tensor,
+                         sea: torch.Tensor, seb: torch.Tensor,
+                         blk: int) -> torch.Tensor:
+    """Per-K-block int8 contraction, contraction-last operands: a_m (M, K)
+    int8, b_m (N, K) int8, sea (M, K/blk) / seb (N, K/blk) unbiased scale
+    exponents -> f32 (M, N).  Each block's exact integer partial times
+    2^(sa + sb) (0 below 2^-126) is added to the accumulator in block
+    order, from a zero start."""
+    nb = a_m.shape[-1] // blk
+    acc = torch.zeros((a_m.shape[0], b_m.shape[0]), dtype=torch.float32,
+                      device=a_m.device)
+    for i in range(nb):
+        part = (a_m[:, i * blk:(i + 1) * blk].to(torch.float64)
+                @ b_m[:, i * blk:(i + 1) * blk].to(torch.float64).t())
+        e = (sea[:, i:i + 1] + seb[None, :, i]).to(torch.int32)
+        scale = ((e.clamp(-126, 127) + 127) << 23).view(torch.float32)
+        scale = torch.where(e < -126, torch.zeros_like(scale), scale)
+        acc = acc + part.to(torch.float32) * scale     # exact product
+    return acc
 
 
 def int8_matmul_ref(a_m: torch.Tensor, b_m: torch.Tensor,

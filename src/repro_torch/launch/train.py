@@ -4,15 +4,19 @@ The port of ``repro.launch.train``: the paper's integer pipeline (int8
 forward and A.2 backward, int16 SGD; policy ``int8``), the same with
 quantized activations as the inter-layer currency (``int8_qflow``, or
 ``qflow=True``: norms emit int8 BFP that the projections contract as they
-are, attention runs through the fused attention kernels) or the float32
-baseline (``float32``) on a ported architecture, full or smoke config,
-with random initial weights from a seeded ``torch.Generator``.  On the
-card every contraction runs on the hand-written kernels (``qq`` forward,
-``qi`` dX and the q-in forward, ``ii`` dW; under qflow ``attn_fwd`` and
-``attn_bwd``).  It runs on the card unless it is given ``device="cpu"``.
+are, attention runs through the fused attention kernels), with one shared
+exponent per 128 elements of each contraction axis (``int8_block``, the
+MX-style variant) or the float32 baseline (``float32``) on a ported
+architecture, full or smoke config, with random initial weights from a
+seeded ``torch.Generator``.  On the card every contraction runs on the
+hand-written kernels (``qq`` forward, ``qi`` dX and the q-in forward,
+``ii`` dW; under qflow ``attn_fwd`` and ``attn_bwd``; under
+``int8_block`` ``qq_blk`` for every per-block contraction, forward and
+backward, and ``qq`` where a contraction length does not divide by 128).
+It runs on the card unless it is given ``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 3 \\
-        --batch 4 --seq 128 [--qflow]
+        --batch 4 --seq 128 [--qflow | --policy int8_block]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
 
 Checkpoints, the health supervisor, the qweights currency and the JAX
@@ -42,11 +46,11 @@ from .steps import TrainHyper, make_float_train_step, make_train_step
 __all__ = ["POLICIES", "train_hyper", "train", "main"]
 
 POLICIES = {"int8": PAPER_INT8, "float32": FLOAT32,
-            "int8_qflow": NumericPolicy(qflow=True)}
+            "int8_qflow": NumericPolicy(qflow=True),
+            "int8_block": NumericPolicy(block=128)}
 
 # The JAX package's other options, each with the ROADMAP item that ports it.
 _UNPORTED_POLICIES = {
-    "int8_block": "per-block scales (ROADMAP queue 2, fused_qq_blk)",
     "int8_qweights": "qweights training (ROADMAP queue 1, qweights training)",
     "int8_qfull": "qflow and qweights training (ROADMAP queue 1)",
     "int4": "int4 policies (ROADMAP queue 2, the unfused rung)",

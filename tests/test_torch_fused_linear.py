@@ -164,7 +164,7 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     assert torch.equal(kfl.fused_ii_pt(am_i8 := torch.ones(1, 5, 8, dtype=torch.int8),
                                        am_i8, e, e),
                        kfl.fused_ii_pt_plain(am_i8, am_i8, e, e))
-    assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0,
+    assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0}
 

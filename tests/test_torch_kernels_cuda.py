@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core import qops
 from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_attention as kfa
 from repro_torch.kernels import fused_linear as kfl
@@ -48,7 +49,7 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want = kfl.fused_qi_pt_plain(a, ra, bm, ea, eb, stochastic=stochastic)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0,
+    assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0}
 
@@ -99,6 +100,66 @@ def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
     want = kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
     err = (got - want).abs().max().item()
     assert err <= kfa.DECODE_Y_RTOL * want.abs().max().item()
+
+
+# (B, M, K, N, blk): the qwen2-0.5b per-block training shapes (the gate's
+# forward, the LM head's forward and its dX over 1187 blocks of the
+# vocabulary, the batched PV of attention) and odd ones: 40 blocks of 32
+# with odd M and N and a batch, an odd dW-like shape, and a block that is
+# not a multiple of 4 (the unvectorised load).
+QQ_BLK_SHAPES = [(1, 512, 896, 4864, 128), (1, 512, 896, 151936, 128),
+                 (1, 512, 151936, 896, 128), (8, 896, 128, 64, 128),
+                 (2, 37, 1280, 29, 32), (1, 65, 512, 131, 128),
+                 (1, 19, 42, 23, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("shape", QQ_BLK_SHAPES)
+def test_qq_blk_kernel_equal_plain(cuda, shape, stochastic):
+    """y and both mantissa arrays ==, with and without residuals; the
+    first block of row 0 of both operands is tiny, so its scale
+    2^(sa + sb) falls below 2^-126 and flushes to 0."""
+    nb, m, k, n, blk = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((nb, m, k), generator=g, device=cuda)
+    b = torch.randn((nb, n, k), generator=g, device=cuda)
+    a[:, 0, :blk] *= 2.0 ** -70
+    b[:, 0, :blk] *= 2.0 ** -70
+    ra = prng.bits(prng.key(8), a.shape, cuda) if stochastic else None
+    rb = prng.bits(prng.key(9), b.shape, cuda) if stochastic else None
+    ea = ref.max_biased_exp_blocks_ref(a, blk)
+    eb = ref.max_biased_exp_blocks_ref(b, blk)
+    assert int(kfl.scale_exp(ea[0, 0, 0], 7) + kfl.scale_exp(eb[0, 0, 0], 7)) < -126
+    kw = dict(p=7, blk=blk, stochastic=stochastic)
+    kd.reset_kernel_launches()
+    got = kfl.fused_qq_blk(a, ra, ea, b, rb, eb, **kw)
+    want = kfl.fused_qq_blk_plain(a, ra, ea, b, rb, eb, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("y", "am", "bm"), got, want):
+        assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
+    y_only = kfl.fused_qq_blk(a, ra, ea, b, rb, eb, emit_residuals=False, **kw)
+    assert torch.equal(y_only[0], want[0]) and y_only[1:] == (None, None)
+    assert kd.kernel_launches()["qq_blk"] == 2
+
+
+@pytest.mark.cuda
+def test_float_scatter_on_card_equals_cpu(cuda):
+    """The per-block embedding backward's float scatter: the same sums in
+    the same order on the card as on the CPU (repeated tokens, under
+    deterministic algorithms)."""
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randn((512, 896), generator=g) * torch.exp(
+        4 * torch.randn((512, 896), generator=g))
+    tokens = torch.randint(0, 40, (512,), generator=g)
+    tokens[:100] = 7
+    want = qops._scatter_rows_in_order(rows, tokens, 1000)
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = qops._scatter_rows_in_order(rows.to(cuda), tokens.to(cuda), 1000)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(got.cpu(), want)
 
 
 # (BH, GS, T, D, s, q_off, kv_len, causal, window): the qwen2-0.5b
@@ -172,6 +233,13 @@ def test_wrappers_reject_wrong_operands(cuda):
     with pytest.raises(ValueError):      # float keys
         kfa.attn_fwd(i8, i8.float(), i8, None, e, e, e, 0, 4, p=7, s=4,
                      bt=128, causal=True, window=0, stochastic=False)
+    a3 = torch.randn((1, 4, 64), device=cuda)
+    e3 = ref.max_biased_exp_blocks_ref(a3, 32)
+    with pytest.raises(ValueError):      # K not a multiple of the block
+        kfl.fused_qq_blk(a3, None, e3, a3, None, e3, blk=48,
+                         stochastic=False)
+    with pytest.raises(ValueError):      # one exponent per tensor
+        kfl.fused_qq_blk(a3, None, e, a3, None, e, blk=32, stochastic=False)
     with pytest.raises(ValueError):      # bt not a multiple of 128
         kfa.attn_fwd(i8, i8, i8, None, e, e, e, 0, 4, p=7, s=4, bt=64,
                      causal=True, window=0, stochastic=False)

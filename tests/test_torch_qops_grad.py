@@ -99,10 +99,3 @@ def test_qdq_st_is_straight_through():
     _check(lambda x: jqops.qdq_st(x, jax.random.key(5), JQ()),
            lambda x: tqops.qdq_st(x, prng.key(5), QuantConfig()), (x,), ct)
 
-
-def test_per_block_backward_names_its_kernel():
-    x = torch.randn(4, 64, requires_grad=True)
-    w = torch.randn(64, 8, requires_grad=True)
-    y = tqops.qmatmul(x, w, prng.key(0), NumericPolicy(block=32))
-    with pytest.raises(NotImplementedError, match="fused_qq_blk"):
-        y.sum().backward()
