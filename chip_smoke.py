@@ -43,7 +43,21 @@ Phases, any of which failing exits non-zero:
    each contraction axis): one step, every per-block contraction, forward
    and A.2 backward, on ``qq_blk`` and the per-tensor rest on ``qq``
    (``EXPECTED_PER_STEP`` launches), no contraction planned on a plain
-   path, the plain replay ``==``.
+   path, the plain replay ``==``;
+7. serve full-width minicpm-2b (all 40 layers, random weights): 4 prompts
+   x 128 tokens, 32 greedy tokens, int8 weights and KV cache; every decode
+   step runs each layer as one ``decode_block`` launch (1240 in all); the
+   plain replay as in phase 3;
+8. train full-width minicpm-2b cut to ``CHAIN_TRAIN_LAYERS`` layers under
+   ``PAPER_INT8`` with ``fused_proj``: the pre-attention norm and the
+   merged QKV projection on ``norm_gemm``, gate|up and its SiLU-GLU on
+   ``gemm_epi`` (``EXPECTED_PER_STEP`` launches), no chain planned on a
+   plain path, the plain replay ``==`` in the loss and every master and
+   momentum leaf.
+
+Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
+xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows) ``==``
+at the shapes of phases 7 and 8 and at odd ones.
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -86,6 +100,21 @@ TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
 # dA contract the head dim 64, per tensor.
 EXPECTED_PER_STEP = {"int8_block": {"qq_blk": 24 * 25 + 3, "qq": 24 * 2,
                                     "qi": 0, "ii": 0}}
+# Phases 7 and 8: minicpm-2b.  Training keeps full width and cuts the
+# depth from 40 to 24 layers (PERF.md §4: the int64 rounding-bit
+# temporaries grow with the stacked layer leaves; 24 layers fit the card's
+# 80 GB, 40 would not).
+CHAIN_ARCH, CHAIN_TRAIN_LAYERS = "minicpm_2b", 24
+# Launches per fused_proj step: per layer norm_gemm and gemm_epi one each;
+# qq for QK^T, PV, wo and w_down; qi for the dX of the QKV chain, QK^T,
+# PV, wo, the gate|up chain and w_down, ii for their dW; the tied LM head
+# one qq and one ii (its dX contracts the vocabulary, 122753 > accum_chunk:
+# the plain chunked path, as in the reference).
+CHAIN_PER_STEP = {"norm_gemm": CHAIN_TRAIN_LAYERS,
+                  "gemm_epi": CHAIN_TRAIN_LAYERS,
+                  "qq": 4 * CHAIN_TRAIN_LAYERS + 1,
+                  "qi": 6 * CHAIN_TRAIN_LAYERS,
+                  "ii": 6 * CHAIN_TRAIN_LAYERS + 1}
 
 
 def _fail(msg: str) -> int:
@@ -313,6 +342,186 @@ def check_kernels(torch, dev, rec):
                                  "and int8 PV"))
     out += check_attn_train(torch, dev, g, bits)
     out += check_qq_blk(torch, dev, g, bits)
+    out += check_chain(torch, dev, g, bits)
+    return out
+
+
+def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
+                   nbytes, ops, library_ms, note=None, plain_iters=3):
+    """Time a kernel call and its plain version; the row of the kernels
+    line."""
+    ms = _device_ms(torch, kernel)
+    call = _time_ms(torch, kernel)
+    pms = _device_ms(torch, plain, iters=plain_iters)
+    bound, by = _bound_ms(nbytes, ops)
+    print(f"{name} {shape}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
+          f"{by}; plain {pms:.3f} ms; library {library_ms}), kernel == plain")
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               shape=shape, max_abs_err=err, ms=ms, call_ms=call,
+               plain_ms=pms, bound_ms=bound, bound_by=by, bytes=nbytes,
+               ops=ops, library_ms=library_ms)
+    if note:
+        row["library_note"] = note
+    return row
+
+
+def check_chain(torch, dev, g, bits):
+    """gemm_epi, norm_gemm and decode_block against their plain versions
+    at the minicpm-2b shapes of phases 7 and 8 and at odd ones, ``==``;
+    timed at the minicpm-2b shapes."""
+    from repro_torch.kernels import fused_chain as kfc
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.kernels import ref
+
+    src_lin = "src/repro_torch/kernels/csrc/fused_linear.cu"
+    src_chain = "src/repro_torch/kernels/csrc/fused_chain.cu"
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = []
+
+    # gemm_epi: the gate|up GEMM + SiLU-GLU of training (512 x 2304 ->
+    # 2 x 5760), then odd shapes with a bias and relu, both roundings
+    for label, (m, k, n, act, with_bias) in (
+            ("train", (tokens, 2304, 2 * 5760, "silu_glu", False)),
+            ("odd", (37, 67, 58, "silu_glu", True)),
+            ("odd_relu", (130, 96, 70, "relu", True))):
+        a = torch.randn((m, k), generator=g, device=dev)
+        b = torch.randn((n, k), generator=g, device=dev)
+        a[1] *= 300.0                    # a sub-normal logistic
+        bias = (torch.randn((1, n), generator=g, device=dev) if with_bias
+                else None)
+        ra, rb = bits(14, a.shape), bits(15, b.shape)
+        ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+        err = 0.0
+        for sr in (True, False):
+            r = (ra, rb) if sr else (None, None)
+            kw = dict(stochastic=sr, act=act)
+            got = kfl.fused_gemm_epi(a, r[0], b, r[1], bias, None, ea, eb, **kw)
+            want = kfl.fused_gemm_epi_plain(a, r[0], b, r[1], bias, None, ea,
+                                            eb, **kw)
+            torch.cuda.synchronize()
+            err = max(err, (got[0] - want[0]).abs().max().item())
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"gemm_epi {label}: kernel != plain "
+                                     f"(max |dy| {err})")
+        if label != "train":
+            continue
+        a32, b32 = kfl.as_u32(ra), kfl.as_u32(rb)
+        kw = dict(act=act)
+        # f32 values and bits of both operands in; y, ylin, both mantissas out
+        nbytes = 8 * m * k + 8 * n * k + 4 * m * n // 2 + 4 * m * n + m * k + n * k
+        out.append(_record_kernel(
+            torch, "gemm_epi", src_lin, "src/repro/kernels/fused_linear.py:556",
+            [m, k, n], err,
+            lambda: kfl.fused_gemm_epi(a, a32, b, b32, None, None, ea, eb, **kw),
+            lambda: kfl.fused_gemm_epi_plain(a, ra, b, rb, None, None, ea, eb, **kw),
+            nbytes, 2.0 * m * n * k, _int_mm_ms(torch, want[1][None], want[2][None]),
+            "no single PyTorch call quantizes, contracts and applies the "
+            "SiLU-GLU; library_ms times torch._int_mm of the same mantissas"))
+        del a, b, ra, rb, got, want
+
+    # norm_gemm: the QKV chain of training (512 x 2304 -> 6912), then odd
+    # shapes: LayerNorm with a shift, rows off every strip, K off the
+    # slice, both roundings
+    for label, (m, k, n, center, with_beta) in (
+            ("train", (tokens, 2304, 6912, False, False)),
+            ("odd", (37, 100, 70, True, True)),
+            ("odd_wide", (130, 4000, 29, False, True))):
+        x = torch.randn((m, k), generator=g, device=dev) * 3.0
+        x[1] *= 2.0 ** -60
+        gm = torch.randint(1 << 13, 1 << 15, (1, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        bm = (torch.randint(-(1 << 14), 1 << 14, (1, k), generator=g,
+                            device=dev, dtype=torch.int32) if with_beta
+              else None)
+        wm = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        se_w = torch.full((1, n), -9, dtype=torch.int32, device=dev)
+        se_g = torch.tensor(-15, dtype=torch.int32, device=dev)
+        se_b = torch.tensor(-20, dtype=torch.int32, device=dev)
+        rin, rout = bits(16, (m, k)), bits(17, (m, k))
+        err = 0.0
+        for sr in (True, False):
+            r = (rin, rout) if sr else (None, None)
+            args = (x, r[0], r[1], gm, se_g, bm, se_b, wm, se_w)
+            got = kfc.fused_norm_gemm(*args, n=k, center=center)
+            want = kfc.norm_gemm_plain(*args, n=k, center=center)
+            torch.cuda.synchronize()
+            err = max(err, (got[0] - want[0]).abs().max().item())
+            if not all(torch.equal(x_, y_) for x_, y_ in zip(got, want)):
+                raise AssertionError(f"norm_gemm {label}: kernel != plain "
+                                     f"(max |dy| {err})")
+        if label != "train":
+            continue
+        args32 = (x, kfl.as_u32(rin), kfl.as_u32(rout), gm, se_g, bm, se_b,
+                  wm, se_w)
+        args = (x, rin, rout, gm, se_g, bm, se_b, wm, se_w)
+        # x and its two bit streams, gain, weight, column exponents in;
+        # y, xq, c, meta out
+        nbytes = 12 * m * k + 4 * k + n * k + 4 * n + 4 * m * n + 2 * m * k + 4 * m * 128
+        out.append(_record_kernel(
+            torch, "norm_gemm", src_chain, "src/repro/kernels/fused_chain.py:299",
+            [m, k, n], err, lambda: kfc.fused_norm_gemm(*args32, n=k),
+            lambda: kfc.norm_gemm_plain(*args, n=k), nbytes, 2.0 * m * n * k,
+            _int_mm_ms(torch, want[1][None], wm[None]),
+            "no single PyTorch call computes the integer norm and the "
+            "per-row quantize; library_ms times torch._int_mm of xq and "
+            "the weight"))
+        del x, rin, rout, got, want
+
+    # decode_block: one minicpm-2b layer for 4 streams at the last decode
+    # position of phase 7, then GQA groups of 4 with a window
+    for label, (b, d, n_ff, hq, hkv, dh, t, pos, window) in (
+            ("serve", (BATCH, 2304, 5760, 36, 36, 64, PROMPT + GEN,
+                       PROMPT + GEN - 1, 0)),
+            ("odd", (3, 256, 320, 8, 2, 32, 40, 37, 8))):
+        def i8(*shp):
+            return torch.randint(-127, 128, shp, generator=g, device=dev,
+                                 dtype=torch.int8)
+
+        def se(n_):
+            return torch.randint(-14, -9, (1, n_), generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        def rows(*shp):
+            return torch.randint(118, 126, shp, generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        nqkv = (hq + 2 * hkv) * dh
+        ang = torch.rand(dh // 2, generator=g, device=dev) * 3
+        cossin = torch.cat([ang.cos(), ang.cos(), ang.sin(), ang.sin()])[None]
+        gains = [torch.randint(1 << 13, 1 << 15, (1, d), generator=g,
+                               device=dev, dtype=torch.int32) for _ in range(2)]
+        args = (torch.randn((b, d), generator=g, device=dev), i8(nqkv, d),
+                se(nqkv), i8(d, hq * dh), se(d), i8(2 * n_ff, d),
+                se(2 * n_ff), i8(d, n_ff), se(d), *gains, i8(b, hkv, t, dh),
+                rows(b, hkv, t, 1), i8(b, hkv, t, dh), rows(b, hkv, t, 1),
+                cossin.contiguous(), pos)
+        kw = dict(n_d=d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, window=window,
+                  se_g1=-14, se_g2=-14)
+        got = kfc.fused_decode_block(*args, **kw)
+        want = kfc.decode_block_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got[0] - want[0]).abs().max().item()
+        if not all(torch.equal(x_, y_) for x_, y_ in zip(got, want)):
+            raise AssertionError(f"decode_block {label}: kernel != plain "
+                                 f"(max |dx_out| {err})")
+        if label != "serve":
+            continue
+        weights = nqkv * d + d * hq * dh + 2 * n_ff * d + d * n_ff
+        vis = b * hkv * (pos + 1)          # cache rows the attention reads
+        nbytes = (weights + 4 * (nqkv + 2 * d + 2 * n_ff + 2 * d)
+                  + 2 * vis * dh + 8 * vis + 8 * b * d + 8 * dh
+                  + 2 * b * hkv * (dh + 4))
+        ops = 2.0 * b * weights + 4.0 * b * hq * (pos + 1) * dh
+        out.append(_record_kernel(
+            torch, "decode_block", src_chain,
+            "src/repro/kernels/fused_chain.py:489", [b, d, n_ff, hq, hkv, dh, t],
+            err, lambda: kfc.fused_decode_block(*args, **kw),
+            lambda: kfc.decode_block_plain(*args, **kw), nbytes, ops, None,
+            "no single PyTorch call computes a decoder layer over an int8 "
+            "cache"))
+    print("gemm_epi, norm_gemm and decode_block == plain at every shape "
+          "(odd shapes untimed)")
     return out
 
 
@@ -543,35 +752,45 @@ def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):
           f"device launches")
 
 
-def serve_and_compare(torch, dev, rec):
+def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
+                      need=("qq", "qi", "attn_decode"), exact=None):
+    """Serve ``arch`` at full width with the launch counts read around the
+    call (``need`` launched at all, ``exact`` counts met), then replay the
+    prompts and tokens through the plain versions."""
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.kernels import dispatch
     from repro_torch.launch import serve as srv
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     dispatch.reset_kernel_launches()
     t0 = time.perf_counter()
-    toks, stats = srv.serve(ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
+    toks, stats = srv.serve(arch, smoke=False, batch=BATCH, prompt_len=PROMPT,
                             gen=GEN, seed=SEED, qcache=True, quiet=True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = dispatch.kernel_launches()
     logits = stats.pop("logits")
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     if toks.shape != (BATCH, GEN) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab:
         raise AssertionError(f"bad tokens {tuple(toks.shape)}")
     for lg in logits:
         if lg.shape != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
             raise AssertionError("non-finite or misshapen logits")
-    for name in ("qq", "qi", "attn_decode"):
+    for name in need:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"serving path")
-    rec["serve"] = dict(stats, launches=launches, tokens=toks.tolist(),
-                        serve_call_s=serve_s)
-    print(f"serve qwen2-0.5b full width: prefill {BATCH}x{PROMPT} in "
+                                 f"{label} path")
+    for name, want in (exact or {}).items():
+        if launches[name] != want:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, expected {want}")
+    rec[label] = dict(stats, launches=launches, tokens=toks.tolist(),
+                      serve_call_s=serve_s, peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"{label} {cfg.name} full width: prefill {BATCH}x{PROMPT} in "
           f"{stats['prefill_s']:.4f} s, decode {stats['decode_ms_per_step']:.3f}"
           f" ms/step, {stats['tok_per_s']:.1f} tok/s, launches {launches}")
 
@@ -604,11 +823,13 @@ def serve_and_compare(torch, dev, rec):
     with torch.inference_mode():
         step_profile(torch, lambda: decode(
             params, cache, dev_toks[:, -1], PROMPT + GEN - 1,
-            prng.fold_in(key, 10 + GEN)), stats["decode_ms_per_step"], rec)
-    rec["compare"] = dict(prefill_equal=True, decode_max_rel_err=worst,
-                          decode_steps_argmax_agree=agree,
-                          decode_steps=GEN - 1, replay_call_s=replay_s,
-                          profile_call_s=time.perf_counter() - t0)
+            prng.fold_in(key, 10 + GEN)), stats["decode_ms_per_step"], rec,
+            "decode_step_profile" if label == "serve"
+            else f"{label}_decode_step_profile")
+    rec["compare" if label == "serve" else f"{label}_compare"] = dict(
+        prefill_equal=True, decode_max_rel_err=worst,
+        decode_steps_argmax_agree=agree, decode_steps=GEN - 1,
+        replay_call_s=replay_s, profile_call_s=time.perf_counter() - t0)
     print(f"plain-version replay: prefill logits ==, decode max rel err "
           f"{worst:.3e}, argmax agrees on {agree}/{GEN - 1} steps")
     if not worst <= DECODE_LOGIT_RTOL:
@@ -713,6 +934,114 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
     return launches
 
 
+def train_chain_and_compare(torch, dev, rec, steps=1):
+    """Train full-width minicpm-2b, cut to ``CHAIN_TRAIN_LAYERS`` layers,
+    under ``PAPER_INT8`` with ``fused_proj`` through ``make_train_step``
+    (as the JAX package's own chain tests reach it; the trainer has no
+    flag for it), the launch counts read around the steps; then replay the
+    steps from the same state with the plain versions (losses and every
+    state leaf ``==``) and profile one more step."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.integer_sgd import tree_items
+    from repro_torch.core.policy import PAPER_INT8
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.launch.train import _init_state
+
+    label = "train_fused_proj"
+    cfg = dataclasses.replace(get_config(CHAIN_ARCH),
+                              n_layers=CHAIN_TRAIN_LAYERS)
+    policy = dataclasses.replace(PAPER_INT8, fused_proj=True)
+    step = make_train_step(cfg, policy, TrainHyper(lr=TRAIN_LR, momentum=0.9),
+                           dev)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=SEED)
+    key = prng.key(SEED)
+
+    def run():
+        state = _init_state(cfg, policy, SEED, dev)
+        losses, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, data.batch_for_step(i),
+                               prng.fold_in(key, i))
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return losses, state, times
+
+    chains = {"qnorm_gemm", "qmatmul_epi"}
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_kernel_launches()
+        t0 = time.perf_counter()
+        with dispatch.record_decisions() as log:
+            losses, state, times = run()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dispatch.kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"non-finite training loss {losses}")
+        per_step = {k: v / steps for k, v in launches.items()}
+        for name, want in CHAIN_PER_STEP.items():
+            if per_step[name] != want:
+                raise AssertionError(f"{label}: {per_step[name]} {name} "
+                                     f"launches per step, expected {want}")
+        jnp = sorted({(d.op, d.reason) for d in log if d.path == dispatch.JNP})
+        if {op for op, _ in jnp} & chains:
+            raise AssertionError(f"{label}: a chain planned on a plain "
+                                 f"path: {jnp}")
+        step_s = sorted(times)[len(times) // 2]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"{label} {cfg.name} full width, {cfg.n_layers} layers: "
+              f"{steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, {step_s:.3f} "
+              f"s/step, {tokens / step_s:.1f} tokens/s, losses {losses}, "
+              f"launches per step {per_step}, peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        with dispatch.plain_kernels():
+            losses_p, state_p, times_p = run()
+        replay_s = time.perf_counter() - t0
+        if losses_p != losses:
+            raise AssertionError(f"losses: kernel path {losses} != plain "
+                                 f"path {losses_p}")
+        for tree, tree_p in ((state.masters, state_p.masters),
+                             (state.momentum, state_p.momentum)):
+            for (path, q), (_, qp) in zip(tree_items(tree), tree_items(tree_p)):
+                if not (torch.equal(q.m, qp.m) and torch.equal(q.e, qp.e)):
+                    raise AssertionError(f"state leaf {'/'.join(path)}: "
+                                         "kernel path != plain path")
+        del state_p
+        print("plain-version replay: losses ==, every master and momentum "
+              "leaf ==")
+        t0 = time.perf_counter()
+        step_profile(torch, lambda: step(state, data.batch_for_step(steps),
+                                         prng.fold_in(key, steps)),
+                     1e3 * step_s, rec, f"{label}_step_profile")
+        profile_s = time.perf_counter() - t0
+    torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:200] for w in caught
+                     if "deterministic" in str(w.message)})
+    rec[label] = dict(losses=losses, step_s=times, launches=launches,
+                      launches_per_step=per_step, step_s_median=step_s,
+                      tokens_per_s=tokens / step_s, peak_bytes=peak,
+                      n_layers=cfg.n_layers, plain_replay_equal=True,
+                      jnp_decisions=jnp, nondeterministic_ops=nondet,
+                      train_call_s=train_s, replay_call_s=replay_s,
+                      profile_call_s=profile_s, replay_step_s=times_p)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -743,7 +1072,13 @@ def main() -> int:
               ("train_int8_qflow", lambda: train_and_compare(
                   torch, dev, rec, "int8_qflow")),
               ("train_int8_block", lambda: train_and_compare(
-                  torch, dev, rec, "int8_block", steps=1))]
+                  torch, dev, rec, "int8_block", steps=1)),
+              ("serve_minicpm", lambda: serve_and_compare(
+                  torch, dev, rec, CHAIN_ARCH, "serve_minicpm",
+                  need=("qq", "qi", "decode_block"),
+                  exact={"decode_block": 40 * (GEN - 1), "attn_decode": 0})),
+              ("train_fused_proj", lambda: train_chain_and_compare(
+                  torch, dev, rec))]
     results, rec["phase_s"] = {}, {}
     for name, run in phases:
         t1 = time.perf_counter()

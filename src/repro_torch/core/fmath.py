@@ -9,7 +9,8 @@ torch's kernels in three ways that move results by an ulp:
   multiply-adds, and the logistic is ``1 / (1 + exp(-x))`` on that ``exp``;
 * a sum whose reduced extent exceeds 32 is taken in windows of 32 (the
   padding split evenly before and after), and the window sums are summed
-  again the same way; a short sum runs in index order.
+  again the same way; a short sum runs in index order, and a short sum of
+  products contracts each product into its add.
 
 An ulp in a float gradient can flip a later stochastic-rounding decision,
 so the training path uses these functions on every device: the port then
@@ -68,6 +69,7 @@ _LOG_P = [_f(c) for c in (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
                           -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
                           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)]
 _SQRTHF = _f(0.707106781186547524)
+_TINY = 2.0 ** -126              # the smallest normal float32
 
 
 def _exp(x: torch.Tensor) -> torch.Tensor:
@@ -113,8 +115,10 @@ def log(x: torch.Tensor) -> torch.Tensor:
 
 
 def logistic(x: torch.Tensor) -> torch.Tensor:
-    """float32 1 / (1 + e^-x) (not differentiable)."""
-    return 1.0 / (1.0 + _exp(-x))
+    """float32 1 / (1 + e^-x) (not differentiable).  A sub-normal result
+    (x below about -87.3) is 0: XLA's CPU build flushes it."""
+    s = 1.0 / (1.0 + _exp(-x))
+    return torch.where(s < _TINY, torch.zeros_like(s), s)
 
 
 def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
@@ -184,6 +188,22 @@ def sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
     """Sum of float32 ``x`` over ``dims`` in the reference's order (see
     the module note).  The reduced dims are dropped."""
     return _Sum.apply(x, tuple(dims))
+
+
+def _sum_products(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` of ``a * b`` as XLA's CPU build reduces a product
+    (not differentiable): at most 32 terms contract each product into its
+    add (a chain of fused multiply-adds from 0, in index order); more terms
+    round each product and sum them in windows (``sum_windows``)."""
+    a, b = torch.broadcast_tensors(a, b)
+    n = a.shape[dim]
+    if n > _WINDOW:
+        return _sum_windows(a * b, (dim,))
+    a, b = a.movedim(dim, 0), b.movedim(dim, 0)
+    acc = torch.zeros_like(a[0])
+    for i in range(n):
+        acc = _fma(a[i], b[i], acc)
+    return acc
 
 
 def _sum_in_order(x: torch.Tensor) -> torch.Tensor:

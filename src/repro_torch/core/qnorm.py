@@ -26,13 +26,27 @@ import torch
 
 from . import prng
 from .bfp import (BFP, PER_TENSOR, QuantConfig, bfp_from_fx, bfp_value,
-                  dequantize, scale_exponent)
+                  dequantize, pow2, scale_exponent)
 from .fixed_point import (Fx, KeyGen, fx_add, fx_const, fx_div_n, fx_mul,
                           fx_narrow, fx_quantize, fx_rsqrt, fx_sub, fx_sum,
                           fx_to_f32, fx_unify)
 from .policy import NumericPolicy
 
-__all__ = ["qlayernorm", "qrmsnorm"]
+__all__ = ["qlayernorm", "qrmsnorm", "norm_gain_fx"]
+
+
+def norm_gain_fx(g: torch.Tensor, bits: int = 15):
+    """A norm gain or shift vector as ``(1, K)`` int32 fixed-point
+    mantissas and one int32 scale exponent (the fused norm -> GEMM chain's
+    affine operands): ``g ~= m * 2^se``, ``m`` rounded to nearest (ties to
+    even) at ``bits`` magnitude bits of the exponent of ``max|g|``, read
+    from its bits.  An all-zero vector maps to zero mantissas."""
+    g2 = g.reshape(1, -1).to(torch.float32)
+    amax = torch.clamp(g2.abs().amax(), min=2.0 ** -30)
+    eb = (amax.view(torch.int32) >> 23) & 0xFF
+    se = (eb - 127 - (bits - 1)).to(torch.int32)
+    m = torch.round(g2 * pow2(-se)).to(torch.int32)
+    return m, se
 
 
 def _row(v: Fx) -> Fx:

@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the port and their routing.
 
-  ``fused_linear``     qq / qi / ii (fused quantize ->) int8 GEMM (CUDA +
-                       plain)
-  ``fused_attention``  fused decode attention over the int8 cache
+  ``fused_linear``     qq / qi / ii / qq_blk (fused quantize ->) int8 GEMM
+                       and the GEMM epilogue gemm_epi (CUDA + plain)
+  ``fused_attention``  fused attention: decode over the int8 cache, the
+                       qflow training forward and backward
+  ``fused_chain``      the norm -> GEMM chain and the whole-layer decode
+                       block
   ``dispatch``         plans, decisions and the plain-version switch
   ``build``            nvcc build + ctypes loading of ``csrc/*.cu``
   ``ref``              plain torch oracles

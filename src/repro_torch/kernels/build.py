@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 __all__ = ["SOURCES", "build_dir", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_linear", "fused_attention", "attn_train")
+SOURCES = ("fused_linear", "fused_attention", "attn_train", "fused_chain")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-ftz=false", "-prec-div=true",
           "-prec-sqrt=true", "-fmad=false", "-Xptxas", "-v"]

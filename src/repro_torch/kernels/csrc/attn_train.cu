@@ -62,9 +62,11 @@
 #include <stdint.h>
 
 #include "bfp.cuh"
+#include "fmath.cuh"
 
 namespace {
 
+using repro::cephes_expf;
 using repro::eff_exp;
 using repro::pow2f;
 using repro::quantize_one;
@@ -72,27 +74,6 @@ using repro::scale_exp;
 
 constexpr float NEG = -1e30f;     // models.attention._NEG
 constexpr float L_FLOOR = 1e-30f; // jnp.maximum(l, 1e-30)
-
-// core/fmath.py _exp: e^x = e^a * 2^n, n = floor(x log2 e + 1/2), a Cephes
-// polynomial on the reduced argument, every step an fmaf as XLA's CPU
-// build evaluates it; 2^-127 flushes to 0.
-__device__ __forceinline__ float cephes_expf(float x) {
-  x = fminf(fmaxf(x, -87.8f), 88.8f);
-  float n = floorf(fmaf(x, 1.44269504088896341f, 0.5f));
-  n = fminf(fmaxf(n, -127.0f), 127.0f);
-  float a = fmaf(-0.693359375f, n, x);
-  a = fmaf(2.12194440e-4f, n, a);
-  float z = fmaf(a, 1.9875691500e-4f, 1.3981999507e-3f);
-  z = fmaf(z, a, 8.3334519073e-3f);
-  z = fmaf(z, a, 4.1665795894e-2f);
-  z = fmaf(z, a, 1.6666665459e-1f);
-  z = fmaf(z, a, 5.0000001201e-1f);
-  z = fmaf(z, __fmul_rn(a, a), a);
-  z = __fadd_rn(1.0f, z);
-  const int ni = (int)n;
-  const float p2 = ni == -127 ? 0.0f : __int_as_float((ni + 127) << 23);
-  return __fmul_rn(z, p2);
-}
 
 __device__ __forceinline__ bool visible(int kpos, int qpos, int kv_len,
                                         int causal, int window) {

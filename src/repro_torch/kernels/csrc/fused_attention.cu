@@ -21,8 +21,9 @@
 // the packed query words; one warp per query row does the max, exp, sum,
 // normalise, fold and quantize with warp shuffles; the PV sums accumulate
 // exactly in int32 (shared-memory atomics, order-free).  expf and the
-// division are IEEE (no fast math), so the result differs from the plain
-// version only by the order of the float sum of the softmax.
+// division are IEEE (no fast math); the result differs from the plain
+// version by the softmax's exp (expf here, the reference's Cephes exp
+// there) and the order of its float sum.
 //
 // Bound on the H100: the cache rows, 2*T*D bytes plus 8*T bytes of row
 // exponents per slice, and the rounding bits, 4*GS*T bytes, over

@@ -7,6 +7,8 @@
 //                        dW = X^T G on the residual mantissas)
 //   fused_qq_blk_pallas (both operands f32, quantized in the kernel with one
 //                        exponent per blk elements of K; see qq_blk below)
+//   fused_gemm_epi_pallas (the qq GEMM with its bias / activation epilogue
+//                        on each output tile; see gemm_epi below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
 // The shared exponents are per tensor (over the whole batched tensor) and
@@ -40,6 +42,7 @@
 #include <stdint.h>
 
 #include "bfp.cuh"
+#include "fmath.cuh"
 
 namespace {
 
@@ -375,6 +378,147 @@ cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gemm_epi: the qq GEMM with its f32 epilogue (fused_gemm_epi_pallas).
+//
+// The qgemm_kernel tiling (64 rows x 64 columns, K in 32-wide slices
+// quantized in registers, __dp4a), and in registers on each output tile:
+// ylin = float(acc) * 2^(sa + sb), + bias, then the activation: relu, or
+// the SiLU-GLU that gates output column j (b row j) against b row
+// j + N/2.  For the GLU a block's 64 tile rows of b are 32 gate rows and
+// the 32 matching up rows, so thread (tx, ty)'s accumulators j = 0, 1 (gate
+// columns tx, tx + 16) pair with j = 2, 3 (the same up columns): both
+// halves of one output are in one thread.  It writes y, the pre-activation
+// ylin (the backward's residual), and the a and b mantissas (the blocks of
+// the first column tile write a's, those of the first row tile b's).  Each
+// float step is one IEEE operation in the plain version's order, SiLU's
+// logistic the Cephes exp of fmath.cuh, so y and ylin equal the plain
+// version's bit for bit.
+//
+// Bounds on the H100: the qq bytes (f32 + bits of a and b in, both
+// mantissas out) plus 4*M*N of ylin and 4*M*N_out of y; at the gate|up
+// GEMM of minicpm-2b's training (512 x 2304 -> 11520) the 212 MB of b and
+// its bits dominate, against 2*M*N*K int8 operations far below the
+// bytes.  Each of the M/64 row tiles quantizes its b tiles again (from L2);
+// quantizing b once, wgmma and TMA are later work.
+
+enum EpiAct { EPI_NONE = 0, EPI_RELU = 1, EPI_SILU_GLU = 2 };
+
+template <int ACT, bool STOCH, bool VEC>
+__global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
+    const float* __restrict__ a, const uint32_t* __restrict__ ra,
+    const float* __restrict__ b, const uint32_t* __restrict__ rb,
+    const float* __restrict__ bias, const int* __restrict__ ea_ptr,
+    const int* __restrict__ eb_ptr, float* __restrict__ y,
+    float* __restrict__ ylin, int8_t* __restrict__ am_out,
+    int8_t* __restrict__ bm_out, int M, int N, int K, int p) {
+  constexpr int TM = 4, BM = 16 * TM, HALF = BN / 2;
+  constexpr bool GLU = ACT == EPI_SILU_GLU;
+  __shared__ int As[BM][LD];
+  __shared__ int Bs[BN][LD];
+  const int n_out = GLU ? N / 2 : N;
+  const int m0 = blockIdx.y * BM;
+  // first b row of the tile (of its gate half for the GLU)
+  const int n0 = blockIdx.x * (GLU ? HALF : BN);
+  int8_t* am_w = (am_out != nullptr && blockIdx.x == 0) ? am_out : nullptr;
+  int8_t* bm_w = (bm_out != nullptr && blockIdx.y == 0) ? bm_out : nullptr;
+  const int ea = *ea_ptr, eb = *eb_ptr;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  int acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    load_tile<BM, true, STOCH, VEC>(As, a, ra, nullptr, ea, p, m0, M, k0, K, am_w);
+    if (GLU) {
+      load_tile<HALF, true, STOCH, VEC>(Bs, b, rb, nullptr, eb, p, n0, n_out, k0,
+                                        K, bm_w);
+      load_tile<HALF, true, STOCH, VEC>(Bs + HALF, b, rb, nullptr, eb, p,
+                                        n_out + n0, N, k0, K, bm_w);
+    } else {
+      load_tile<BN, true, STOCH, VEC>(Bs, b, rb, nullptr, eb, p, n0, N, k0, K, bm_w);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kw = 0; kw < KW; ++kw) {
+      int av[TM], bv[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = As[ty + 16 * i][kw];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[tx + 16 * j][kw];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  const float scale = pow2f(scale_exp(ea, p) + scale_exp(eb, p));
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+    float lin[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // b row (= ylin column) of accumulator j
+      const int c = tx + 16 * (GLU ? (j & 1) : j);
+      const int gn = GLU ? (j < 2 ? n0 + c : n_out + n0 + c) : n0 + c;
+      const bool ok = GLU ? n0 + c < n_out : gn < N;
+      lin[j] = __fmul_rn(__int2float_rn(acc[i][j]), scale);
+      if (bias != nullptr && ok) lin[j] = __fadd_rn(lin[j], bias[gn]);
+      if (!ok) continue;
+      if (ylin != nullptr) ylin[(size_t)gm * N + gn] = lin[j];
+      if (ACT == EPI_NONE) y[(size_t)gm * N + gn] = lin[j];
+      if (ACT == EPI_RELU) {
+        const float v = lin[j];
+        y[(size_t)gm * N + gn] = v > 0.0f ? v : (v != v ? v : 0.0f);
+      }
+    }
+    if (GLU) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int gc = n0 + tx + 16 * j;
+        if (gc < n_out) y[(size_t)gm * n_out + gc] = repro::silu_glu(lin[j], lin[j + 2]);
+      }
+    }
+  }
+}
+
+struct EpiArgs {
+  const float* a; const uint32_t* ra; const float* b; const uint32_t* rb;
+  const float* bias; const int* ea; const int* eb;
+  float* y; float* ylin; int8_t* am; int8_t* bm;
+  int M, N, K, p;
+};
+
+template <int ACT, bool STOCH>
+cudaError_t launch_epi(const EpiArgs& g, cudaStream_t stream) {
+  const int cols = ACT == EPI_SILU_GLU ? g.N / 2 : g.N;
+  const int tile = ACT == EPI_SILU_GLU ? BN / 2 : BN;
+  const dim3 grid((cols + tile - 1) / tile, (g.M + 63) / 64, 1);
+  if (g.K % 4 == 0) {
+    gemm_epi_kernel<ACT, STOCH, true><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.b, g.rb, g.bias, g.ea, g.eb, g.y, g.ylin, g.am, g.bm,
+        g.M, g.N, g.K, g.p);
+  } else {
+    gemm_epi_kernel<ACT, STOCH, false><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.b, g.rb, g.bias, g.ea, g.eb, g.y, g.ylin, g.am, g.bm,
+        g.M, g.N, g.K, g.p);
+  }
+  return cudaGetLastError();
+}
+
+template <bool STOCH>
+cudaError_t dispatch_epi(const EpiArgs& g, int act, cudaStream_t stream) {
+  if (act == EPI_RELU) return launch_epi<EPI_RELU, STOCH>(g, stream);
+  if (act == EPI_SILU_GLU) return launch_epi<EPI_SILU_GLU, STOCH>(g, stream);
+  return launch_epi<EPI_NONE, STOCH>(g, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,6 +579,24 @@ int repro_fused_qq_blk(const void* a, const void* ra, const void* ea,
                   static_cast<int8_t*>(bm), B, M, N, K, blk, p};
   auto s = static_cast<cudaStream_t>(stream);
   return (int)(stochastic ? launch_blk<true>(g, s) : launch_blk<false>(g, s));
+}
+
+// gemm_epi: a (M,K) f32 [+ ra], b (N,K) f32 [+ rb], bias (N) f32 or null ->
+// y (M, N or N/2) f32, ylin (M,N) f32 (null when act == 0), am, bm int8.
+// act: 0 none, 1 relu, 2 silu_glu.
+int repro_gemm_epi(const void* a, const void* ra, const void* b, const void* rb,
+                   const void* bias, const void* ea, const void* eb, void* y,
+                   void* ylin, void* am, void* bm, int M, int N, int K, int p,
+                   int act, int stochastic, void* stream) {
+  const EpiArgs g{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
+                  static_cast<const float*>(b), static_cast<const uint32_t*>(rb),
+                  static_cast<const float*>(bias), static_cast<const int*>(ea),
+                  static_cast<const int*>(eb), static_cast<float*>(y),
+                  static_cast<float*>(ylin), static_cast<int8_t*>(am),
+                  static_cast<int8_t*>(bm), M, N, K, p};
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(stochastic ? dispatch_epi<true>(g, act, s)
+                          : dispatch_epi<false>(g, act, s));
 }
 
 }  // extern "C"

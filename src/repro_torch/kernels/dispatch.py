@@ -14,6 +14,16 @@ every integer contraction and ``models.attention`` asks
              separately dispatched contractions — the JAX package's jnp
              path.
 
+The cross-op chains plan too: :func:`plan_norm_gemm` (``norm_gemm``),
+:func:`plan_epilogue` (``gemm_epi``) and :func:`plan_decode_block`
+(``decode_block``), run by :func:`run_norm_gemm`, :func:`contract_epi` and
+:func:`run_decode_block`.  The reference engages them only where a whole
+operand fits the TPU's VMEM budget; here they follow the CUDA kernels' own
+limits (shared memory, the decode kernel's batch and widths), and each
+``reason`` names the limit that applied.  JNP for a chain means the caller
+keeps the per-op seam.  Epilogue variants with no kernel (kinds other than
+qq, the out-quantize, gelu) plan jnp on the CPU and raise on the card.
+
 Contraction kinds: ``qq`` (both operands quantized in the kernel), ``qi``
 (a fresh, b pre-quantized), ``iq`` (a pre-quantized, b fresh: the ``qi``
 kernel with the roles swapped), ``ii`` and ``pp`` (both pre-quantized:
@@ -44,13 +54,16 @@ import torch
 from ..core import prng
 from ..core.bfp import BFP, PER_TENSOR, QuantConfig, pow2, rounding_bits
 from . import fused_attention as kfa
+from . import fused_chain as kfc
 from . import fused_linear as kfl
 from . import ref
 
 __all__ = ["FUSED", "JNP", "Decision", "plan_contract", "plan_attention",
            "attn_block_t", "record_decisions", "plain_kernels", "contract_qq",
            "contract_qi", "contract_iq", "contract_ii",
-           "attn_decode", "attn_fwd", "attn_bwd", "kernel_launches",
+           "attn_decode", "attn_fwd", "attn_bwd", "plan_norm_gemm",
+           "run_norm_gemm", "plan_epilogue", "contract_epi",
+           "plan_decode_block", "run_decode_block", "kernel_launches",
            "reset_kernel_launches"]
 
 FUSED = "fused"
@@ -105,7 +118,9 @@ def plain_kernels():
 _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "ii": kfl.fused_ii_pt, "qq_blk": kfl.fused_qq_blk,
              "attn_decode": kfa.attn_decode,
-             "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd}
+             "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd,
+             "gemm_epi": kfl.fused_gemm_epi, "norm_gemm": kfc.fused_norm_gemm,
+             "decode_block": kfc.fused_decode_block}
 
 
 def kernel_launches() -> dict:
@@ -383,3 +398,156 @@ def _jnp_block_matmul(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
     block order (the kernel's order, not ``core.qops._blk_dot``'s)."""
     return kfl.blk_combine(am, bmant, kfl.scale_exp(ea, pa),
                            kfl.scale_exp(eb, pb), blk)
+
+
+# ---------------------------------------------------------------------------
+# cross-op chains
+# ---------------------------------------------------------------------------
+
+def plan_norm_gemm(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
+                   kernel_mode: str = "auto", device: str = "cpu") -> Decision:
+    """Choose the path for one norm -> quantize -> GEMM chain (``m`` rows
+    of width ``k`` projected to ``n``).  FUSED runs ``fused_norm_gemm``;
+    JNP keeps the per-op seam (qnorm, then qmatmul), whose numerics differ:
+    the chain has its own per-row norm."""
+
+    def decide(path, reason):
+        return _record(Decision(op, path, reason, m, k, n, "norm_gemm",
+                                device))
+
+    _check_mode(kernel_mode)
+    if kernel_mode == "jnp":
+        return decide(JNP, "kernel_mode=jnp")
+    if cfg.bits != 8:
+        return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
+    if kernel_mode == "auto" and device != "cuda":
+        return decide(JNP, f"auto keeps the per-op seam on device={device}")
+    need = kfc.norm_gemm_smem_bytes(16, k)
+    if need > kfa.SMEM_LIMIT:
+        return decide(JNP, f"K={k}: a strip of 16 rows needs {need} B of "
+                           f"shared memory > {kfa.SMEM_LIMIT}")
+    return decide(FUSED, f"norm_gemm kernel: a strip of rows of K={k} fits "
+                         "its shared memory")
+
+
+def run_norm_gemm(x, rand_in, rand_out, gm, se_g, beta_m, se_b, w_m, se_w,
+                  dec: Decision, *, n: int, p: int = 7, eps_m: int = 1,
+                  eps_e: int = -32, center: bool = False):
+    """Run a FUSED norm -> GEMM: x (M, K) f32 at its true width ``n``, the
+    rounding bits drawn at the reference's lane-padded width (M, Kp) (or
+    None), gm / beta_m (1, K) int32 -> (y (M, N), xq (M, K), meta (M,
+    128), c (M, K))."""
+    assert dec.path == FUSED
+    k = x.shape[-1]
+    if rand_in is not None:
+        rand_in = rand_in[:, :k].contiguous()
+        rand_out = rand_out[:, :k].contiguous()
+    run = kfc.norm_gemm_plain if _plain_on_card else kfc.fused_norm_gemm
+    return run(x.contiguous(), rand_in, rand_out, gm, se_g, beta_m, se_b,
+               w_m.contiguous(), se_w, n=n, p=p, eps_m=eps_m, eps_e=eps_e,
+               center=center)
+
+
+def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
+                  kind: str = "qq", cfg2: Optional[QuantConfig] = None,
+                  act: Optional[str] = None, bias: bool = False,
+                  out_q: bool = False, kernel_mode: str = "auto",
+                  accum_chunk: int = 65536,
+                  device: str = "cpu") -> Decision:
+    """Choose the path for one GEMM + bias / activation epilogue.  JNP
+    keeps the per-op composition, which the chain equals bit for bit, so
+    this plan moves cost only.  A variant with no kernel raises on the
+    card and plans JNP elsewhere."""
+
+    def decide(path, reason):
+        return _record(Decision(op, path, reason, m, k, n, f"{kind}_epi",
+                                device))
+
+    _check_mode(kernel_mode)
+    if kernel_mode == "jnp":
+        return decide(JNP, "kernel_mode=jnp")
+    bits = {cfg.bits} | ({cfg2.bits} if cfg2 is not None else set())
+    if bits != {8}:
+        return decide(JNP, f"bits={sorted(bits)} (kernels are int8-only)")
+    if cfg.block != PER_TENSOR or (cfg2 is not None
+                                   and cfg2.block != PER_TENSOR):
+        return decide(JNP, "epilogue chains are per-tensor only")
+    if kernel_mode == "auto" and device != "cuda":
+        return decide(JNP, f"auto keeps the per-op composition on "
+                           f"device={device}")
+    if k > accum_chunk:
+        return decide(JNP, f"K={k} > accum_chunk={accum_chunk} "
+                           "(flush emulation stays on the plain path)")
+    if k * 127 * 127 >= (1 << 31):
+        return decide(JNP, f"K={k} overflows the int32 accumulator")
+    if (act or "").endswith("_glu") and n % 2:
+        return decide(JNP, f"a GLU needs an even N, got {n}")
+    if kind != "qq" or out_q or act not in kfl.EPI_KERNEL_ACTS:
+        why = (f"gemm_epi has a kernel for kind qq with act in "
+               f"{kfl.EPI_KERNEL_ACTS} and no out-quantize, not kind={kind} "
+               f"act={act} out_q={out_q}")
+        if device == "cuda":
+            raise NotImplementedError(f"{op}: {why}; its plain version runs "
+                                      f"only on the CPU")
+        return decide(JNP, why)
+    return decide(FUSED, f"gemm_epi kernel (act={act}, bias={bias})")
+
+
+def contract_epi(a: torch.Tensor, b: torch.Tensor, dec: Decision, *,
+                 cfg: QuantConfig, ka: prng.Key, kb: prng.Key,
+                 bias: Optional[torch.Tensor] = None,
+                 act: Optional[str] = None):
+    """Run a FUSED ``qq_epi`` plan: a (M, K), b (N, K) f32 quantized in the
+    kernel under ``cfg`` with keys ``ka``/``kb``, bias (1, N) or None ->
+    (y (M, N or N/2), aq, bq, ylin (M, N) or None): the residuals of the
+    backward, as the reference's ``contract_epi``."""
+    assert dec.path == FUSED and dec.kind == "qq_epi"
+    sr = cfg.stochastic
+    ra = rounding_bits(ka, a.shape, cfg.rng, a.device) if sr else None
+    rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
+    ea = ref.max_biased_exp_ref(a)
+    eb = ref.max_biased_exp_ref(b)
+    run = kfl.fused_gemm_epi_plain if _plain_on_card else kfl.fused_gemm_epi
+    outs = run(a.contiguous(), ra, b.contiguous(), rb,
+               None if bias is None else bias.contiguous(), None, ea, eb,
+               kind="qq", p=cfg.p, stochastic=sr, act=act)
+    y, am, bm = outs[:3]
+    ylin = outs[3] if act is not None else None
+    return y, BFP(am, ea, cfg), BFP(bm, eb, cfg), ylin
+
+
+def plan_decode_block(op: str, b: int, d: int, n_ff: int, t: int, hq: int,
+                      hkv: int, dh: int, cfg: QuantConfig, *,
+                      kernel_mode: str = "auto",
+                      device: str = "cpu") -> Decision:
+    """Choose the path for one whole-layer decode block; JNP keeps the
+    per-op decode path (whose norm numerics differ)."""
+
+    def decide(path, reason):
+        return _record(Decision(op, path, reason, b, d, n_ff,
+                                "decode_block", device, t))
+
+    _check_mode(kernel_mode)
+    if kernel_mode == "jnp":
+        return decide(JNP, "kernel_mode=jnp")
+    if cfg.bits != 8:
+        return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
+    if kernel_mode == "auto" and device != "cuda":
+        return decide(JNP, f"auto keeps the per-op path on device={device}")
+    why = kfc.decode_block_unsupported(b, d, n_ff, hq, hkv, dh, t)
+    if why:
+        return decide(JNP, f"decode_block kernel: {why}")
+    return decide(FUSED, "decode_block kernel: the layer's widths, batch "
+                         "and cache fit its limits")
+
+
+def run_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m, se_d,
+                     g1m, g2m, km, ke, vm, ve, cossin, pos: int,
+                     dec: Decision, **kw):
+    """Run a FUSED decode block (arguments of ``fused_decode_block``):
+    (x_out, k_new, ek_new, v_new, ev_new), the fresh rows for the caller
+    to append."""
+    assert dec.path == FUSED
+    run = kfc.decode_block_plain if _plain_on_card else kfc.fused_decode_block
+    return run(x.contiguous(), wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
+               se_d, g1m, g2m, km, ke, vm, ve, cossin, pos, **kw)

@@ -36,7 +36,8 @@ import torch
 from ..core import fmath
 from . import build
 from .fused_linear import (_check, _ptr, _raise_on, _scalar_i32, as_u32,
-                           int8_dot, pow2_f32, quantize_tile, scale_exp)
+                           eff_exp, int8_dot, pow2_f32, quantize_tile,
+                           scale_exp)
 
 __all__ = ["attn_decode", "attn_decode_plain", "decode_p_plain",
            "decode_smem_bytes", "attn_fwd", "attn_fwd_plain", "attn_bwd",
@@ -47,8 +48,9 @@ _NEG = -1e30          # models.attention._NEG
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
 # Tolerance of the kernel's y against the plain version's, relative to the
-# largest |y|: the two differ only in the order of the float32 softmax sum,
-# which can move a stochastic-rounding decision of p by one unit (PERF.md).
+# largest |y|: the two differ in the softmax's exp (expf against the
+# reference's Cephes exp) and the order of its float32 sum, which can move
+# a rounding decision of p by one unit (PERF.md).
 DECODE_Y_RTOL = 2.0 ** -6
 
 
@@ -58,16 +60,14 @@ def decode_smem_bytes(gs: int, t: int, d: int) -> int:
     return 4 * gs * t + 4 * gs * d + gs * d + 4 * gs + gs * t
 
 
-def _eff_exp(x: torch.Tensor) -> torch.Tensor:
-    return ((x.contiguous().view(torch.int32) >> 23) & 0xFF).clamp(min=1)
-
-
 def decode_p_plain(qm, km, ek_rows, ev_rows, rp, eq, q_off: int,
                    kv_len: int, *, p: int, s: int, causal: bool,
                    window: int, stochastic: bool):
     """The integer half of ``attn_decode_plain``: the quantized
     probabilities (int8 (BH, GS, T)) and their per-row biased exponents
-    (int32 (BH, GS, 1)), before the PV contraction."""
+    (int32 (BH, GS, 1)), before the PV contraction.  The softmax's exp and
+    row sum round as the reference's (``core.fmath``); ``eq`` may be one
+    exponent per slice, (BH, 1, 1)."""
     gs, t = qm.shape[-2], km.shape[-2]
     dev = qm.device
     sek = scale_exp(ek_rows, p).transpose(-1, -2)            # (BH, 1, T)
@@ -82,11 +82,11 @@ def decode_p_plain(qm, km, ek_rows, ev_rows, rp, eq, q_off: int,
     sf = int8_dot(qm, km).to(torch.float32) * pow2_f32(scale_exp(eq, p) + sek)
     sf = torch.where(mask, sf, torch.full_like(sf, _NEG))
     mrow = sf.amax(dim=-1, keepdim=True)
-    pe = torch.exp(sf - mrow)
-    pn = torch.where(mask, pe / pe.sum(dim=-1, keepdim=True),
+    pe = fmath._exp(sf - mrow)
+    pn = torch.where(mask, pe / fmath._sum_windows(pe, (-1,))[..., None],
                      torch.zeros_like(pe))
     p2 = pn * pow2_f32(sev)
-    e_row = _eff_exp(p2).amax(dim=-1, keepdim=True)
+    e_row = eff_exp(p2).amax(dim=-1, keepdim=True)
     ph = quantize_tile(p2, rp if stochastic else None, e_row, p, stochastic)
     return ph, e_row
 
@@ -219,7 +219,7 @@ def _block(x: Optional[torch.Tensor], c0: int, bt: int, axis: int):
 
 def _tile_exp(x: torch.Tensor) -> torch.Tensor:
     """Largest effective exponent of each (slice) tile, (BH, 1, 1)."""
-    return _eff_exp(x).flatten(1).amax(-1).view(-1, 1, 1)
+    return eff_exp(x).flatten(1).amax(-1).view(-1, 1, 1)
 
 
 def attn_fwd_plain(qm, km, vm, rp, eq, ek, ev, q_off: int, kv_len: int, *,
@@ -248,7 +248,7 @@ def attn_fwd_plain(qm, km, vm, rp, eq, ek, ev, q_off: int, kv_len: int, *,
         m_new = torch.maximum(m, sf.amax(dim=-1, keepdim=True))
         alpha = fmath._exp(m - m_new)
         pt = torch.where(mask, fmath._exp(sf - m_new), torch.zeros_like(sf))
-        e_row = _eff_exp(pt).amax(dim=-1, keepdim=True)
+        e_row = eff_exp(pt).amax(dim=-1, keepdim=True)
         ph = quantize_tile(pt, _block(rp, c0, bt, -1) if stochastic else None,
                            e_row, p, stochastic)
         pv = int8_dot(ph, _block(vm, c0, bt, -2).transpose(-1, -2))

@@ -18,6 +18,13 @@ Ports of four TPU kernels of ``repro.kernels.fused_linear``:
                    K/blk)); each block's exact int32 partial times
                    2^(sa + sb) is added to a float32 accumulator in block
                    order; also returns both mantissas.
+  ``fused_gemm_epi`` <- ``fused_gemm_epi_pallas``: the qq GEMM with its f32
+                   epilogue (bias, then relu or the SiLU-GLU that gates the
+                   left half of the columns against the right half) applied
+                   to each output tile; also returns both mantissas and the
+                   pre-activation ``ylin``.  Its plain version also covers
+                   the variants with no kernel (kinds qi / ii, the
+                   per-tensor out-quantize), which run on the CPU only.
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
 -> y (B, M, N).  The CUDA source is ``csrc/fused_linear.cu``; its note
@@ -36,12 +43,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import fmath
 from . import build
 
-__all__ = ["quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
+__all__ = ["eff_exp", "quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
            "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
            "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
-           "fused_qq_blk_plain", "blk_combine", "as_u32"]
+           "fused_qq_blk_plain", "blk_combine", "as_u32", "EPI_ACTS",
+           "epi_apply", "epi_pullback", "fused_gemm_epi",
+           "fused_gemm_epi_plain"]
 
 _F32_EXP_BIAS = 127
 _F32_MANT_BITS = 23
@@ -58,6 +68,12 @@ def pow2_f32(e: torch.Tensor) -> torch.Tensor:
     e = torch.as_tensor(e).to(torch.int32)
     f = ((e.clamp(-126, 127) + _F32_EXP_BIAS) << _F32_MANT_BITS).view(torch.float32)
     return torch.where(e < -126, torch.zeros_like(f), f)
+
+
+def eff_exp(x: torch.Tensor) -> torch.Tensor:
+    """Effective biased exponent of float32 x (sub-normals count as 1)."""
+    return ((x.to(torch.float32).contiguous().view(torch.int32) >> 23)
+            & 0xFF).clamp(min=1)
 
 
 def quantize_tile(x: torch.Tensor, rand: Optional[torch.Tensor],
@@ -152,6 +168,105 @@ def fused_qq_blk_plain(a, ra, ea, b, rb, eb, *, p=7, blk=32,
     return (y, am, bm) if emit_residuals else (y, None, None)
 
 
+# ---------------------------------------------------------------------------
+# GEMM -> bias / activation (-> per-tensor out-quantize) epilogue
+# ---------------------------------------------------------------------------
+
+EPI_ACTS = (None, "relu", "gelu", "silu_glu", "gelu_glu")
+# The epilogues the CUDA kernel applies (kind qq, no out-quantize).
+EPI_KERNEL_ACTS = (None, "relu", "silu_glu")
+_EPI_META_LANES = 128
+
+
+def _no_gelu(act):
+    if act in ("gelu", "gelu_glu"):
+        raise NotImplementedError(
+            f"act={act!r} needs XLA's tanh, which the port does not "
+            "reproduce; no ported path reaches it (ROADMAP queue 1, other "
+            "families)")
+
+
+def epi_apply(y: torch.Tensor, act: Optional[str],
+              n_out: int) -> torch.Tensor:
+    """The f32 activation of the epilogue (``epi_apply`` of the reference,
+    after its bias add): ``silu_glu`` gates the left ``n_out`` columns
+    against the right ones, ``silu(g) * u`` with the reference's logistic
+    (``core.fmath``)."""
+    if act not in EPI_ACTS:
+        raise ValueError(f"unknown epilogue act {act!r}")
+    _no_gelu(act)
+    if act == "relu":
+        y = torch.maximum(y, torch.zeros_like(y))
+    elif act == "silu_glu":
+        g, u = y[..., :n_out], y[..., n_out:]
+        y = (g * fmath.logistic(g)) * u
+    return y
+
+
+def epi_pullback(ylin: torch.Tensor, g: torch.Tensor, act: Optional[str],
+                 n_out: int) -> torch.Tensor:
+    """The VJP of ``epi_apply(ylin, act, n_out)`` at cotangent ``g``,
+    as the reference's ``jax.vjp`` computes it: relu passes half the
+    gradient where ``ylin == 0`` (``lax.max``'s balanced tie), the GLU
+    pulls back through ``silu(g) * u`` with XLA's contraction."""
+    _no_gelu(act)
+    if act is None:
+        return g
+    if act == "relu":
+        w = torch.where(ylin > 0, 1.0, torch.where(ylin == 0, 0.5, 0.0))
+        return g * w.to(g.dtype)
+    gate, up = ylin[..., :n_out], ylin[..., n_out:]
+    s = fmath.logistic(gate)
+    g_act = g * up
+    d_gate = fmath._fma(g_act, s, (g_act * gate) * (s * (1.0 - s)))
+    return torch.cat([d_gate, g * (gate * s)], dim=-1)
+
+
+
+
+def fused_gemm_epi_plain(a, ra, b, rb, bias, rq, ea, eb, *, kind="qq", p=7,
+                         stochastic=True, act=None, out_q=False, qp=7,
+                         m_true=None):
+    """Plain version of ``fused_gemm_epi`` (the reference's
+    ``gemm_epi_ref``): a (M, K), b (N, K) contraction-last; ``kind`` qq
+    (both f32, quantized here), qi (b int8) or ii (both int8); ``bias``
+    (1, N) or None; ``out_q`` quantizes the output with one exponent (the
+    largest over rows below ``m_true``) against ``rq``.  Returns a tuple:
+    (y | ym, emeta) [+ am][+ bm if qq][+ ylin if act]."""
+    n = b.shape[0]
+    n_out = n // 2 if (act or "").endswith("_glu") else n
+    ea = torch.as_tensor(ea).to(torch.int32)
+    eb = torch.as_tensor(eb).to(torch.int32)
+    bmant = (quantize_tile(b, rb if stochastic else None, eb, p, stochastic)
+             if kind == "qq" else b)
+    am = (a if kind == "ii" else
+          quantize_tile(a, ra if stochastic else None, ea, p, stochastic))
+    ylin = int8_dot(am, bmant).to(torch.float32) * pow2_f32(
+        scale_exp(ea, p) + scale_exp(eb, p))
+    if bias is not None:
+        ylin = ylin + bias
+    y = epi_apply(ylin, act, n_out)
+    if out_q:
+        av = y.abs()
+        if m_true is not None:
+            rows = torch.arange(a.shape[0], device=a.device)[:, None]
+            av = torch.where(rows < m_true, av, torch.zeros_like(av))
+        e_out = eff_exp(av.amax())
+        ym = quantize_tile(y, rq if stochastic else None, e_out, qp,
+                           stochastic)
+        out = [ym, torch.full((1, _EPI_META_LANES), int(e_out),
+                              dtype=torch.int32, device=a.device)]
+    else:
+        out = [y]
+    if kind != "ii":
+        out.append(am)
+    if kind == "qq":
+        out.append(bmant)
+    if act is not None:
+        out.append(ylin)
+    return tuple(out)
+
+
 def as_u32(r: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 -> int32 tensor with the same bits (an
     int32 tensor is taken as already converted)."""
@@ -195,6 +310,8 @@ def _lib_linear() -> ctypes.CDLL:
         lib.repro_fused_ii.restype = i
         lib.repro_fused_qq_blk.argtypes = [vp] * 9 + [i] * 7 + [vp]
         lib.repro_fused_qq_blk.restype = i
+        lib.repro_gemm_epi.argtypes = [vp] * 11 + [i] * 6 + [vp]
+        lib.repro_gemm_epi.restype = i
         lib._typed = True
     return lib
 
@@ -331,8 +448,63 @@ def fused_qq_blk(a: torch.Tensor, ra: Optional[torch.Tensor],
     return y, am, bm
 
 
+def fused_gemm_epi(a: torch.Tensor, ra: Optional[torch.Tensor],
+                   b: torch.Tensor, rb: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], rq: Optional[torch.Tensor],
+                   ea: torch.Tensor, eb: torch.Tensor, *, kind: str = "qq",
+                   p: int = 7, stochastic: bool = True,
+                   act: Optional[str] = None, out_q: bool = False,
+                   qp: int = 7, m_true: Optional[int] = None):
+    """GEMM with its fused epilogue (arguments and results of
+    ``fused_gemm_epi_plain``).  On the card only kind qq with act None,
+    relu or silu_glu and no out-quantize has a kernel: a (M, K) f32, b
+    (N, K) f32 with their bits, bias (1, N) f32 or None -> (y, am, bm[,
+    ylin]); any other variant raises."""
+    if not a.is_cuda:
+        return fused_gemm_epi_plain(
+            a, ra, b, rb, bias, rq, ea, eb, kind=kind, p=p,
+            stochastic=stochastic, act=act, out_q=out_q, qp=qp,
+            m_true=m_true)
+    if kind != "qq" or out_q or act not in EPI_KERNEL_ACTS:
+        raise NotImplementedError(
+            f"gemm_epi has a kernel for kind qq, act in {EPI_KERNEL_ACTS}, "
+            f"no out-quantize; not kind={kind} act={act} out_q={out_q}: "
+            "that variant's plain version runs only on the CPU")
+    m, k = a.shape
+    n = b.shape[0]
+    glu = act == "silu_glu"
+    if glu and n % 2:
+        raise ValueError(f"silu_glu needs an even N, got {n}")
+    dev = a.device
+    _check("a", a, torch.float32, (m, k), dev)
+    _check("b", b, torch.float32, (n, k), dev)
+    if bias is not None:
+        _check("bias", bias, torch.float32, (1, n), dev)
+    if stochastic:
+        ra, rb = as_u32(ra), as_u32(rb)
+        _check("ra", ra, torch.int32, (m, k), dev)
+        _check("rb", rb, torch.int32, (n, k), dev)
+    ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
+    y = torch.empty((m, n // 2 if glu else n), dtype=torch.float32,
+                    device=dev)
+    am = torch.empty((m, k), dtype=torch.int8, device=dev)
+    bm = torch.empty((n, k), dtype=torch.int8, device=dev)
+    ylin = (torch.empty((m, n), dtype=torch.float32, device=dev)
+            if act is not None else None)
+    err = _lib_linear().repro_gemm_epi(
+        _ptr(a), _ptr(ra if stochastic else None), _ptr(b),
+        _ptr(rb if stochastic else None), _ptr(bias), _ptr(ea), _ptr(eb),
+        _ptr(y), _ptr(ylin), _ptr(am), _ptr(bm), m, n, k, p,
+        EPI_KERNEL_ACTS.index(act), int(stochastic),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, "gemm_epi")
+    fused_gemm_epi.launches += 1
+    return (y, am, bm) + ((ylin,) if act is not None else ())
+
+
 # Launches of each kernel since the count was last set to 0.
 fused_qq_pt.launches = 0
 fused_qi_pt.launches = 0
 fused_ii_pt.launches = 0
 fused_qq_blk.launches = 0
+fused_gemm_epi.launches = 0

@@ -5,7 +5,9 @@ weights are quantized exactly once at load (``qweights``, the default) and
 ``--qcache`` keeps the KV cache as int8 rows written once at append time.
 On the card every contraction runs on the hand-written kernels
 (``kernels.fused_linear``) and decode attention on the fused decode kernel
-(``kernels.fused_attention``).  Weights are random, from a seeded
+(``kernels.fused_attention``); with ``--qcache`` a dense layer without
+QKV bias (minicpm-2b) decodes as one ``decode_block`` launch
+(``kernels.fused_chain``).  Weights are random, from a seeded
 ``torch.Generator``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full --qcache \\

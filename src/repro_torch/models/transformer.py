@@ -14,8 +14,12 @@ packages compute on the same rounding bits.  Under qflow
 (``policy.qflow_seams``) the pre-norms and the final norm emit per-tensor
 BFP activations that the projections and the LM head contract as they are
 (quantize once); the residual stream stays float32.  MoE, qflow serving
-(prefill and decode) and the whole-layer decode kernel are not ported
-yet.
+(prefill and decode) is not ported yet.  The cross-op chains
+(``core.qchain``): under ``policy.fused_proj`` the pre-attention norm and
+the merged QKV projection run as one ``qnorm_gemm`` and the gate|up
+projection with its SiLU-GLU as one ``qmatmul_epi``; a decode step over an
+int8 KV cache runs each dense layer as one ``qdecode_block``.  Each runs
+where dispatch plans it; elsewhere the per-op seams run.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..core import prng
 from ..core.bfp import BFP, storage_dtype
 from ..core.policy import (QC_ROWS, QW_NONE, QW_STACKED, QW_TENSOR,
                            NumericPolicy)
+from ..core.qchain import qdecode_block, qmatmul_epi, qnorm_gemm
 from ..core.qnorm import qlayernorm, qrmsnorm
 from ..core.qops import qcache_append, qcache_prefill, qembed, qmatmul
 from .attention import chunked_attention, decode_attention
@@ -164,14 +169,26 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _attn_block(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
+def _attn_block(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None,
+                qkv=None):
     """Self-attention: prefill when ``kv`` is None, else decode against the
     cache (updated in place); ``cos_sin`` are the rope tables of the
-    pass's positions."""
+    pass's positions.  ``qkv`` is a merged projection already computed by
+    the norm -> QKV chain; then ``h`` is not used."""
     kq, ka, ko = prng.split(key, 3)
-    q = qmatmul(h, lp["wq"], prng.fold_in(kq, 0), policy)
-    k = qmatmul(h, lp["wk"], prng.fold_in(kq, 1), policy)
-    v = qmatmul(h, lp["wv"], prng.fold_in(kq, 2), policy)
+    nq, nk = lp["wq"].shape[-1], lp["wk"].shape[-1]
+    if qkv is None and policy.enabled and policy.fused_proj \
+            and not isinstance(lp["wq"], BFP):
+        # one integer GEMM, one input quantization, one merged weight scale
+        # (BFP weights each carry their own scale and stay split)
+        qkv = qmatmul(h, torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=-1),
+                      kq, policy)
+    if qkv is not None:
+        q, k, v = torch.split(qkv, [nq, nk, nk], dim=-1)
+    else:
+        q = qmatmul(h, lp["wq"], prng.fold_in(kq, 0), policy)
+        k = qmatmul(h, lp["wk"], prng.fold_in(kq, 1), policy)
+        v = qmatmul(h, lp["wv"], prng.fold_in(kq, 2), policy)
     if cfg.qkv_bias:
         q, k, v = (add_bias(q, lp["bq"]), add_bias(k, lp["bk"]),
                    add_bias(v, lp["bv"]))
@@ -205,25 +222,72 @@ def _attn_block(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
 
 def _mlp_block(h, lp, key, policy, cfg):
     k1, k2, k3 = prng.split(key, 3)
-    gate = qmatmul(h, lp["w_gate"], k1, policy)
-    up = qmatmul(h, lp["w_up"], k2, policy)
+    if policy.enabled and policy.fused_proj \
+            and not isinstance(lp["w_gate"], BFP):
+        wgu = torch.cat([lp["w_gate"], lp["w_up"]], dim=-1)
+        if not isinstance(h, BFP):
+            # gate|up GEMM -> GLU as one epilogue chain where dispatch
+            # plans it (bit-identical to the composition below)
+            fused = qmatmul_epi(h, wgu, k1, policy,
+                                act=("silu_glu" if cfg.act == "silu"
+                                     else "gelu_glu"),
+                                out_q=policy.qflow_seams)
+            if fused is not None:
+                return qmatmul(fused, lp["w_down"], k3, policy)
+        up_gate = qmatmul(h, wgu, k1, policy)
+        gate, up = torch.split(up_gate, up_gate.shape[-1] // 2, dim=-1)
+    else:
+        gate = qmatmul(h, lp["w_gate"], k1, policy)
+        up = qmatmul(h, lp["w_up"], k2, policy)
     return qmatmul(glu_act(up, gate, cfg.act), lp["w_down"], k3, policy)
+
+
+def _try_decode_block(h, lp, key, policy, cfg, *, cos_sin, kv, pos):
+    """The whole layer as one ``qdecode_block`` for a one-token decode step
+    of a dense, bias-free RMSNorm / SiLU layer over an int8 cache; None
+    where it does not apply or dispatch keeps the per-op path."""
+    kc, vc = kv
+    if (cfg.moe_experts or cfg.qkv_bias or cfg.norm == "layernorm"
+            or cfg.act != "silu" or isinstance(h, BFP)
+            or not isinstance(kc, BFP) or h.shape[1] != 1):
+        return None
+    cos, sin = cos_sin                                     # (1, hd/2)
+    out = qdecode_block(
+        h[:, 0, :], lp["ln1_g"], lp["ln2_g"], lp["wq"], lp["wk"], lp["wv"],
+        lp["wo"], lp["w_gate"], lp["w_up"], lp["w_down"], kc, vc,
+        torch.cat([cos, cos, sin, sin], dim=-1), pos, key, policy,
+        hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.hd,
+        window=cfg.local_window)
+    if out is None:
+        return None
+    x_out, kc, vc = out
+    return x_out[:, None, :], (kc, vc)
 
 
 def _layer(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
     # Under qflow both pre-norms emit BFP: the norm -> projection seams
     # (QKV and gate/up) exchange int8 mantissas, quantized exactly once.
     oq = policy.qflow_seams
-    if policy.enabled and policy.fused_proj:
-        raise NotImplementedError("fused_proj (the norm -> GEMM chain) is "
-                                  "not ported yet: ROADMAP queue 1")
     if oq and kv is not None:
         raise NotImplementedError("qflow decode is not ported yet: ROADMAP "
                                   "queue 1, qflow serving")
     kn1, kattn, kn2, kmlp = prng.split(key, 4)
-    hn = _norm(h, lp["ln1_g"], lp.get("ln1_b"), kn1, policy, cfg, out_q=oq)
+    if kv is not None:
+        blk = _try_decode_block(h, lp, key, policy, cfg, cos_sin=cos_sin,
+                                kv=kv, pos=pos)
+        if blk is not None:
+            return blk
+    qkv = None
+    if (policy.enabled and policy.fused_proj and not cfg.qkv_bias
+            and not isinstance(lp["wq"], BFP) and not isinstance(h, BFP)):
+        # the norm -> quantize -> QKV GEMM chain (None keeps the seam)
+        qkv = qnorm_gemm(h, lp["ln1_g"], lp.get("ln1_b"),
+                         torch.cat([lp["wq"], lp["wk"], lp["wv"]], dim=-1),
+                         kn1, policy, rms=cfg.norm != "layernorm")
+    hn = h if qkv is not None else _norm(h, lp["ln1_g"], lp.get("ln1_b"),
+                                         kn1, policy, cfg, out_q=oq)
     a, new_kv = _attn_block(hn, lp, kattn, policy, cfg, cos_sin=cos_sin,
-                            kv=kv, pos=pos)
+                            kv=kv, pos=pos, qkv=qkv)
     h = h + a
     hn = _norm(h, lp["ln2_g"], lp.get("ln2_b"), kn2, policy, cfg, out_q=oq)
     return h + _mlp_block(hn, lp, kmlp, policy, cfg), new_kv

@@ -166,7 +166,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                        kfl.fused_ii_pt_plain(am_i8, am_i8, e, e))
     assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
-                                    "attn_bwd": 0}
+                                    "attn_bwd": 0, "gemm_epi": 0,
+                                    "norm_gemm": 0, "decode_block": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

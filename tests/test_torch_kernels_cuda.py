@@ -14,6 +14,7 @@ from repro_torch.core import prng
 from repro_torch.core import qops
 from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_attention as kfa
+from repro_torch.kernels import fused_chain as kfc
 from repro_torch.kernels import fused_linear as kfl
 from repro_torch.kernels import ref
 
@@ -51,7 +52,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
         assert torch.equal(x, y)
     assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
-                                    "attn_bwd": 0}
+                                    "attn_bwd": 0, "gemm_epi": 0,
+                                    "norm_gemm": 0, "decode_block": 0}
 
 
 @pytest.mark.cuda
@@ -243,3 +245,143 @@ def test_wrappers_reject_wrong_operands(cuda):
     with pytest.raises(ValueError):      # bt not a multiple of 128
         kfa.attn_fwd(i8, i8, i8, None, e, e, e, 0, 4, p=7, s=4, bt=64,
                      causal=True, window=0, stochastic=False)
+
+
+# (M, K, N, act, bias): minicpm-2b's gate|up training GEMM (512 tokens,
+# 2304 -> 2 x 5760) and odd shapes: rows off the 64-row tile, K not a
+# multiple of 32 nor of 4, N off the column tile, every epilogue.
+EPI_SHAPES = [(512, 2304, 11520, "silu_glu", False),
+              (37, 67, 58, "silu_glu", True), (130, 96, 70, "relu", True),
+              (65, 40, 29, None, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("shape", EPI_SHAPES)
+def test_gemm_epi_kernel_equal_plain(cuda, shape, stochastic):
+    """y, both mantissas and ylin ==; a row of gate inputs so negative
+    that the logistic is sub-normal (flushed in both)."""
+    m, k, n, act, with_bias = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn((m, k), generator=g, device=cuda)
+    b = torch.randn((n, k), generator=g, device=cuda)
+    a[1] *= 300.0
+    bias = (torch.randn((1, n), generator=g, device=cuda) if with_bias
+            else None)
+    ra = prng.bits(prng.key(12), a.shape, cuda) if stochastic else None
+    rb = prng.bits(prng.key(13), b.shape, cuda) if stochastic else None
+    ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+    kw = dict(p=7, stochastic=stochastic, act=act)
+    kd.reset_kernel_launches()
+    got = kfl.fused_gemm_epi(a, ra, b, rb, bias, None, ea, eb, **kw)
+    want = kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, None, ea, eb, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for name, x, y in zip(("y", "am", "bm", "ylin"), got, want):
+        assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
+    assert kd.kernel_launches()["gemm_epi"] == 1
+
+
+@pytest.mark.cuda
+def test_gemm_epi_variants_without_a_kernel_raise(cuda):
+    a = torch.randn((8, 32), device=cuda)
+    e = ref.max_biased_exp_ref(a)
+    m8 = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
+    for kw in (dict(kind="qi"), dict(out_q=True), dict(act="gelu_glu")):
+        args = (a, None, m8 if kw.get("kind") else a, None, None, None, e, e)
+        with pytest.raises(NotImplementedError):
+            kfl.fused_gemm_epi(*args, stochastic=False, **kw)
+    with pytest.raises(NotImplementedError):
+        kd.plan_epilogue("e", 8, 32, 64, qops.QuantConfig(), kind="ii",
+                         kernel_mode="fused", device="cuda")
+
+
+# (M, K, N, center, beta): minicpm-2b's QKV training chain (512 tokens,
+# 2304 -> 6912) and odd ones: rows off every strip, K off the 32-wide
+# slice and of 4, N off the 64-column tile, LayerNorm with and without
+# the shift.
+NORM_SHAPES = [(512, 2304, 6912, False, False), (37, 100, 70, True, True),
+               (130, 67, 29, False, True), (16, 4000, 130, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_norm_gemm_kernel_equal_plain(cuda, shape, stochastic):
+    """y, xq, meta and c ==; a row of zeros and a tiny row."""
+    m, k, n, center, with_beta = shape
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn((m, k), generator=g, device=cuda) * 3.0
+    x[0] = 0.0
+    x[1] *= 2.0 ** -60
+    gm = torch.randint(1 << 13, 1 << 15, (1, k), generator=g, device=cuda,
+                       dtype=torch.int32)
+    bm = (torch.randint(-(1 << 14), 1 << 14, (1, k), generator=g,
+                        device=cuda, dtype=torch.int32) if with_beta else None)
+    wm = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    se_w = torch.randint(-12, -5, (1, n), generator=g, device=cuda,
+                         dtype=torch.int32)
+    rin = prng.bits(prng.key(22), (m, k), cuda) if stochastic else None
+    rout = prng.bits(prng.key(23), (m, k), cuda) if stochastic else None
+    se_g = torch.tensor(-15, dtype=torch.int32, device=cuda)
+    se_b = torch.tensor(-20, dtype=torch.int32, device=cuda)
+    kw = dict(n=k, p=7, center=center)
+    kd.reset_kernel_launches()
+    got = kfc.fused_norm_gemm(x, rin, rout, gm, se_g, bm, se_b, wm, se_w, **kw)
+    want = kfc.norm_gemm_plain(x, rin, rout, gm, se_g, bm, se_b, wm, se_w,
+                               **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "xq", "meta", "c"), got, want):
+        assert torch.equal(a, b), (name, (a.float() - b.float()).abs().max().item())
+    assert kd.kernel_launches()["norm_gemm"] == 1
+
+
+# (B, d, n_ff, hq, hkv, dh, T, pos, window): minicpm-2b's decode layer (4
+# streams, a 160-row cache, the last position) and an odd one: GQA groups
+# of 4, a sliding window, a cache of 40 rows, pos mid-cache.
+DECODE_BLOCK_SHAPES = [(4, 2304, 5760, 36, 36, 64, 160, 159, 0),
+                       (4, 2304, 5760, 36, 36, 64, 160, 128, 0),
+                       (3, 256, 320, 8, 2, 32, 40, 37, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_BLOCK_SHAPES)
+def test_decode_block_kernel_equal_plain(cuda, shape):
+    """x_out and the fresh K/V rows ==: the kernel spells the plain
+    version's exp and its windowed softmax sum."""
+    b, d, n_ff, hq, hkv, dh, t, pos, window = shape
+    g = torch.Generator(device=cuda).manual_seed(31)
+
+    def i8(*shp):
+        return torch.randint(-127, 128, shp, generator=g, device=cuda,
+                             dtype=torch.int8)
+
+    def se(n):
+        return torch.randint(-14, -9, (1, n), generator=g, device=cuda,
+                             dtype=torch.int32)
+
+    def rows(*shp):
+        return torch.randint(118, 126, shp, generator=g, device=cuda,
+                             dtype=torch.int32)
+
+    nqkv = (hq + 2 * hkv) * dh
+    ang = torch.rand(dh // 2, generator=g, device=cuda) * 3
+    cossin = torch.cat([ang.cos(), ang.cos(), ang.sin(), ang.sin()])[None]
+    gains = [torch.randint(1 << 13, 1 << 15, (1, d), generator=g,
+                           device=cuda, dtype=torch.int32) for _ in range(2)]
+    args = (torch.randn((b, d), generator=g, device=cuda), i8(nqkv, d),
+            se(nqkv), i8(d, hq * dh), se(d), i8(2 * n_ff, d), se(2 * n_ff),
+            i8(d, n_ff), se(d), *gains, i8(b, hkv, t, dh),
+            rows(b, hkv, t, 1), i8(b, hkv, t, dh), rows(b, hkv, t, 1),
+            cossin.contiguous(), pos)
+    kw = dict(n_d=d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, p=7, window=window,
+              se_g1=-14, se_g2=-14)
+    kd.reset_kernel_launches()
+    got = kfc.fused_decode_block(*args, **kw)
+    want = kfc.decode_block_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("x_out", "k_new", "ek_new", "v_new", "ev_new"),
+                          got, want):
+        assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
+    assert kd.kernel_launches()["decode_block"] == 1
