@@ -31,7 +31,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["fma", "exp", "log", "logistic", "sum_windows"]
+__all__ = ["fma", "exp", "log", "logistic", "sum_windows", "sum_fused_2d",
+           "sum_products_cols"]
 
 _WINDOW = 32
 
@@ -206,12 +207,84 @@ def _sum_products(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+# Row count -> (lanes, accumulators, epilogue lanes) of the loop LLVM
+# vectorizes for a column of 16 to 32 products (measured; any other count
+# in 20-31 takes (8, 1, 0)).
+_COL_LOOPS = {16: (8, 1, 0), 17: (8, 1, 0), 18: (8, 2, 2), 19: (8, 2, 2),
+              32: (8, 2, 0)}
+
+
+def sum_products_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 of ``a * b`` as XLA's CPU build reduces a column of
+    products computed in the same fusion (``qnorm_gemm``'s dgamma; not
+    differentiable).  Below 16 rows and above 32 as ``_sum_products``.
+    From 16 to 32 rows LLVM vectorizes the row loop: ``lanes`` rows at a
+    time go into each of ``accumulators`` vectors with a fused
+    multiply-add (the first vector's lane 0 starts at 0, every other lane
+    at -0), the accumulators are added and their lanes combined by halves,
+    an ``epilogue``-lane vector takes the next whole group of rows the same
+    way, and the last rows are fused multiply-adds in order
+    (``_COL_LOOPS``)."""
+    a, b = torch.broadcast_tensors(a.to(torch.float32), b.to(torch.float32))
+    m = a.shape[0]
+    if not 16 <= m <= 32:
+        return _sum_products(a, b, 0)
+    lanes, n_acc, epi = _COL_LOOPS.get(m, (8, 1, 0))
+    rest = a.shape[1:]
+    accs = [torch.full((lanes,) + rest, -0.0, device=a.device)
+            for _ in range(n_acc)]
+    accs[0][0] = 0.0
+    step = lanes * n_acc
+    main = m - m % step
+    for c in range(0, main, step):
+        for u in range(n_acc):
+            r = c + u * lanes
+            accs[u] = _fma(a[r:r + lanes], b[r:r + lanes], accs[u])
+    v = accs[0]
+    for acc in accs[1:]:
+        v = acc + v
+    total = _lane_tree(v)
+    r = main
+    if epi and m - r >= epi:
+        v = torch.cat([total[None], torch.full((epi - 1,) + rest, -0.0,
+                                               device=a.device)])
+        for c in range(r, m - (m - r) % epi, epi):
+            v = _fma(a[c:c + epi], b[c:c + epi], v)
+        total = _lane_tree(v)
+        r = m - (m - r) % epi
+    for c in range(r, m):
+        total = _fma(a[c], b[c], total)
+    return total
+
+
 def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
     """Sum over axis 0 in index order, from a zero start."""
     acc = x[0] + 0.0
     for i in range(1, x.shape[0]):
         acc = acc + x[i]
     return acc
+
+
+def _lane_tree(v: torch.Tensor) -> torch.Tensor:
+    """A 2- to 8-lane vector's sum as the x86 horizontal reduction takes
+    it: the high half onto the low half until one lane is left."""
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        v = v[:h] + v[h:]
+    return v[0]
+
+
+def sum_fused_2d(x: torch.Tensor) -> torch.Tensor:
+    """Sum of all of float32 ``x`` (B, S) as XLA's CPU build reduces it when
+    the reduction is fused with the ops that compute ``x`` (the mean of
+    ``softmax_xent``; not differentiable).  A dim over 32 is tree-rewritten
+    into windows (``sum_windows`` over both dims).  Otherwise the sum runs
+    in index order; LLVM may vectorize that loop into lanes, a cost-model
+    choice the port does not follow (PERF.md §6)."""
+    x = x.to(torch.float32)
+    if max(x.shape) > _WINDOW:
+        return _sum_windows(x, (0, 1))
+    return _sum_in_order(x.reshape(-1))
 
 
 def _sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:

@@ -5,7 +5,12 @@ are the same, so a policy means the same arithmetic in both packages.
 ``kernel_mode`` keeps its meaning: ``"auto"`` takes the hand-written CUDA
 kernels for CUDA tensors and the plain mirror of the JAX package's off-TPU
 path for CPU tensors; ``"fused"`` takes the kernels' numerics everywhere
-(their plain versions on the CPU); ``"jnp"`` forces the plain oracle path.
+(their plain versions on the CPU); ``"unfused"`` runs every per-tensor
+contraction as two kernels, the standalone quantizer (``bfp_quantize``)
+writing int8 mantissas to device memory and the int8 GEMM
+(``int8_matmul``) contracting them (their plain versions on the CPU),
+while attention and the chains keep their per-op paths; ``"jnp"`` forces
+the plain oracle path.
 """
 
 from __future__ import annotations

@@ -207,9 +207,8 @@ class _QNormGemm(torch.autograd.Function):
             m1 = fmath._sum_products(da, g_row, -1)[:, None] * inv_k
             dx = r_f * fmath._fma(-xhat, m2, fmath._fma(da, g_row, -m1))
         # XLA reduces this column sum of products with an fma chain below
-        # 16 rows and in a vectorised order from 16 rows on, which this
-        # does not reproduce (an ulp apart; PERF.md, "Parity")
-        dgamma = fmath._sum_products(da, xhat, 0).reshape(gamma.shape)
+        # 16 rows and in a vectorised order from 16 to 32 rows
+        dgamma = fmath.sum_products_cols(da, xhat).reshape(gamma.shape)
         dbeta = fmath._sum_windows(da, (0,)) if has_beta else None
         return (dx.reshape(*lead, k), dgamma, dbeta, dw, None, None, None,
                 None)

@@ -6,6 +6,9 @@
                        qflow training forward and backward
   ``fused_chain``      the norm -> GEMM chain and the whole-layer decode
                        block
+  ``bfp_quant``        the standalone quantizer of the unfused rung
+  ``int8_matmul``      the int8 GEMM of the unfused rung (tensor cores)
+  ``ops``              both as standalone ops (sweeps, benchmarks)
   ``dispatch``         plans, decisions and the plain-version switch
   ``build``            nvcc build + ctypes loading of ``csrc/*.cu``
   ``ref``              plain torch oracles

@@ -1,8 +1,9 @@
 // Float32 functions rounded as the reference's CPU build (XLA) rounds them,
 // the device side of core/fmath.py: the Cephes exp evaluated with fused
 // multiply-adds, the logistic 1 / (1 + exp(-x)) on it, and the sum of a
-// row in windows of 32.  The kernels are built without contraction, so
-// every other float operation is the single IEEE operation it spells.
+// row in windows of 32 (warp_sum_windows).  The kernels are built without
+// contraction, so every other float operation is the single IEEE operation
+// it spells.
 #pragma once
 
 namespace repro {
@@ -33,6 +34,49 @@ __device__ __forceinline__ float cephes_expf(float x) {
 __device__ __forceinline__ float cephes_logisticf(float x) {
   const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, cephes_expf(-x)));
   return s < 1.17549435e-38f ? 0.0f : s;
+}
+
+// The sum of v[0, n) in core/fmath.py sum_windows's order, by one warp: n <=
+// 32 in index order from 0; otherwise windows of 32 (the padding split before
+// and after), each summed in index order, and the window sums summed the
+// same way again.  `scratch` holds ceil(n / 32) floats; every lane returns
+// the sum.
+__device__ __forceinline__ float warp_sum_windows(const float* v, int n,
+                                                  float* scratch, int lane) {
+  float tot = 0.0f;
+  if (n <= 32) {
+    for (int i = 0; i < n; ++i) tot = __fadd_rn(tot, v[i]);
+    return tot;
+  }
+  int m = (n + 31) / 32;
+  const int before = (m * 32 - n) / 2;
+  for (int w = lane; w < m; w += 32) {
+    float part = 0.0f;
+    for (int i = 0; i < 32; ++i) {
+      const int t = w * 32 + i - before;
+      if (t >= 0 && t < n) part = __fadd_rn(part, v[t]);
+    }
+    scratch[w] = part;
+  }
+  __syncwarp();
+  // more than 32 window sums (n > 1024): window them again, in place by one
+  // lane (window w reads only sums at or past index w)
+  while (m > 32) {
+    const int m2 = (m + 31) / 32, b2 = (m2 * 32 - m) / 2;
+    if (lane == 0)
+      for (int w = 0; w < m2; ++w) {
+        float part = 0.0f;
+        for (int i = 0; i < 32; ++i) {
+          const int t = w * 32 + i - b2;
+          if (t >= 0 && t < m) part = __fadd_rn(part, scratch[t]);
+        }
+        scratch[w] = part;
+      }
+    __syncwarp();
+    m = m2;
+  }
+  for (int i = 0; i < m; ++i) tot = __fadd_rn(tot, scratch[i]);
+  return tot;
 }
 
 // silu(g) * u as the reference's SiLU-GLU computes it: (g * s) * u.

@@ -15,15 +15,17 @@
 // Design.  The TPU kernel keeps the band in VMEM in one program.  Here the
 // softmax needs the whole row before p can be quantized (its shared
 // exponent is the row max of eff_exp(p2)), so the scores of the slice are
-// held in shared memory: 5 bytes per (row, position) plus the query and the
-// int32 PV sums.  That bounds T (planned in kernels.dispatch.plan_attention:
+// held in shared memory: 5 bytes per (row, position) plus the query, the
+// int32 PV sums and one window sum per 32 positions for each warp.  That bounds T (planned in kernels.dispatch.plan_attention:
 // about 6600 positions for qwen2's GS = 7, D = 64).  Scores use __dp4a on
 // the packed query words; one warp per query row does the max, exp, sum,
 // normalise, fold and quantize with warp shuffles; the PV sums accumulate
-// exactly in int32 (shared-memory atomics, order-free).  expf and the
-// division are IEEE (no fast math); the result differs from the plain
-// version by the softmax's exp (expf here, the reference's Cephes exp
-// there) and the order of its float sum.
+// exactly in int32 (shared-memory atomics, order-free).  The softmax is the
+// plain version's float arithmetic: the reference's Cephes exp of
+// __fsub_rn(s, max) (fmath.cuh), the row sum in the reference's order
+// (windows of 32, each in index order, then the window sums the same way:
+// warp_sum_windows) and an IEEE division, so y is bit-equal to the plain
+// version's.
 //
 // Bound on the H100: the cache rows, 2*T*D bytes plus 8*T bytes of row
 // exponents per slice, and the rounding bits, 4*GS*T bytes, over
@@ -34,6 +36,7 @@
 #include <stdint.h>
 
 #include "bfp.cuh"
+#include "fmath.cuh"
 
 namespace {
 
@@ -67,7 +70,9 @@ __global__ void __launch_bounds__(THREADS) attn_decode_kernel(
   int* acc = reinterpret_cast<int*>(sf + (size_t)GS * T);        // GS*D
   int* qs = acc + GS * D;                                        // GS*DW
   int* erow = qs + GS * DW;                                      // GS
-  int8_t* ph = reinterpret_cast<int8_t*>(erow + GS);             // GS*T
+  const int nwin = (T + 31) / 32;
+  float* wsum = reinterpret_cast<float*>(erow + GS);             // WARPS*nwin
+  int8_t* ph = reinterpret_cast<int8_t*>(wsum + WARPS * nwin);   // GS*T
 
   const size_t bh = blockIdx.x;
   qm += bh * GS * D;
@@ -116,17 +121,13 @@ __global__ void __launch_bounds__(THREADS) attn_decode_kernel(
     float mx = __int_as_float(0xff800000);  // -inf
     for (int t = lane; t < T; t += 32) mx = fmaxf(mx, row[t]);
     for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.0f;
-    for (int t = lane; t < T; t += 32) {
-      const float e = expf(row[t] - mx);
-      row[t] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int t = lane; t < T; t += 32) row[t] = repro::cephes_expf(__fsub_rn(row[t], mx));
+    __syncwarp();
+    const float sum = repro::warp_sum_windows(row, T, wsum + warp * nwin, lane);
     int emax = 1;
     for (int t = lane; t < T; t += 32) {
-      const float pn = visible(t, qpos, kv_len, causal, window) ? row[t] / sum : 0.0f;
-      const float p2 = pn * pow2f(scale_exp(ev[t], p));
+      const float pn = visible(t, qpos, kv_len, causal, window) ? __fdiv_rn(row[t], sum) : 0.0f;
+      const float p2 = __fmul_rn(pn, pow2f(scale_exp(ev[t], p)));
       row[t] = p2;
       emax = max(emax, eff_exp(p2));
     }
@@ -170,7 +171,8 @@ extern "C" {
 
 // Shared memory one block needs for a (GS, T, D) slice.
 long long repro_attn_decode_smem(int GS, int T, int D) {
-  return 4LL * GS * T + 4LL * GS * D + (long long)GS * D + 4LL * GS + (long long)GS * T;
+  return 4LL * GS * T + 4LL * GS * D + (long long)GS * D + 4LL * GS +
+         4LL * WARPS * ((T + 31) / 32) + (long long)GS * T;
 }
 
 // qm (BH,GS,D) int8, eq int32 scalar, km/vm (BH,T,D) int8, ek/ev (BH,T)

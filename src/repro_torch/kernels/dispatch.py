@@ -9,6 +9,10 @@ every integer contraction and ``models.attention`` asks
   ``fused``  the kernel: ``kernels.fused_linear`` / ``fused_attention`` —
              the CUDA kernel for CUDA tensors, its plain version (the same
              arithmetic in torch) for CPU tensors;
+  ``unfused`` the two-kernel rung of ``kernel_mode="unfused"``: each
+             fresh operand quantized by ``kernels.bfp_quant`` into int8 in
+             device memory, then contracted by ``kernels.int8_matmul``
+             (:func:`_quantize_rows`, :func:`_matmul_unfused`);
   ``jnp``    the plain oracle path of ``core.qops`` (quantize, then an
              exact integer contraction), or for attention the scan of
              separately dispatched contractions — the JAX package's jnp
@@ -30,13 +34,19 @@ kernel with the roles swapped), ``ii`` and ``pp`` (both pre-quantized:
 the ``ii`` kernel).  Rules (the JAX package's, with "off-TPU -> jnp" read
 as "off-CUDA -> plain"): ``kernel_mode="jnp"`` or bits != 8 -> jnp;
 ``"auto"`` -> the kernel on CUDA when feasible, jnp elsewhere; ``"fused"``
--> the kernel numerics wherever feasible.  Feasibility is the kernels' own
-limits: K inside one int32 accumulator (per tensor; a per-block partial
-sums only one block), and for attention the shared memory one block
-holds.  Per-block scales have a kernel for kind ``qq`` only (``qq_blk``);
-any other per-block kind plans jnp on the CPU and raises on the card.  An
-infeasible plan says why.  Nothing here catches a kernel failure and drops
-to another path: a failed build or launch raises.
+-> the kernel numerics wherever feasible; ``"unfused"`` -> the unfused
+rung for every feasible per-tensor contraction whose fresh operands round
+stochastically (the quantizer kernel is SR-only), and jnp for the chains
+and attention, which have no unfused pipeline.  Feasibility is the
+kernels' own limits: K inside one int32 accumulator (per tensor; a
+per-block partial sums only one block), and for attention the shared
+memory one block holds.  Per-block scales have a kernel for kind ``qq``
+only (``qq_blk``); any other per-block kind plans jnp on the CPU and
+raises on the card, and so do the two plans that exist only under
+``"unfused"`` (nearest rounding of a fresh operand, a per-block scale).
+An infeasible plan says why.
+Nothing here catches a kernel failure and drops to another path: a failed
+build or launch raises.
 
 :func:`plain_kernels` is the one explicit switch that makes fused
 decisions run the kernels' plain versions on the card, so the whole path
@@ -53,20 +63,23 @@ import torch
 
 from ..core import prng
 from ..core.bfp import BFP, PER_TENSOR, QuantConfig, pow2, rounding_bits
+from . import bfp_quant as kbq
 from . import fused_attention as kfa
 from . import fused_chain as kfc
 from . import fused_linear as kfl
+from . import int8_matmul as kim
 from . import ref
 
-__all__ = ["FUSED", "JNP", "Decision", "plan_contract", "plan_attention",
-           "attn_block_t", "record_decisions", "plain_kernels", "contract_qq",
-           "contract_qi", "contract_iq", "contract_ii",
-           "attn_decode", "attn_fwd", "attn_bwd", "plan_norm_gemm",
-           "run_norm_gemm", "plan_epilogue", "contract_epi",
+__all__ = ["FUSED", "UNFUSED", "JNP", "Decision", "plan_contract",
+           "plan_attention", "attn_block_t", "record_decisions",
+           "plain_kernels", "contract_qq", "contract_qi", "contract_iq",
+           "contract_ii", "attn_decode", "attn_fwd", "attn_bwd",
+           "plan_norm_gemm", "run_norm_gemm", "plan_epilogue", "contract_epi",
            "plan_decode_block", "run_decode_block", "kernel_launches",
            "reset_kernel_launches"]
 
 FUSED = "fused"
+UNFUSED = "unfused"
 JNP = "jnp"
 
 
@@ -104,8 +117,8 @@ def record_decisions():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Run FUSED decisions through the kernels' plain versions, on any
-    device, while the context is open (the comparison switch)."""
+    """Run FUSED and UNFUSED decisions through the kernels' plain versions,
+    on any device, while the context is open (the comparison switch)."""
     global _plain_on_card
     prev = _plain_on_card
     _plain_on_card = True
@@ -120,7 +133,9 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "attn_decode": kfa.attn_decode,
              "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd,
              "gemm_epi": kfl.fused_gemm_epi, "norm_gemm": kfc.fused_norm_gemm,
-             "decode_block": kfc.fused_decode_block}
+             "decode_block": kfc.fused_decode_block,
+             "bfp_quantize": kbq.bfp_quantize,
+             "int8_matmul": kim.int8_matmul}
 
 
 def kernel_launches() -> dict:
@@ -140,11 +155,16 @@ def _record(d: Decision) -> Decision:
 
 
 def _check_mode(kernel_mode: str):
-    if kernel_mode == "unfused":
-        raise ValueError("kernel_mode='unfused': the two-kernel pipeline "
-                         "(bfp_quantize + int8_matmul) is not ported yet")
-    if kernel_mode not in ("auto", "fused", "jnp"):
+    if kernel_mode not in ("auto", "fused", "unfused", "jnp"):
         raise ValueError(f"unknown kernel_mode {kernel_mode!r}")
+
+
+def _no_kernel(op: str, why: str, device: str):
+    """A plan with no kernel behind it: the card raises (its plain path
+    runs only on the CPU)."""
+    if device == "cuda":
+        raise NotImplementedError(f"{op}: {why}; its plain path runs only "
+                                  f"on the CPU")
 
 
 def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
@@ -171,13 +191,15 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
     if per_block and kind != "qq":
         why = (f"per-block scales have a kernel only for kind qq (both "
                f"operands quantized in it), not {kind}")
-        if device == "cuda":
-            raise NotImplementedError(f"{op}: {why}; its plain path runs "
-                                      f"only on the CPU")
+        _no_kernel(op, why, device)
         return decide(JNP, why)
     if kernel_mode == "auto" and device != "cuda":
         return decide(JNP, f"auto keeps the plain path on device={device}")
     if per_block:
+        if kernel_mode == "unfused":
+            why = "per-block scale has no unfused kernel path"
+            _no_kernel(op, why, device)
+            return decide(JNP, why)
         # a per-block partial sums only ``block`` products: no flush
         # emulation, no int32 overflow
         return decide(FUSED, "per-block kernel (qq_blk)")
@@ -186,6 +208,13 @@ def plan_contract(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
                            "(flush emulation stays on the plain path)")
     if k * 127 * 127 >= (1 << 31):
         return decide(JNP, f"K={k} overflows the int32 accumulator")
+    if kernel_mode == "unfused":
+        if kind not in ("ii", "pp") and not cfg.stochastic:
+            # the standalone quantizer implements stochastic rounding only
+            why = "unfused quantizer kernel is SR-only"
+            _no_kernel(op, why, device)
+            return decide(JNP, why)
+        return decide(UNFUSED, "kernel_mode=unfused")
     return decide(FUSED, "fused kernel")
 
 
@@ -221,6 +250,8 @@ def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
         raise ValueError(f"unknown attention op {op!r}")
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
+    if kernel_mode == "unfused":
+        return decide(JNP, "attention has no unfused pipeline")
     if cfg.bits != 8:
         return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
     if cfg.block != PER_TENSOR:
@@ -267,11 +298,21 @@ def contract_qq(a: torch.Tensor, b: torch.Tensor, cfg: QuantConfig,
     over each row's blocks of K ((*B, M, K/blk) int32), and the rounding
     bits are drawn on the logical shapes, exactly as ``core.bfp.quantize``
     would.  The reference pads K with blocks of exponent 1, which add exact
-    zeros; the kernels take K as it is."""
-    assert dec.path == FUSED
+    zeros; the kernels take K as it is.  An UNFUSED plan quantizes each
+    operand on the quantizer kernel and contracts on the int8 GEMM
+    kernel."""
+    assert dec.path in (FUSED, UNFUSED)
     sr = cfg.stochastic
     ra = rounding_bits(ka, a.shape, cfg.rng, a.device) if sr else None
     rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
+    if dec.path == UNFUSED:
+        ea = ref.max_biased_exp_ref(a)
+        eb = ref.max_biased_exp_ref(b)
+        am, bm = _quantize_rows(a, ra, ea), _quantize_rows(b, rb, eb)
+        y = _matmul_unfused(am, bm, ea, eb, cfg.p, cfg.p, nbatch)
+        if not want_residuals:
+            return y, None, None
+        return y, BFP(am, ea, cfg), BFP(bm, eb, cfg)
     ra3 = None if ra is None else _flat3(ra, nbatch)
     rb3 = None if rb is None else _flat3(rb, nbatch)
     if cfg.block == PER_TENSOR:
@@ -302,10 +343,14 @@ def contract_qi(a: torch.Tensor, bq: BFP, cfg: QuantConfig, ka: prng.Key,
     """Quantize ``a`` in the qi kernel against pre-quantized mantissas:
     a (*B, M, K) f32, bq.m (*B, N, K) int8 per tensor -> (y, aq)."""
     assert cfg.block == PER_TENSOR and bq.cfg.block == PER_TENSOR
-    assert dec.path == FUSED
+    assert dec.path in (FUSED, UNFUSED)
     sr = cfg.stochastic
     ra = rounding_bits(ka, a.shape, cfg.rng, a.device) if sr else None
     ea = ref.max_biased_exp_ref(a)
+    if dec.path == UNFUSED:
+        am = _quantize_rows(a, ra, ea)
+        y = _matmul_unfused(am, bq.m, ea, bq.e, cfg.p, bq.cfg.p, nbatch)
+        return y, BFP(am, ea, cfg)
     run = kfl.fused_qi_pt_plain if _plain_on_card else kfl.fused_qi_pt
     y, am = run(_flat3(a, nbatch), None if ra is None else _flat3(ra, nbatch),
                 _flat3(bq.m, nbatch), ea, bq.e.to(torch.int32),
@@ -322,10 +367,14 @@ def contract_iq(aq: BFP, b: torch.Tensor, cfg: QuantConfig, kb: prng.Key,
     quantized in the kernel, and its (N, M) tile output is transposed
     back."""
     assert cfg.block == PER_TENSOR and aq.cfg.block == PER_TENSOR
-    assert dec.path == FUSED
+    assert dec.path in (FUSED, UNFUSED)
     sr = cfg.stochastic
     rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
     eb = ref.max_biased_exp_ref(b)
+    if dec.path == UNFUSED:
+        bm = _quantize_rows(b, rb, eb)
+        y = _matmul_unfused(aq.m, bm, aq.e, eb, aq.cfg.p, cfg.p, nbatch)
+        return y, BFP(bm, eb, cfg)
     run = kfl.fused_qi_pt_plain if _plain_on_card else kfl.fused_qi_pt
     yt, bm = run(_flat3(b, nbatch), None if rb is None else _flat3(rb, nbatch),
                  _flat3(aq.m, nbatch), eb, aq.e.to(torch.int32), pa=cfg.p,
@@ -341,12 +390,38 @@ def contract_ii(aq: BFP, bq: BFP, dec: Decision,
     tensor -> y (*B, M, N) f32.  Transposed residuals arrive as views;
     ``_flat3`` copies them contiguous."""
     assert aq.cfg.block == PER_TENSOR and bq.cfg.block == PER_TENSOR
-    assert dec.path == FUSED
+    assert dec.path in (FUSED, UNFUSED)
+    if dec.path == UNFUSED:
+        return _matmul_unfused(aq.m, bq.m, aq.e, bq.e, aq.cfg.p, bq.cfg.p,
+                               nbatch)
     run = kfl.fused_ii_pt_plain if _plain_on_card else kfl.fused_ii_pt
     y = run(_flat3(aq.m, nbatch), _flat3(bq.m, nbatch),
             aq.e.to(torch.int32), bq.e.to(torch.int32), pa=aq.cfg.p,
             pb=bq.cfg.p)
     return y.reshape(*aq.m.shape[:nbatch], *y.shape[1:])
+
+
+def _quantize_rows(x: torch.Tensor, rand: Optional[torch.Tensor],
+                   e: torch.Tensor) -> torch.Tensor:
+    """Per-tensor quantization of ``x`` (any leading dims) on the quantizer
+    kernel: the rows of its last axis, each against the one exponent
+    ``e``.  ``plan_contract`` routes only stochastic operands here."""
+    assert rand is not None, "the unfused quantizer is SR-only"
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    e_rows = e.to(torch.int32).reshape(1).expand(x2.shape[0]).contiguous()
+    run = kbq.bfp_quantize_plain if _plain_on_card else kbq.bfp_quantize
+    return run(x2, rand.reshape(x2.shape), e_rows).reshape(x.shape)
+
+
+def _matmul_unfused(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
+                    pb: int, nbatch: int = 0) -> torch.Tensor:
+    """The int8 GEMM kernel on contraction-last mantissas am (*B, M, K),
+    bmant (*B, N, K) with per-tensor exponents -> y (*B, M, N): one scalar
+    scale for the whole batch."""
+    scale = pow2(kfl.scale_exp(ea, pa) + kfl.scale_exp(eb, pb))
+    run = kim.int8_matmul_plain if _plain_on_card else kim.int8_matmul
+    y = run(_flat3(am, nbatch), _flat3(bmant, nbatch), scale)
+    return y.reshape(*am.shape[:nbatch], *y.shape[1:])
 
 
 def attn_fwd(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, *, p, s, bt, causal,
@@ -418,6 +493,8 @@ def plan_norm_gemm(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
     _check_mode(kernel_mode)
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
+    if kernel_mode == "unfused":
+        return decide(JNP, "chain ops have no unfused pipeline")
     if cfg.bits != 8:
         return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
     if kernel_mode == "auto" and device != "cuda":
@@ -466,6 +543,8 @@ def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
     _check_mode(kernel_mode)
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
+    if kernel_mode == "unfused":
+        return decide(JNP, "chain ops have no unfused pipeline")
     bits = {cfg.bits} | ({cfg2.bits} if cfg2 is not None else set())
     if bits != {8}:
         return decide(JNP, f"bits={sorted(bits)} (kernels are int8-only)")
@@ -486,9 +565,7 @@ def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
         why = (f"gemm_epi has a kernel for kind qq with act in "
                f"{kfl.EPI_KERNEL_ACTS} and no out-quantize, not kind={kind} "
                f"act={act} out_q={out_q}")
-        if device == "cuda":
-            raise NotImplementedError(f"{op}: {why}; its plain version runs "
-                                      f"only on the CPU")
+        _no_kernel(op, why, device)
         return decide(JNP, why)
     return decide(FUSED, f"gemm_epi kernel (act={act}, bias={bias})")
 
@@ -530,6 +607,8 @@ def plan_decode_block(op: str, b: int, d: int, n_ff: int, t: int, hq: int,
     _check_mode(kernel_mode)
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
+    if kernel_mode == "unfused":
+        return decide(JNP, "chain ops have no unfused pipeline")
     if cfg.bits != 8:
         return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
     if kernel_mode == "auto" and device != "cuda":

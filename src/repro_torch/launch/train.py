@@ -53,7 +53,8 @@ POLICIES = {"int8": PAPER_INT8, "float32": FLOAT32,
 _UNPORTED_POLICIES = {
     "int8_qweights": "qweights training (ROADMAP queue 1, qweights training)",
     "int8_qfull": "qflow and qweights training (ROADMAP queue 1)",
-    "int4": "int4 policies (ROADMAP queue 2, the unfused rung)",
+    "int4": "int4 policies (ROADMAP queue 1 item 7: they need no kernel, "
+            "every contraction with bits != 8 plans the plain path)",
 }
 _UNPORTED_OPTIONS = {
     "ckpt_dir": "checkpoints (ROADMAP queue 1, robustness)",

@@ -230,7 +230,9 @@ class _SoftmaxXent(torch.autograd.Function):
         n = nll.numel()
         ctx.save_for_backward(e, s, labels)
         ctx.n = n
-        return fmath.sum_windows(nll.reshape(-1), (0,)) / n
+        # XLA's mean: the fused sum times the float32 reciprocal of n
+        rows = nll.reshape(-1, nll.shape[-1])
+        return fmath.sum_fused_2d(rows) * float(np.float32(1.0 / n))
 
     @staticmethod
     def backward(ctx, g):

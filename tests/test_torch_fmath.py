@@ -1,6 +1,7 @@
 """core.fmath against the reference's float32 ops as its XLA CPU build
 runs them under ``jax.jit``: the contracted multiply-add, exp, the
-logistic, and sums in the reference's order ``==`` on random inputs; log
+logistic, sums in the reference's order and the loss mean's fused sum
+``==`` on random inputs; log
 within one ulp (its Cephes evaluation order is reproduced up to a rare
 last-bit difference, about 3 in 10^4 inputs)."""
 
@@ -48,6 +49,35 @@ def test_sum_order_equal_jax(shape, dims):
     want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=dims))(x))
     np.testing.assert_array_equal(
         fmath.sum_windows(torch.from_numpy(x), dims).numpy(), want)
+
+
+# (B, S, V) of softmax_xent's mean where the port follows the reference's
+# fused loop: index order (2x12, 2x4, 1x16, and past 32 positions with no
+# dim over 32 at 2x32, 3x20 and 2x16 where LLVM keeps the loop scalar),
+# windows over both dims (2x64, 4x128, 1x40, 40x4, 3x33).  The lanes LLVM
+# vectorizes the loop into at the smoke vocabularies are not followed
+# (PERF.md §6).
+MEAN_SHAPES = [(2, 12, 512), (2, 4, 512), (1, 16, 512), (2, 32, 1024),
+               (3, 20, 1024), (2, 16, 1024), (2, 64, 64), (4, 128, 512),
+               (1, 40, 509), (40, 4, 256), (3, 33, 300)]
+
+
+@pytest.mark.parametrize("shape", MEAN_SHAPES)
+def test_softmax_xent_mean_order_equal_jax(shape):
+    """The loss mean in the order of the reference's fused loop
+    (``fmath.sum_fused_2d``), ``==`` ``jax.jit`` of its softmax_xent where
+    that loop is not vectorized."""
+    from repro.models.common import softmax_xent as jax_xent
+    from repro_torch.models.common import softmax_xent
+
+    b, s, v = shape
+    rng = np.random.RandomState(b * s + v)
+    for _ in range(4):
+        logits = (rng.randn(b, s, v) * 3).astype(np.float32)
+        labels = rng.randint(0, v, (b, s)).astype(np.int32)
+        want = np.asarray(jax.jit(jax_xent)(logits, labels))
+        got = softmax_xent(torch.from_numpy(logits), torch.from_numpy(labels))
+        assert got.numpy() == want
 
 
 @pytest.mark.parametrize("start,length", [(0, 128), (37, 5), (1500, 1)])

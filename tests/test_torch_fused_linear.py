@@ -18,8 +18,10 @@ from repro.kernels import ref as jref
 from repro_torch.core import prng
 from repro_torch.core.bfp import BFP, QuantConfig
 from repro_torch.core.bfp import quantize as tquantize
+from repro_torch.kernels import bfp_quant as kbq
 from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_linear as kfl
+from repro_torch.kernels import int8_matmul as kim
 from repro_torch.kernels import ref
 
 
@@ -164,10 +166,15 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     assert torch.equal(kfl.fused_ii_pt(am_i8 := torch.ones(1, 5, 8, dtype=torch.int8),
                                        am_i8, e, e),
                        kfl.fused_ii_pt_plain(am_i8, am_i8, e, e))
+    assert torch.equal(kbq.bfp_quantize(a[0], r[0], e.expand(5)),
+                       kbq.bfp_quantize_plain(a[0], r[0], e.expand(5)))
+    assert torch.equal(kim.int8_matmul(am_i8, am_i8, torch.tensor(0.5)),
+                       kim.int8_matmul_plain(am_i8, am_i8, torch.tensor(0.5)))
     assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0, "gemm_epi": 0,
-                                    "norm_gemm": 0, "decode_block": 0}
+                                    "norm_gemm": 0, "decode_block": 0,
+                                    "bfp_quantize": 0, "int8_matmul": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [
@@ -196,6 +203,11 @@ def test_plan_contract_routes_dw_to_ii(mode, device, k, want):
 
 
 def test_plan_contract_rejects_unported_unfused_mode():
-    with pytest.raises(ValueError, match="not ported"):
-        kd.plan_contract("qmatmul_fwd", 4, 8, 8, QuantConfig(),
+    """``"unfused"``, refused until the unfused rung was ported, now plans
+    it; a mode that does not exist is still refused."""
+    d = kd.plan_contract("qmatmul_fwd", 4, 8, 8, QuantConfig(),
                          kernel_mode="unfused")
+    assert d.path == kd.UNFUSED
+    with pytest.raises(ValueError, match="unknown kernel_mode"):
+        kd.plan_contract("qmatmul_fwd", 4, 8, 8, QuantConfig(),
+                         kernel_mode="fastest")

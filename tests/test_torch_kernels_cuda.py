@@ -12,10 +12,13 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import qops
+from repro_torch.kernels import bfp_quant as kbq
 from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_attention as kfa
 from repro_torch.kernels import fused_chain as kfc
 from repro_torch.kernels import fused_linear as kfl
+from repro_torch.kernels import int8_matmul as kim
+from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
 
@@ -53,7 +56,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0, "gemm_epi": 0,
-                                    "norm_gemm": 0, "decode_block": 0}
+                                    "norm_gemm": 0, "decode_block": 0,
+                                    "bfp_quantize": 0, "int8_matmul": 0}
 
 
 @pytest.mark.cuda
@@ -81,9 +85,12 @@ def test_ii_kernel_equal_plain(cuda, nb, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,gs,t,d,s,pos,window", [
     (3, 7, 19, 16, 1, 18, 0), (2, 14, 40, 64, 2, 30, 0),
-    (4, 7, 33, 16, 1, 20, 8), (8, 7, 160, 64, 1, 159, 0)])
+    (4, 7, 33, 16, 1, 20, 8), (8, 7, 160, 64, 1, 159, 0),
+    (2, 7, 1100, 64, 1, 1099, 0)])
 def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
                                              window):
+    """y ==: the kernel's softmax spells the plain version's Cephes exp and
+    windowed row sum (T = 1100: more than 32 windows, summed again)."""
     g = torch.Generator(device=cuda).manual_seed(1)
 
     def i8(*shape):
@@ -100,8 +107,8 @@ def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
     kw = dict(p=7, s=s, causal=True, window=window, stochastic=True)
     got = kfa.attn_decode(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
     want = kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
-    err = (got - want).abs().max().item()
-    assert err <= kfa.DECODE_Y_RTOL * want.abs().max().item()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
 
 
 # (B, M, K, N, blk): the qwen2-0.5b per-block training shapes (the gate's
@@ -385,3 +392,105 @@ def test_decode_block_kernel_equal_plain(cuda, shape):
                           got, want):
         assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
     assert kd.kernel_launches()["decode_block"] == 1
+
+
+def _edge_values(g, m, n, dev):
+    """f32 (m, n) with zeros, sub-normals, values that round past 127 and a
+    row whose exponent lies far above most of its elements (s >= 32)."""
+    x = torch.randn((m, n), generator=g, device=dev)
+    x[0, : n // 2] = 0.0
+    x[1 % m] *= 2.0 ** -140                      # sub-normal
+    x[2 % m, 0] = 1.0 - 2.0 ** -24               # 127.99.. -> clamps at 127
+    x[3 % m, 0] = 2.0 ** 40                      # the rest shift past 32
+    return x
+
+
+# (M, N): qwen2's tied LM-head weight cut to 8192 of its 151936 rows
+# (7 MB), a 512 x 4864 activation, and odd shapes (N not a multiple of 4,
+# a tail of 1-3).
+QUANT_SHAPES = [(8192, 896), (512, 4864), (37, 67), (5, 3), (130, 97)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_bfp_quantize_kernel_equal_plain(cuda, shape):
+    m, n = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = _edge_values(g, m, n, cuda)
+    rand = prng.bits(prng.key(12), (m, n), cuda)
+    per_tensor = ref.max_biased_exp_ref(x).reshape(1).expand(m).contiguous()
+    per_row = ref.max_biased_exp_ref(x, axis=1).to(torch.int32)
+    kd.reset_kernel_launches()
+    for e_rows in (per_tensor, per_row):
+        got = kbq.bfp_quantize(x, rand, e_rows)
+        want = kbq.bfp_quantize_plain(x, rand, e_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(want, ref.bfp_quantize_ref(x, rand, e_rows[:, None]))
+    assert kd.kernel_launches()["bfp_quantize"] == 2
+    if m * n > 36:       # an unaligned (offset) operand: the scalar path
+        xs = x.reshape(-1)[1:36].reshape(5, 7)
+        rs = rand.reshape(-1)[1:36].reshape(5, 7)
+        e5 = per_tensor[:5].contiguous()
+        assert torch.equal(kbq.bfp_quantize(xs, rs, e5),
+                           kbq.bfp_quantize_plain(xs, rs, e5))
+
+
+# (B, M, K, N): the LM-head forward and its dW (scaled down along the
+# vocabulary), a layer's gate forward, and odd shapes (M, N, K off every
+# tile, K not a multiple of 16, a batch of 3).
+MATMUL_SHAPES = [(1, 512, 896, 8192), (1, 896, 512, 8192),
+                 (1, 512, 896, 4864), (3, 37, 67, 29), (1, 5, 33, 130),
+                 (2, 130, 96, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_int8_matmul_kernel_equal_plain(cuda, shape):
+    nb, m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(13)
+    am = torch.randint(-127, 128, (nb, m, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    bm = torch.randint(-127, 128, (nb, n, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    kd.reset_kernel_launches()
+    for e in (-20, -150):                      # a scale that flushes to 0
+        scale = kfl.pow2_f32(torch.tensor(e, device=cuda))
+        got = kim.int8_matmul(am, bm, scale)
+        want = kim.int8_matmul_plain(am, bm, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    assert kd.kernel_launches()["int8_matmul"] == 2
+
+
+@pytest.mark.cuda
+def test_unfused_ops_on_card_equal_cpu(cuda):
+    """``ops.quantize_op`` (per tensor and per row block) and
+    ``ops.int8_matmul_op`` give the card's kernels the CPU's answers."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn((37, 67), generator=g)
+    key = prng.key(15)
+    for per_tensor in (True, False):
+        mc, ec = ops.quantize_op(x, key, per_tensor=per_tensor)
+        mg, eg = ops.quantize_op(x.to(cuda), key, per_tensor=per_tensor)
+        assert torch.equal(mg.cpu(), mc) and torch.equal(eg.cpu(), ec)
+    b = torch.randint(-127, 128, (67, 29), generator=g, dtype=torch.int8)
+    y = ops.int8_matmul_op(mc.to(cuda), b.to(cuda), 121, 119)
+    assert torch.equal(y.cpu(), ops.int8_matmul_op(mc, b, 121, 119))
+
+
+@pytest.mark.cuda
+def test_unfused_only_plans_raise_on_card(cuda):
+    """Nearest rounding of a fresh operand and per-block scales have no
+    unfused kernel: the card raises instead of running a plain path."""
+    from repro_torch.core.bfp import QuantConfig
+    with pytest.raises(NotImplementedError, match="SR-only"):
+        kd.plan_contract("x", 8, 64, 8, QuantConfig(stochastic=False),
+                         kernel_mode="unfused", device="cuda")
+    with pytest.raises(NotImplementedError, match="per-block"):
+        kd.plan_contract("x", 8, 64, 8, QuantConfig(block=32),
+                         kernel_mode="unfused", device="cuda")
+    with pytest.raises(ValueError):
+        kim.int8_matmul(torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda),
+                        torch.zeros((1, 3, 7), dtype=torch.int8, device=cuda),
+                        torch.tensor(1.0, device=cuda))

@@ -4,14 +4,14 @@
   forward, A.2 integer backward, int16 SGD) on the port and on live JAX,
   from the same initial state and with the same keys, end with every
   int16 master, momentum leaf and the step counter ``==``.  The losses are
-  held to 2 ulps: the reference's XLA build sums the final mean of
-  ``softmax_xent`` inside one fused loop with the label gather, in an
-  order the port does not reproduce; the loss feeds nothing back (its
+  held to ``LOSS_ULPS``: the reference's XLA build sums the final mean of
+  ``softmax_xent`` inside one fused loop that LLVM vectorizes, in an order
+  the port does not follow (PERF.md §6); the loss feeds nothing back (its
   gradient is 1/N), so no state leaf depends on it.
 * ``tests/goldens/train_decode_pr5.npz`` was drawn with an older XLA: the
   JAX package itself, under the jax installed here, reproduces its first
   loss but not steps 2 and 3 (ROADMAP §3).  The port is held to that first
-  loss (2 ulps, as above) and to live JAX for the rest.
+  loss (``LOSS_ULPS``, as above) and to live JAX for the rest.
 * ``kernel_mode="fused"`` (the kernels' plain versions on the CPU) equals
   ``auto`` bit for bit and routes every contraction to the kernels: qq
   forward, qi dX, ii dW.
@@ -50,6 +50,10 @@ from repro_torch.launch.steps import TrainHyper, make_train_step
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "train_decode_pr5.npz")
 ARCH, STEPS, BATCH, SEQ = "qwen2_0_5b", 3, 2, 16
+# The loss mean's order is LLVM's vectorizer choice for the fused loop XLA
+# builds around it (8 reassociated lanes at 2 x 16 positions of the smoke
+# vocabulary; the dump excerpt is in PERF.md §6), which the port does not
+# follow; measured: 1 ulp.
 LOSS_ULPS = 2
 
 

@@ -12,7 +12,7 @@ trainer's own initial state (``launch.train._init_state``) with the
 trainer's keys and hyperparameters; all 57 int16 master and momentum
 leaves must be ``==`` after the two steps, and the losses within
 ``LOSS_ULPS`` (the reference's XLA build fuses the mean of
-``softmax_xent`` into one reassociated loop).  The plain path
+``softmax_xent`` into one vectorized loop; PERF.md §6).  The plain path
 (``kernel_mode="auto"``, windowed sums) is
 ``test_torch_train_block_scan.py``: each JAX train step takes about 50 s
 to compile, and the two files run in parallel.
@@ -38,6 +38,10 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 
 ARCH, STEPS, BATCH, SEQ, SEED, BLOCK = "qwen2_0_5b", 2, 2, 16, 0, 8
+# The loss mean's order is LLVM's vectorizer choice for the fused loop XLA
+# builds around it (8 reassociated lanes at 2 x 16 positions of the smoke
+# vocabulary; the dump excerpt is in PERF.md §6), which the port does not
+# follow; measured: 1 ulp.
 LOSS_ULPS = 2
 
 

@@ -8,7 +8,7 @@ initial state (``launch.train._init_state``) and take the trainer's keys
 and hyperparameters; all 57 int16 master and momentum leaves must be
 ``==`` after the three steps, and the losses within ``LOSS_ULPS`` (the
 reference's XLA build fuses the mean of ``softmax_xent`` into one
-reassociated loop).  The scan path (``kernel_mode="auto"``, through
+vectorized loop; PERF.md §6).  The scan path (``kernel_mode="auto"``, through
 ``train(qflow=True)``) is ``test_torch_train_qflow_scan.py``: each JAX
 train step takes about 40 s to compile, and the two files run in
 parallel.
@@ -34,6 +34,10 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 
 ARCH, STEPS, BATCH, SEQ, SEED = "qwen2_0_5b", 3, 2, 16, 0
+# The loss mean's order is LLVM's vectorizer choice for the fused loop XLA
+# builds around it (8 reassociated lanes at 2 x 16 positions of the smoke
+# vocabulary; the dump excerpt is in PERF.md §6), which the port does not
+# follow; measured: 1 ulp.
 LOSS_ULPS = 2
 
 
