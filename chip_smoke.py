@@ -60,11 +60,19 @@ Phases, any of which failing exits non-zero:
    to 0 before and read after (``EXPECTED_PER_STEP``, no fused kernel, no
    plain-path decision but the LM head's dX); the plain replay ``==``; and
    the loss and every leaf ``==`` phase 4's step from the same state, key
-   and batch on the fused kernels.
+   and batch on the fused kernels;
+10. train full-width starcoder2-7b (LayerNorm, QKV bias, 36 query over 4
+   KV heads of 128, GELU) cut to ``GELU_TRAIN_LAYERS`` layers under
+   ``PAPER_INT8`` with ``fused_proj``: gate|up and its GELU-GLU on
+   ``gemm_epi`` once a layer, the merged QKV projection on ``qq`` (no
+   ``norm_gemm``), the LM head's dX on ``qi`` (``GELU_PER_STEP``
+   launches, each the count of the step's FUSED plans), no chain planned
+   on a plain path, the plain replay ``==``.
 
 Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
 xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows) ``==``
-at the shapes of phases 7 and 8 and at odd ones, and ``bfp_quantize``
+at the shapes of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd
+ones (relu, gelu, an odd GLU half), and ``bfp_quantize``
 (mantissas) and ``int8_matmul`` (y) ``==`` at the shapes of phase 9 and at
 odd ones (edge values, a batch, unaligned operands).
 
@@ -127,6 +135,18 @@ CHAIN_PER_STEP = {"norm_gemm": CHAIN_TRAIN_LAYERS,
                   "qq": 4 * CHAIN_TRAIN_LAYERS + 1,
                   "qi": 6 * CHAIN_TRAIN_LAYERS,
                   "ii": 6 * CHAIN_TRAIN_LAYERS + 1}
+# Phase 10: starcoder2-7b under fused_proj, full width, the depth cut from
+# 32 to 4 layers (PERF.md §4: its gate|up leaves, 84.9M elements a layer,
+# stack to about the largest leaf minicpm-2b's 24 layers hold).  Per layer
+# gemm_epi with the GELU-GLU once; the QKV bias keeps the merged QKV
+# projection a qmatmul (no norm_gemm), so qq for QKV, QK^T, PV, wo and
+# w_down; qi and ii as in phase 8; the tied LM head one qq, one ii and one
+# qi (its dX contracts the vocabulary, 49152 <= accum_chunk: the kernel).
+GELU_ARCH, GELU_TRAIN_LAYERS = "starcoder2_7b", 4
+GELU_PER_STEP = {"norm_gemm": 0, "gemm_epi": GELU_TRAIN_LAYERS,
+                 "qq": 5 * GELU_TRAIN_LAYERS + 1,
+                 "qi": 6 * GELU_TRAIN_LAYERS + 1,
+                 "ii": 6 * GELU_TRAIN_LAYERS + 1}
 
 
 def _fail(msg: str) -> int:
@@ -376,8 +396,9 @@ def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
 
 def check_chain(torch, dev, g, bits):
     """gemm_epi, norm_gemm and decode_block against their plain versions
-    at the minicpm-2b shapes of phases 7 and 8 and at odd ones, ``==``;
-    timed at the minicpm-2b shapes."""
+    at the minicpm-2b shapes of phases 7 and 8, gemm_epi also at the
+    starcoder2-7b shape of phase 10, and at odd ones, ``==``; timed at the
+    minicpm-2b and starcoder2-7b shapes."""
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import ref
@@ -387,15 +408,22 @@ def check_chain(torch, dev, g, bits):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     out = []
 
-    # gemm_epi: the gate|up GEMM + SiLU-GLU of training (512 x 2304 ->
-    # 2 x 5760), then odd shapes with a bias and relu, both roundings
-    for label, (m, k, n, act, with_bias) in (
-            ("train", (tokens, 2304, 2 * 5760, "silu_glu", False)),
-            ("odd", (37, 67, 58, "silu_glu", True)),
-            ("odd_relu", (130, 96, 70, "relu", True))):
+    # gemm_epi: the gate|up GEMM + GLU of training, minicpm-2b's SiLU
+    # (512 x 2304 -> 2 x 5760) and starcoder2-7b's GELU (512 x 4608 -> 2 x
+    # 18432), timed under the kernel's name; then odd shapes with a bias
+    # (an odd GLU half, relu, gelu), both roundings, the gelu one timed
+    # for the record only
+    for label, (m, k, n, act, with_bias), row in (
+            ("train", (tokens, 2304, 2 * 5760, "silu_glu", False), "gemm_epi"),
+            ("train_gelu_glu", (tokens, 4608, 2 * 18432, "gelu_glu", False),
+             "gemm_epi"),
+            ("odd", (37, 67, 58, "silu_glu", True), None),
+            ("odd_gelu_glu", (37, 67, 58, "gelu_glu", True), None),
+            ("odd_relu", (130, 96, 70, "relu", True), None),
+            ("odd_gelu", (130, 96, 70, "gelu", True), "gemm_epi_gelu_odd")):
         a = torch.randn((m, k), generator=g, device=dev)
         b = torch.randn((n, k), generator=g, device=dev)
-        a[1] *= 300.0                    # a sub-normal logistic
+        a[1] *= 300.0            # a sub-normal logistic, a saturated tanh
         bias = (torch.randn((1, n), generator=g, device=dev) if with_bias
                 else None)
         ra, rb = bits(14, a.shape), bits(15, b.shape)
@@ -412,21 +440,27 @@ def check_chain(torch, dev, g, bits):
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"gemm_epi {label}: kernel != plain "
                                      f"(max |dy| {err})")
-        if label != "train":
+        if row is None:
             continue
         a32, b32 = kfl.as_u32(ra), kfl.as_u32(rb)
         kw = dict(act=act)
-        # f32 values and bits of both operands in; y, ylin, both mantissas out
-        nbytes = 8 * m * k + 8 * n * k + 4 * m * n // 2 + 4 * m * n + m * k + n * k
+        n_out = n // 2 if act.endswith("_glu") else n
+        # f32 values and bits of both operands and the bias in; y, ylin,
+        # both mantissas out
+        nbytes = (8 * m * k + 8 * n * k + 4 * n * with_bias + 4 * m * n_out
+                  + 4 * m * n + m * k + n * k)
         out.append(_record_kernel(
-            torch, "gemm_epi", src_lin, "src/repro/kernels/fused_linear.py:556",
+            torch, row, src_lin, "src/repro/kernels/fused_linear.py:556",
             [m, k, n], err,
-            lambda: kfl.fused_gemm_epi(a, a32, b, b32, None, None, ea, eb, **kw),
-            lambda: kfl.fused_gemm_epi_plain(a, ra, b, rb, None, None, ea, eb, **kw),
+            lambda: kfl.fused_gemm_epi(a, a32, b, b32, bias, None, ea, eb, **kw),
+            lambda: kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, None, ea, eb,
+                                             **kw),
             nbytes, 2.0 * m * n * k, _int_mm_ms(torch, want[1][None], want[2][None]),
-            "no single PyTorch call quantizes, contracts and applies the "
-            "SiLU-GLU; library_ms times torch._int_mm of the same mantissas"))
-        del a, b, ra, rb, got, want
+            f"no single PyTorch call quantizes, contracts and applies the "
+            f"{act} epilogue; library_ms times torch._int_mm of the same "
+            "mantissas"))
+        out[-1]["act"] = act
+        del a, b, ra, rb, a32, b32, got, want
 
     # norm_gemm: the QKV chain of training (512 x 2304 -> 6912), then odd
     # shapes: LayerNorm with a shift, rows off every strip, K off the
@@ -1167,32 +1201,40 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
     return launches, losses, state
 
 
-def train_chain_and_compare(torch, dev, rec):
-    """Phase 8: full-width minicpm-2b, cut to ``CHAIN_TRAIN_LAYERS``
-    layers, one step under ``PAPER_INT8`` with ``fused_proj`` (as the JAX
-    package's own chain tests reach it; the trainer has no flag for it):
-    ``CHAIN_PER_STEP`` launches, no chain planned on a plain path."""
+# Decision kind -> the kernel counter a FUSED plan of that kind launches.
+KIND_KERNEL = {"qq": "qq", "qi": "qi", "iq": "qi", "ii": "ii", "pp": "ii",
+               "qq_epi": "gemm_epi", "norm_gemm": "norm_gemm"}
+
+
+def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want):
+    """Phases 8 and 10: full-width ``arch`` cut to ``n_layers`` layers, one
+    step under ``PAPER_INT8`` with ``fused_proj`` (as the JAX package's own
+    chain tests reach it; the trainer has no flag for it): ``want``
+    launches per step, each also the count of the step's FUSED plans of
+    that kernel; no chain planned on a plain path."""
+    import collections
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.policy import PAPER_INT8
     from repro_torch.kernels import dispatch
 
-    label = "train_fused_proj"
     chains = {"qnorm_gemm", "qmatmul_epi"}
 
     def check(log, per_step):
-        for name, want in CHAIN_PER_STEP.items():
-            if per_step[name] != want:
-                raise AssertionError(f"{label}: {per_step[name]} {name} "
-                                     f"launches per step, expected {want}")
+        planned = collections.Counter(
+            KIND_KERNEL[d.kind] for d in log if d.path == dispatch.FUSED)
+        for name, n in want.items():
+            if per_step[name] != n or planned[name] != n:
+                raise AssertionError(
+                    f"{label}: {per_step[name]} {name} launches and "
+                    f"{planned[name]} FUSED plans per step, expected {n}")
         jnp = {d.op for d in log if d.path == dispatch.JNP}
         if jnp & chains:
             raise AssertionError(f"{label}: a chain planned on a plain "
                                  f"path: {sorted(jnp & chains)}")
 
-    cfg = dataclasses.replace(get_config(CHAIN_ARCH),
-                              n_layers=CHAIN_TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     policy = dataclasses.replace(PAPER_INT8, fused_proj=True)
     return train_step_and_compare(torch, dev, rec, label, cfg, policy,
                                   check)[0]
@@ -1277,9 +1319,13 @@ def main() -> int:
                   need=("qq", "qi", "decode_block"),
                   exact={"decode_block": 40 * (GEN - 1), "attn_decode": 0})),
               ("train_fused_proj", lambda: train_chain_and_compare(
-                  torch, dev, rec)),
+                  torch, dev, rec, "train_fused_proj", CHAIN_ARCH,
+                  CHAIN_TRAIN_LAYERS, CHAIN_PER_STEP)),
               ("train_unfused", lambda: train_unfused_and_compare(
-                  torch, dev, rec))]
+                  torch, dev, rec)),
+              ("train_fused_proj_gelu", lambda: train_chain_and_compare(
+                  torch, dev, rec, "train_fused_proj_gelu", GELU_ARCH,
+                  GELU_TRAIN_LAYERS, GELU_PER_STEP))]
     results, rec["phase_s"] = {}, {}
     for name, run in phases:
         t1 = time.perf_counter()
@@ -1295,7 +1341,8 @@ def main() -> int:
         name = kern["name"]
         line.append({k: kern[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "act")
+            if k in kern}
             | {"launches": sum(p[name] for p in by_path.values()),
                "launches_by_path": {k: p[name] for k, p in by_path.items()}})
     rec["kernels"] = kernels

@@ -9,7 +9,7 @@ from ..models.common import ArchConfig
 __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 
 # Dense-family architectures ported so far (repro.configs.base lists all).
-ARCH_IDS = ["qwen2_0_5b", "minicpm_2b"]
+ARCH_IDS = ["qwen2_0_5b", "minicpm_2b", "starcoder2_7b"]
 
 
 def _module(arch_id: str):

@@ -7,6 +7,9 @@ torch's kernels in three ways that move results by an ulp:
   (one rounding instead of two);
 * ``exp`` and ``log`` are Cephes polynomials evaluated with fused
   multiply-adds, and the logistic is ``1 / (1 + exp(-x))`` on that ``exp``;
+  ``tanh`` is Eigen's rational approximation, again with fused
+  multiply-adds, and the tanh form of GELU and its pullback follow the
+  fused loops XLA builds for ``jax.nn.gelu`` and its VJP;
 * a sum whose reduced extent exceeds 32 is taken in windows of 32 (the
   padding split evenly before and after), and the window sums are summed
   again the same way; a short sum runs in index order, and a short sum of
@@ -31,8 +34,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["fma", "exp", "log", "logistic", "sum_windows", "sum_fused_2d",
-           "sum_products_cols"]
+__all__ = ["fma", "exp", "log", "logistic", "tanh", "gelu", "gelu_pullback",
+           "sum_windows", "sum_fused_2d", "sum_products_cols"]
 
 _WINDOW = 32
 
@@ -120,6 +123,77 @@ def logistic(x: torch.Tensor) -> torch.Tensor:
     (x below about -87.3) is 0: XLA's CPU build flushes it."""
     s = 1.0 / (1.0 + _exp(-x))
     return torch.where(s < _TINY, torch.zeros_like(s), s)
+
+
+def _f_bits(h: str) -> float:
+    """A float32 constant from the hex of its float64 value (as LLVM IR
+    prints it)."""
+    return struct.unpack(">d", bytes.fromhex(h))[0]
+
+
+# Eigen's float tanh as XLA's CPU build lowers it (``xla.tanh.f32``):
+# x * P(x^2) / Q(x^2) on x clamped to +-_TANH_CLAMP, x itself below
+# _TANH_TINY, +-1 from 20 on.
+_TANH_TINY = _f_bits("3F3A36E2E0000000")        # about 4e-4
+_TANH_CLAMP = _f_bits("401FFEC880000000")       # 7.99881...
+_TANH_P = [_f_bits(h) for h in (
+    "BCB3E4B800000000", "3D4C266FC0000000", "BDD7A6FFE0000000",
+    "3E6B800820000000", "3EEF286940000000", "3F44E1BDA0000000",
+    "3F740B3B80000000")]
+_TANH_Q = [_f_bits(h) for h in (
+    "3EB41A7B00000000", "3F1F12BAC0000000", "3F629540A0000000",
+    "3F740B3BA0000000")]
+_GELU_A = _f(0.044715)
+_GELU_S = _f(math.sqrt(2.0 / math.pi))
+_GELU_AS = _f(_GELU_S * _GELU_A)   # the product XLA folds into one constant
+
+
+def _horner(x2: torch.Tensor, coeffs) -> torch.Tensor:
+    acc = _fma(x2, coeffs[0], coeffs[1])
+    for c in coeffs[2:]:
+        acc = _fma(x2, acc, c)
+    return acc
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """float32 tanh (not differentiable): Eigen's rational form, each
+    multiply-add of the two Horner chains fused, ``x * x`` and ``x * P``
+    plain multiplies, an IEEE division."""
+    x = x.to(torch.float32)
+    c = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = c * c
+    r = (c * _horner(x2, _TANH_P)) / _horner(x2, _TANH_Q)
+    a = x.abs()
+    r = torch.where(a < _TANH_TINY, x, r)
+    return torch.where(a >= 20.0, torch.copysign(torch.ones_like(x), x), r)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return tanh(_GELU_S * _fma(_GELU_A, (x * x) * x, x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jax.nn.gelu`` (the tanh form; not differentiable):
+    x * (0.5 * (1 + tanh(sqrt(2/pi) * fma(0.044715, x^3, x)))); a
+    sub-normal result is a zero of its sign, as XLA's CPU build flushes
+    it."""
+    x = x.to(torch.float32)
+    y = x * (0.5 * (1.0 + _gelu_tanh(x)))
+    return torch.where(y.abs() < _TINY, y * 0.0, y)
+
+
+def gelu_pullback(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``p * gelu'(x)`` as XLA's CPU build computes the VJP of ``gelu(x) *
+    u`` (``p = ct * u``) or of ``gelu(x)`` (``p = ct``): one fused loop
+    that recomputes t = tanh(...), rounds the chain rule's products in the
+    jaxpr's order with sqrt(2/pi) * 0.044715 folded into one constant, and
+    fuses three multiply-adds (not differentiable)."""
+    x, p = x.to(torch.float32), p.to(torch.float32)
+    t = _gelu_tanh(x)
+    m = 0.5 * (1.0 + t)
+    d = ((x * p) * 0.5) * (1.0 - t)
+    v = _fma(d, t, d)
+    return _fma(v * _GELU_AS, (x * x) * 3.0, _fma(p, m, v * _GELU_S))
 
 
 def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:

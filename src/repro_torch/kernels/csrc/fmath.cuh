@@ -1,7 +1,8 @@
 // Float32 functions rounded as the reference's CPU build (XLA) rounds them,
 // the device side of core/fmath.py: the Cephes exp evaluated with fused
-// multiply-adds, the logistic 1 / (1 + exp(-x)) on it, and the sum of a
-// row in windows of 32 (warp_sum_windows).  The kernels are built without
+// multiply-adds, the logistic 1 / (1 + exp(-x)) on it, Eigen's rational
+// tanh and the tanh-form GELU on it, and the sum of a row in windows of 32
+// (warp_sum_windows).  The kernels are built without
 // contraction, so every other float operation is the single IEEE operation
 // it spells.
 #pragma once
@@ -77,6 +78,45 @@ __device__ __forceinline__ float warp_sum_windows(const float* v, int n,
   }
   for (int i = 0; i < m; ++i) tot = __fadd_rn(tot, scratch[i]);
   return tot;
+}
+
+// core/fmath.py tanh: Eigen's rational form as XLA's CPU build lowers it,
+// x * P(x^2) / Q(x^2) on x clamped to +-7.9988 (NaN passes), each Horner
+// step an fmaf; x itself below 4e-4, +-1 from 20 on.
+__device__ __forceinline__ float xla_tanhf(float x) {
+  constexpr int kP[7] = {(int)0xa59f25c0, 0x2a61337e, (int)0xaebd37ff,
+                         0x335c0041, 0x3779434a, 0x3a270ded, 0x3ba059dc};
+  constexpr int kQ[4] = {0x35a0d3d8, 0x38f895d6, 0x3b14aa05, 0x3ba059dd};
+  const float clamp = __int_as_float(0x40fff644);
+  const float a = fabsf(x);
+  if (a >= 20.0f) return copysignf(1.0f, x);
+  if (a < __int_as_float(0x39d1b717)) return x;
+  float c = x < -clamp ? -clamp : x;
+  c = c > clamp ? clamp : c;
+  const float x2 = __fmul_rn(c, c);
+  float p = __fmaf_rn(x2, __int_as_float(kP[0]), __int_as_float(kP[1]));
+#pragma unroll
+  for (int i = 2; i < 7; ++i) p = __fmaf_rn(x2, p, __int_as_float(kP[i]));
+  float q = __fmaf_rn(x2, __int_as_float(kQ[0]), __int_as_float(kQ[1]));
+#pragma unroll
+  for (int i = 2; i < 4; ++i) q = __fmaf_rn(x2, q, __int_as_float(kQ[i]));
+  return __fdiv_rn(__fmul_rn(c, p), q);
+}
+
+// core/fmath.py gelu (jax.nn.gelu's tanh form):
+// x * (0.5 * (1 + tanh(sqrt(2/pi) * fma(0.044715, x^3, x)))), a sub-normal
+// result flushed to a zero of its sign as XLA's CPU build flushes it.
+__device__ __forceinline__ float xla_geluf(float x) {
+  const float x3 = __fmul_rn(__fmul_rn(x, x), x);
+  const float t =
+      xla_tanhf(__fmul_rn(0.7978845834732056f, __fmaf_rn(0.044715f, x3, x)));
+  const float y = __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.0f, t)));
+  return fabsf(y) < 1.17549435e-38f ? __fmul_rn(y, 0.0f) : y;
+}
+
+// gelu(g) * u, the reference's GELU-GLU.
+__device__ __forceinline__ float gelu_glu(float g, float u) {
+  return __fmul_rn(xla_geluf(g), u);
 }
 
 // silu(g) * u as the reference's SiLU-GLU computes it: (g * s) * u.

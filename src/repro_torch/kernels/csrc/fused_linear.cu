@@ -383,26 +383,35 @@ cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
 //
 // The qgemm_kernel tiling (64 rows x 64 columns, K in 32-wide slices
 // quantized in registers, __dp4a), and in registers on each output tile:
-// ylin = float(acc) * 2^(sa + sb), + bias, then the activation: relu, or
-// the SiLU-GLU that gates output column j (b row j) against b row
-// j + N/2.  For the GLU a block's 64 tile rows of b are 32 gate rows and
-// the 32 matching up rows, so thread (tx, ty)'s accumulators j = 0, 1 (gate
-// columns tx, tx + 16) pair with j = 2, 3 (the same up columns): both
-// halves of one output are in one thread.  It writes y, the pre-activation
-// ylin (the backward's residual), and the a and b mantissas (the blocks of
-// the first column tile write a's, those of the first row tile b's).  Each
+// ylin = float(acc) * 2^(sa + sb), + bias, then the activation: relu, the
+// tanh-form GELU, or the SiLU- or GELU-GLU that gates output column j (b
+// row j) against b row j + N/2.  For a GLU a block's 64 tile rows of b are
+// 32 gate rows and the 32 matching up rows, so thread (tx, ty)'s
+// accumulators j = 0, 1 (gate columns tx, tx + 16) pair with j = 2, 3 (the
+// same up columns): both halves of one output are in one thread.  It
+// writes y, the pre-activation ylin (the backward's residual), and the a
+// and b mantissas (the blocks of the first column tile write a's, those of
+// the first row tile b's).  Each
 // float step is one IEEE operation in the plain version's order, SiLU's
-// logistic the Cephes exp of fmath.cuh, so y and ylin equal the plain
-// version's bit for bit.
+// logistic the Cephes exp of fmath.cuh and GELU's tanh its xla_tanhf, so y
+// and ylin equal the plain version's bit for bit.
 //
 // Bounds on the H100: the qq bytes (f32 + bits of a and b in, both
 // mantissas out) plus 4*M*N of ylin and 4*M*N_out of y; at the gate|up
 // GEMM of minicpm-2b's training (512 x 2304 -> 11520) the 212 MB of b and
-// its bits dominate, against 2*M*N*K int8 operations far below the
-// bytes.  Each of the M/64 row tiles quantizes its b tiles again (from L2);
-// quantizing b once, wgmma and TMA are later work.
+// its bits dominate (starcoder2-7b's, 512 x 4608 -> 36864: 1.36 of 1.66
+// GB), against 2*M*N*K int8 operations far below the bytes.  Each of the
+// M/64 row tiles quantizes its b tiles again (from L2); quantizing b once,
+// wgmma and TMA are later work.
 
-enum EpiAct { EPI_NONE = 0, EPI_RELU = 1, EPI_SILU_GLU = 2 };
+// The act codes are the indices of kernels/fused_linear.py EPI_ACTS.
+enum EpiAct {
+  EPI_NONE = 0, EPI_RELU = 1, EPI_GELU = 2, EPI_SILU_GLU = 3, EPI_GELU_GLU = 4
+};
+
+__host__ __device__ constexpr bool epi_glu(int act) {
+  return act == EPI_SILU_GLU || act == EPI_GELU_GLU;
+}
 
 template <int ACT, bool STOCH, bool VEC>
 __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
@@ -413,7 +422,7 @@ __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
     float* __restrict__ ylin, int8_t* __restrict__ am_out,
     int8_t* __restrict__ bm_out, int M, int N, int K, int p) {
   constexpr int TM = 4, BM = 16 * TM, HALF = BN / 2;
-  constexpr bool GLU = ACT == EPI_SILU_GLU;
+  constexpr bool GLU = epi_glu(ACT);
   __shared__ int As[BM][LD];
   __shared__ int Bs[BN][LD];
   const int n_out = GLU ? N / 2 : N;
@@ -477,12 +486,16 @@ __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
         const float v = lin[j];
         y[(size_t)gm * N + gn] = v > 0.0f ? v : (v != v ? v : 0.0f);
       }
+      if (ACT == EPI_GELU) y[(size_t)gm * N + gn] = repro::xla_geluf(lin[j]);
     }
     if (GLU) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int gc = n0 + tx + 16 * j;
-        if (gc < n_out) y[(size_t)gm * n_out + gc] = repro::silu_glu(lin[j], lin[j + 2]);
+        if (gc < n_out)
+          y[(size_t)gm * n_out + gc] = ACT == EPI_GELU_GLU
+              ? repro::gelu_glu(lin[j], lin[j + 2])
+              : repro::silu_glu(lin[j], lin[j + 2]);
       }
     }
   }
@@ -497,8 +510,8 @@ struct EpiArgs {
 
 template <int ACT, bool STOCH>
 cudaError_t launch_epi(const EpiArgs& g, cudaStream_t stream) {
-  const int cols = ACT == EPI_SILU_GLU ? g.N / 2 : g.N;
-  const int tile = ACT == EPI_SILU_GLU ? BN / 2 : BN;
+  const int cols = epi_glu(ACT) ? g.N / 2 : g.N;
+  const int tile = epi_glu(ACT) ? BN / 2 : BN;
   const dim3 grid((cols + tile - 1) / tile, (g.M + 63) / 64, 1);
   if (g.K % 4 == 0) {
     gemm_epi_kernel<ACT, STOCH, true><<<grid, THREADS, 0, stream>>>(
@@ -516,6 +529,8 @@ template <bool STOCH>
 cudaError_t dispatch_epi(const EpiArgs& g, int act, cudaStream_t stream) {
   if (act == EPI_RELU) return launch_epi<EPI_RELU, STOCH>(g, stream);
   if (act == EPI_SILU_GLU) return launch_epi<EPI_SILU_GLU, STOCH>(g, stream);
+  if (act == EPI_GELU) return launch_epi<EPI_GELU, STOCH>(g, stream);
+  if (act == EPI_GELU_GLU) return launch_epi<EPI_GELU_GLU, STOCH>(g, stream);
   return launch_epi<EPI_NONE, STOCH>(g, stream);
 }
 
@@ -583,7 +598,7 @@ int repro_fused_qq_blk(const void* a, const void* ra, const void* ea,
 
 // gemm_epi: a (M,K) f32 [+ ra], b (N,K) f32 [+ rb], bias (N) f32 or null ->
 // y (M, N or N/2) f32, ylin (M,N) f32 (null when act == 0), am, bm int8.
-// act: 0 none, 1 relu, 2 silu_glu.
+// act: 0 none, 1 relu, 2 gelu, 3 silu_glu, 4 gelu_glu.
 int repro_gemm_epi(const void* a, const void* ra, const void* b, const void* rb,
                    const void* bias, const void* ea, const void* eb, void* y,
                    void* ylin, void* am, void* bm, int M, int N, int K, int p,

@@ -26,7 +26,7 @@ operand fits the TPU's VMEM budget; here they follow the CUDA kernels' own
 limits (shared memory, the decode kernel's batch and widths), and each
 ``reason`` names the limit that applied.  JNP for a chain means the caller
 keeps the per-op seam.  Epilogue variants with no kernel (kinds other than
-qq, the out-quantize, gelu) plan jnp on the CPU and raise on the card.
+qq, the out-quantize) plan jnp on the CPU and raise on the card.
 
 Contraction kinds: ``qq`` (both operands quantized in the kernel), ``qi``
 (a fresh, b pre-quantized), ``iq`` (a pre-quantized, b fresh: the ``qi``
@@ -561,10 +561,9 @@ def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
         return decide(JNP, f"K={k} overflows the int32 accumulator")
     if (act or "").endswith("_glu") and n % 2:
         return decide(JNP, f"a GLU needs an even N, got {n}")
-    if kind != "qq" or out_q or act not in kfl.EPI_KERNEL_ACTS:
-        why = (f"gemm_epi has a kernel for kind qq with act in "
-               f"{kfl.EPI_KERNEL_ACTS} and no out-quantize, not kind={kind} "
-               f"act={act} out_q={out_q}")
+    if kind != "qq" or out_q:
+        why = (f"gemm_epi has a kernel for kind qq with no out-quantize, "
+               f"not kind={kind} out_q={out_q} (ROADMAP queue 2 item 1)")
         _no_kernel(op, why, device)
         return decide(JNP, why)
     return decide(FUSED, f"gemm_epi kernel (act={act}, bias={bias})")

@@ -19,10 +19,10 @@ Ports of four TPU kernels of ``repro.kernels.fused_linear``:
                    2^(sa + sb) is added to a float32 accumulator in block
                    order; also returns both mantissas.
   ``fused_gemm_epi`` <- ``fused_gemm_epi_pallas``: the qq GEMM with its f32
-                   epilogue (bias, then relu or the SiLU-GLU that gates the
-                   left half of the columns against the right half) applied
-                   to each output tile; also returns both mantissas and the
-                   pre-activation ``ylin``.  Its plain version also covers
+                   epilogue (bias, then relu, GELU, or the SiLU- or
+                   GELU-GLU that gates the left half of the columns against
+                   the right half) applied to each output tile; also
+                   returns both mantissas and the pre-activation ``ylin``.  Its plain version also covers
                    the variants with no kernel (kinds qi / ii, the
                    per-tensor out-quantize), which run on the CPU only.
 
@@ -172,34 +172,28 @@ def fused_qq_blk_plain(a, ra, ea, b, rb, eb, *, p=7, blk=32,
 # GEMM -> bias / activation (-> per-tensor out-quantize) epilogue
 # ---------------------------------------------------------------------------
 
+# The epilogue's activations; the CUDA kernel's act code is the index here.
 EPI_ACTS = (None, "relu", "gelu", "silu_glu", "gelu_glu")
-# The epilogues the CUDA kernel applies (kind qq, no out-quantize).
-EPI_KERNEL_ACTS = (None, "relu", "silu_glu")
 _EPI_META_LANES = 128
-
-
-def _no_gelu(act):
-    if act in ("gelu", "gelu_glu"):
-        raise NotImplementedError(
-            f"act={act!r} needs XLA's tanh, which the port does not "
-            "reproduce; no ported path reaches it (ROADMAP queue 1, other "
-            "families)")
 
 
 def epi_apply(y: torch.Tensor, act: Optional[str],
               n_out: int) -> torch.Tensor:
     """The f32 activation of the epilogue (``epi_apply`` of the reference,
-    after its bias add): ``silu_glu`` gates the left ``n_out`` columns
-    against the right ones, ``silu(g) * u`` with the reference's logistic
-    (``core.fmath``)."""
+    after its bias add): the ``_glu`` acts gate the left ``n_out`` columns
+    against the right ones, ``act(g) * u``, with the reference's logistic
+    and tanh-form GELU (``core.fmath``)."""
     if act not in EPI_ACTS:
         raise ValueError(f"unknown epilogue act {act!r}")
-    _no_gelu(act)
     if act == "relu":
         y = torch.maximum(y, torch.zeros_like(y))
+    elif act == "gelu":
+        y = fmath.gelu(y)
     elif act == "silu_glu":
         g, u = y[..., :n_out], y[..., n_out:]
         y = (g * fmath.logistic(g)) * u
+    elif act == "gelu_glu":
+        y = fmath.gelu(y[..., :n_out]) * y[..., n_out:]
     return y
 
 
@@ -207,21 +201,23 @@ def epi_pullback(ylin: torch.Tensor, g: torch.Tensor, act: Optional[str],
                  n_out: int) -> torch.Tensor:
     """The VJP of ``epi_apply(ylin, act, n_out)`` at cotangent ``g``,
     as the reference's ``jax.vjp`` computes it: relu passes half the
-    gradient where ``ylin == 0`` (``lax.max``'s balanced tie), the GLU
-    pulls back through ``silu(g) * u`` with XLA's contraction."""
-    _no_gelu(act)
+    gradient where ``ylin == 0`` (``lax.max``'s balanced tie), the GLUs
+    pull back through ``act(g) * u`` with XLA's contraction."""
     if act is None:
         return g
     if act == "relu":
         w = torch.where(ylin > 0, 1.0, torch.where(ylin == 0, 0.5, 0.0))
         return g * w.to(g.dtype)
+    if act == "gelu":
+        return fmath.gelu_pullback(ylin, g)
     gate, up = ylin[..., :n_out], ylin[..., n_out:]
+    if act == "gelu_glu":
+        return torch.cat([fmath.gelu_pullback(gate, g * up),
+                          fmath.gelu(gate) * g], dim=-1)
     s = fmath.logistic(gate)
     g_act = g * up
     d_gate = fmath._fma(g_act, s, (g_act * gate) * (s * (1.0 - s)))
     return torch.cat([d_gate, g * (gate * s)], dim=-1)
-
-
 
 
 def fused_gemm_epi_plain(a, ra, b, rb, bias, rq, ea, eb, *, kind="qq", p=7,
@@ -456,25 +452,25 @@ def fused_gemm_epi(a: torch.Tensor, ra: Optional[torch.Tensor],
                    act: Optional[str] = None, out_q: bool = False,
                    qp: int = 7, m_true: Optional[int] = None):
     """GEMM with its fused epilogue (arguments and results of
-    ``fused_gemm_epi_plain``).  On the card only kind qq with act None,
-    relu or silu_glu and no out-quantize has a kernel: a (M, K) f32, b
-    (N, K) f32 with their bits, bias (1, N) f32 or None -> (y, am, bm[,
-    ylin]); any other variant raises."""
+    ``fused_gemm_epi_plain``).  On the card kind qq with any act and no
+    out-quantize has a kernel: a (M, K) f32, b (N, K) f32 with their bits,
+    bias (1, N) f32 or None -> (y, am, bm[, ylin]); the out-quantize and
+    kinds qi / ii raise there (ROADMAP queue 2 item 1)."""
     if not a.is_cuda:
         return fused_gemm_epi_plain(
             a, ra, b, rb, bias, rq, ea, eb, kind=kind, p=p,
             stochastic=stochastic, act=act, out_q=out_q, qp=qp,
             m_true=m_true)
-    if kind != "qq" or out_q or act not in EPI_KERNEL_ACTS:
+    if kind != "qq" or out_q:
         raise NotImplementedError(
-            f"gemm_epi has a kernel for kind qq, act in {EPI_KERNEL_ACTS}, "
-            f"no out-quantize; not kind={kind} act={act} out_q={out_q}: "
-            "that variant's plain version runs only on the CPU")
+            f"gemm_epi has a kernel for kind qq with no out-quantize, not "
+            f"kind={kind} out_q={out_q}: that variant's plain version runs "
+            "only on the CPU (ROADMAP queue 2 item 1)")
     m, k = a.shape
     n = b.shape[0]
-    glu = act == "silu_glu"
+    glu = (act or "").endswith("_glu")
     if glu and n % 2:
-        raise ValueError(f"silu_glu needs an even N, got {n}")
+        raise ValueError(f"{act} needs an even N, got {n}")
     dev = a.device
     _check("a", a, torch.float32, (m, k), dev)
     _check("b", b, torch.float32, (n, k), dev)
@@ -495,7 +491,7 @@ def fused_gemm_epi(a: torch.Tensor, ra: Optional[torch.Tensor],
         _ptr(a), _ptr(ra if stochastic else None), _ptr(b),
         _ptr(rb if stochastic else None), _ptr(bias), _ptr(ea), _ptr(eb),
         _ptr(y), _ptr(ylin), _ptr(am), _ptr(bm), m, n, k, p,
-        EPI_KERNEL_ACTS.index(act), int(stochastic),
+        EPI_ACTS.index(act), int(stochastic),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, "gemm_epi")
     fused_gemm_epi.launches += 1

@@ -204,12 +204,28 @@ class _SiluGlu(torch.autograd.Function):
         return g * act, d_gate
 
 
+class _GeluGlu(torch.autograd.Function):
+    """gelu(gate) * up with ``jax.nn.gelu``'s tanh form and the reference's
+    rounding (``core.fmath``) forward and backward."""
+
+    @staticmethod
+    def forward(ctx, up, gate):
+        act = fmath.gelu(gate)
+        ctx.save_for_backward(up, gate, act)
+        return act * up
+
+    @staticmethod
+    def backward(ctx, g):
+        up, gate, act = ctx.saved_tensors
+        return g * act, fmath.gelu_pullback(gate, g * up)
+
+
 def glu_act(up: torch.Tensor, gate: torch.Tensor, act: str) -> torch.Tensor:
     """act(gate) * up."""
     if act == "silu":
         return _SiluGlu.apply(up, gate)
     if act == "gelu":
-        return torch.nn.functional.gelu(gate, approximate="tanh") * up
+        return _GeluGlu.apply(up, gate)
     if act == "relu":
         return torch.relu(gate) * up
     raise ValueError(act)

@@ -1,7 +1,8 @@
 """core.fmath against the reference's float32 ops as its XLA CPU build
 runs them under ``jax.jit``: the contracted multiply-add, exp, the
-logistic, sums in the reference's order and the loss mean's fused sum
-``==`` on random inputs; log
+logistic, tanh, the tanh-form GELU and the GELU(-GLU) pullback, sums in
+the reference's order and the loss mean's fused sum ``==`` on random
+inputs and edge values; log
 within one ulp (its Cephes evaluation order is reproduced up to a rare
 last-bit difference, about 3 in 10^4 inputs)."""
 
@@ -37,6 +38,54 @@ def test_elementwise_equal_jax():
     want = np.asarray(jax.jit(jnp.log)(pos)).view(np.int32).astype(np.int64)
     assert np.abs(got - want).max() <= 1
     assert (got != want).mean() < 1e-3
+
+
+def _gelu_inputs(seed):
+    """About 10^5 values of N(0, 3^2) and the edges of XLA's tanh: 0, the
+    threshold 4e-4 below which it returns x (either side, both signs), the
+    clamp 7.9988, 20 where it returns +-1, the infinities, NaN, sub-normals
+    and the largest floats."""
+    rng = np.random.RandomState(seed)
+    tiny = np.float32(4e-4)             # XLA's threshold, 0x1.a36e2ep-12
+    edges = [0.0, -0.0, tiny, np.nextafter(tiny, np.float32(0)),
+             np.nextafter(tiny, np.float32(1)), 7.905, 7.9988117,
+             8.0, 19.999998, 20.0, 1e3, np.inf, np.nan, 1e-40, 1.4e-45,
+             1.2e-38, 3.4e38]
+    e = np.array(edges, dtype=np.float32)
+    return np.concatenate([_f32(rng, 100000, 3), e, -e]).astype(np.float32)
+
+
+def _bits_equal(got, want):
+    np.testing.assert_array_equal(np.asarray(got).view(np.int32),
+                                  np.asarray(want).view(np.int32))
+
+
+def test_tanh_and_gelu_equal_jax():
+    x = _gelu_inputs(1)
+    T = torch.from_numpy
+    _bits_equal(fmath.tanh(T(x)).numpy(), jax.jit(jnp.tanh)(x))
+    _bits_equal(fmath.gelu(T(x)).numpy(), jax.jit(jax.nn.gelu)(x))
+
+
+def test_gelu_pullbacks_equal_jax_vjp():
+    """``gelu_pullback`` against the jitted VJP of ``gelu(g) * u`` (both
+    cotangents) and of ``gelu(g)``."""
+    g = _gelu_inputs(2)
+    rng = np.random.RandomState(3)
+    u, ct = _f32(rng, g.size, 1), _f32(rng, g.size, 1)
+
+    def glu(g, u, ct):
+        return jax.vjp(lambda g, u: jax.nn.gelu(g) * u, g, u)[1](ct)
+
+    def gelu(g, ct):
+        return jax.vjp(jax.nn.gelu, g)[1](ct)[0]
+
+    T = torch.from_numpy
+    d_gate, d_up = jax.jit(glu)(g, u, ct)
+    _bits_equal(fmath.gelu_pullback(T(g), T(ct) * T(u)).numpy(), d_gate)
+    _bits_equal((fmath.gelu(T(g)) * T(ct)).numpy(), d_up)
+    _bits_equal(fmath.gelu_pullback(T(g), T(ct)).numpy(),
+                jax.jit(gelu)(g, ct))
 
 
 @pytest.mark.parametrize("shape,dims", [((33,), (0,)), ((151936,), (0,)),

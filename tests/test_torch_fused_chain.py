@@ -5,8 +5,10 @@
   and without the shift, a true width off the 128 lanes (zero-padded as
   the reference pads it); y, xq, meta and c.
 * ``fused_gemm_epi_plain`` against ``gemm_epi_ref``: kinds qq, qi, ii;
-  acts None, relu, silu_glu (with an input whose logistic is sub-normal);
-  with and without a bias; the per-tensor out-quantize with ``m_true``.
+  acts None, relu, gelu, silu_glu, gelu_glu (with an input whose logistic
+  is sub-normal and whose tanh saturates); with and without a bias; the
+  per-tensor out-quantize with ``m_true``; the GELU-GLU also against
+  ``fused_gemm_epi_pallas`` (interpret mode) at an odd shape.
 * ``decode_block_plain`` against ``decode_block_ref`` and
   ``fused_decode_block_pallas`` (interpret mode): one query head per KV
   head and groups of 4, a sliding window, ``pos`` mid-cache.
@@ -86,7 +88,8 @@ def test_norm_gemm_plain_equals_pallas_and_ref(case):
 
 
 @pytest.mark.parametrize("kind", ["qq", "qi", "ii"])
-@pytest.mark.parametrize("act", [None, "relu", "silu_glu"])
+@pytest.mark.parametrize("act", [None, "relu", "silu_glu", "gelu",
+                                 "gelu_glu"])
 def test_gemm_epi_plain_equals_ref(kind, act):
     rng = np.random.RandomState(7)
     m, k, n = 24, 40, 48
@@ -98,7 +101,7 @@ def test_gemm_epi_plain_equals_ref(kind, act):
     b = (rng.randn(n, k).astype(np.float32) if kind == "qq"
          else rng.randint(-127, 128, (n, k)).astype(np.int8))
     ra, rb = _bits((m, k), 1), _bits((n, k), 2)
-    n_out = n // 2 if act == "silu_glu" else n
+    n_out = n // 2 if (act or "").endswith("_glu") else n
     rq = _bits((m, n_out), 3)
     bias = rng.randn(1, n).astype(np.float32)
     ea, eb = np.int32(129 if kind != "ii" else 125), np.int32(128)
@@ -115,17 +118,37 @@ def test_gemm_epi_plain_equals_ref(kind, act):
 
 
 def test_gemm_epi_wrapper_and_gelu():
-    """On the CPU the wrapper is the plain version; gelu raises."""
+    """On the CPU the wrapper is the plain version; the GELU-GLU equals the
+    reference's."""
     rng = np.random.RandomState(8)
     a, b = rng.randn(8, 16).astype(np.float32), rng.randn(8, 16).astype(
         np.float32)
     args = (_t(a), None, _t(b), None, None, None, torch.tensor(129),
             torch.tensor(129))
-    kw = dict(stochastic=False, act="silu_glu")
-    _equal(tfl.fused_gemm_epi(*args, **kw),
-           [x.numpy() for x in tfl.fused_gemm_epi_plain(*args, **kw)])
-    with pytest.raises(NotImplementedError, match="other families"):
-        tfl.fused_gemm_epi_plain(*args, stochastic=False, act="gelu_glu")
+    for act in ("silu_glu", "gelu_glu"):
+        kw = dict(stochastic=False, act=act)
+        got = tfl.fused_gemm_epi(*args, **kw)
+        _equal(got, [x.numpy() for x in tfl.fused_gemm_epi_plain(*args, **kw)])
+        _equal(got, jfl.gemm_epi_ref(_j(a), None, _j(b), None, None, None,
+                                     np.int32(129), np.int32(129), **kw))
+
+
+def test_gemm_epi_gelu_glu_plain_equals_pallas():
+    """M 24 (three 8-row strips), K 37, N 58: an odd half width of 29."""
+    rng = np.random.RandomState(9)
+    m, k, n = 24, 37, 58
+    a = (rng.randn(m, k) * 2).astype(np.float32)
+    b = rng.randn(n, k).astype(np.float32)
+    ra, rb = _bits((m, k), 4), _bits((n, k), 5)
+    bias = rng.randn(1, n).astype(np.float32)
+    ea, eb = np.int32(130), np.int32(128)
+    kw = dict(kind="qq", act="gelu_glu")
+    got = tfl.fused_gemm_epi_plain(_t(a), _t(ra), _t(b), _t(rb), _t(bias),
+                                   None, torch.tensor(int(ea)),
+                                   torch.tensor(int(eb)), **kw)
+    _equal(got, jfl.fused_gemm_epi_pallas(
+        _j(a), _j(ra), _j(b), _j(rb), _j(bias), None, ea, eb, bm=8,
+        interpret=True, **kw))
 
 
 def _decode_operands(seed, b, d, n_ff, hq, hkv, dh, t):

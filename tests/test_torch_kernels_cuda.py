@@ -254,20 +254,23 @@ def test_wrappers_reject_wrong_operands(cuda):
                      causal=True, window=0, stochastic=False)
 
 
-# (M, K, N, act, bias): minicpm-2b's gate|up training GEMM (512 tokens,
-# 2304 -> 2 x 5760) and odd shapes: rows off the 64-row tile, K not a
-# multiple of 32 nor of 4, N off the column tile, every epilogue.
+# (M, K, N, act, bias): the gate|up training GEMMs of minicpm-2b (512
+# tokens, 2304 -> 2 x 5760) and starcoder2-7b (4608 -> 2 x 18432), and odd
+# shapes: rows off the 64-row tile, K not a multiple of 32 nor of 4, N off
+# the column tile (an odd GLU half), every epilogue.
 EPI_SHAPES = [(512, 2304, 11520, "silu_glu", False),
-              (37, 67, 58, "silu_glu", True), (130, 96, 70, "relu", True),
-              (65, 40, 29, None, False)]
+              (512, 4608, 36864, "gelu_glu", False),
+              (37, 67, 58, "silu_glu", True), (37, 67, 58, "gelu_glu", True),
+              (130, 96, 70, "relu", True), (130, 96, 70, "gelu", True),
+              (65, 40, 29, "gelu", False), (65, 40, 29, None, False)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("shape", EPI_SHAPES)
 def test_gemm_epi_kernel_equal_plain(cuda, shape, stochastic):
-    """y, both mantissas and ylin ==; a row of gate inputs so negative
-    that the logistic is sub-normal (flushed in both)."""
+    """y, both mantissas and ylin ==; a row of gate inputs so large that
+    the logistic is sub-normal (flushed in both) and the tanh saturates."""
     m, k, n, act, with_bias = shape
     g = torch.Generator(device=cuda).manual_seed(11)
     a = torch.randn((m, k), generator=g, device=cuda)
@@ -294,7 +297,7 @@ def test_gemm_epi_variants_without_a_kernel_raise(cuda):
     a = torch.randn((8, 32), device=cuda)
     e = ref.max_biased_exp_ref(a)
     m8 = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
-    for kw in (dict(kind="qi"), dict(out_q=True), dict(act="gelu_glu")):
+    for kw in (dict(kind="qi"), dict(out_q=True)):
         args = (a, None, m8 if kw.get("kind") else a, None, None, None, e, e)
         with pytest.raises(NotImplementedError):
             kfl.fused_gemm_epi(*args, stochastic=False, **kw)

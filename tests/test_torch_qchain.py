@@ -121,6 +121,7 @@ def test_qnorm_gemm_gain_grad_from_16_to_32_rows(case):
 # (lead, K, N, act, bias); the reference plans a GLU only with halves of
 # whole TPU lanes (N % 256 == 0)
 EPI_CASES = [((2, 6), 40, 256, "silu_glu", True),
+             ((3, 5), 72, 256, "gelu_glu", True),
              ((13,), 37, 30, "relu", False),
              ((3, 4), 24, 18, None, True)]
 
@@ -133,7 +134,7 @@ def test_qmatmul_epi_values_and_grads_equal_jax(case):
     w = _f32(rng, k, n, scale=0.3)
     if act == "relu":
         x[0, :] = 0.0          # a row of exact zeros: relu's tie at 0
-    n_out = n // 2 if act == "silu_glu" else n
+    n_out = n // 2 if (act or "").endswith("_glu") else n
     ct = _f32(rng, *lead, n_out)
     args = (x, w) + (_f32(rng, n),) * bias
 
