@@ -7,8 +7,12 @@ Phases, any of which failing exits non-zero:
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
 2. call each kernel at the shapes the serving and training paths give it
-   and hold it against its plain torch version on the same inputs: ``qq``,
-   ``qi`` and ``ii`` y and mantissas ``==``, ``attn_decode`` y ``==``,
+   and hold it against its plain torch version on the same inputs: ``qq``
+   y and mantissas ``==``; each variant of ``qi`` and ``ii`` (``wgmma``,
+   ``stream``, ``__dp4a``: ``fused_linear.qgemm_variant``) y and
+   mantissas ``==`` at the main path's shapes, ragged, batched and odd-K
+   ones, both roundings, and the ``iq`` and ``pp`` routes through
+   dispatch, each call moving its variant's counter; ``attn_decode`` y ``==``,
    ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
    at the qwen2 training slice and at an odd shape, ``qq_blk`` y and
    mantissas ``==`` at the per-block training shapes and odd ones (blocks
@@ -75,6 +79,11 @@ at the shapes of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd
 ones (relu, gelu, an odd GLU half), and ``bfp_quantize``
 (mantissas) and ``int8_matmul`` (y) ``==`` at the shapes of phase 9 and at
 odd ones (edge values, a batch, unaligned operands).
+
+After each of phases 3-10 every ``qi`` and ``ii`` launch must be one of
+the ``wgmma`` or ``stream`` variant (none on ``__dp4a``); the counts by
+variant are printed.  Each step profile also sums the device time of the
+port's own kernels by name.
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -154,9 +163,11 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def _device_ms(torch, fn, iters: int = 10) -> float:
+def _device_ms(torch, fn, iters: int = 10, split=None) -> float:
     """Device time per call: every CUDA kernel the call launches, summed,
-    from torch.profiler.  Raises if the profiler sees no device time."""
+    from torch.profiler; ``split`` (a dict), when given, gets each
+    kernel's share by ``_kernel_name``.  Raises if the profiler sees no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -164,10 +175,31 @@ def _device_ms(torch, fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for _, us in _device_events(prof))
+    events = _device_events(prof)
+    total_us = sum(us for _, us in events)
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
+    if split is not None:
+        for name, us in events:
+            key = _kernel_name(name)
+            split[key] = split.get(key, 0.0) + us / iters / 1e3
     return total_us / iters / 1e3
+
+
+def _is_port_kernel(name: str) -> bool:
+    """The port's kernels live in an anonymous namespace, torch's under
+    at::native."""
+    return "(anonymous namespace)::" in name and "at::native" not in name
+
+
+def _kernel_name(name: str) -> str:
+    """A device event's function name: the port's kernels without
+    namespace, template arguments and parameters; torch's and the rest cut
+    to 80 characters."""
+    if _is_port_kernel(name):
+        return name.split("(anonymous namespace)::", 1)[1].split("(")[0] \
+            .split("<")[0]
+    return name[:80]
 
 
 def _device_events(prof):
@@ -227,34 +259,7 @@ def check_kernels(torch, dev, rec):
     def bits(k, shape):
         return prng.bits(prng.key(k), shape, dev)
 
-    # qi: the tied LM head at decode, and the MLP gate/up at prefill.
-    for name, (nb, m, k, n) in (("qi", (1, BATCH, 896, 151936)),
-                                ("qi_prefill_gate", (1, BATCH * PROMPT, 896, 4864))):
-        a = torch.randn((nb, m, k), generator=g, device=dev)
-        ra = bits(1, a.shape)
-        b_m = torch.randint(-127, 128, (nb, n, k), generator=g, device=dev,
-                            dtype=torch.int8)
-        ea = ref.max_biased_exp_ref(a)
-        eb = torch.tensor(130, dtype=torch.int32, device=dev)
-        y, am = kfl.fused_qi_pt(a, ra, b_m, ea, eb)
-        yp, amp = kfl.fused_qi_pt_plain(a, ra, b_m, ea, eb)
-        torch.cuda.synchronize()
-        err = (y - yp).abs().max().item()
-        if not (torch.equal(y, yp) and torch.equal(am, amp)):
-            raise AssertionError(f"{name}: kernel != plain (max |dy| {err})")
-        ra32 = kfl.as_u32(ra)
-        ms = _device_ms(torch, lambda: kfl.fused_qi_pt(a, ra32, b_m, ea, eb))
-        call = _time_ms(torch, lambda: kfl.fused_qi_pt(a, ra32, b_m, ea, eb))
-        pms = _device_ms(torch, lambda: kfl.fused_qi_pt_plain(a, ra, b_m, ea, eb), iters=3)
-        lib = _int_mm_ms(torch, am, b_m)
-        nbytes = nb * (8 * m * k + n * k + 4 * m * n + m * k)
-        bound, by = _bound_ms(nbytes, 2.0 * nb * m * n * k)
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/fused_linear.cu",
-                        replaces="src/repro/kernels/fused_linear.py:241",
-                        shape=[nb, m, k, n], max_abs_err=err, ms=ms,
-                        call_ms=call, plain_ms=pms, bound_ms=bound,
-                        bound_by=by, library_ms=lib))
+    out += check_qgemm(torch, dev, g, bits)
 
     # qq: the batched QKᵀ of the prefill attention (B*Hkv slices of
     # (g*S, D) x (T, D)): stochastic and half up, with and without the
@@ -289,36 +294,7 @@ def check_kernels(torch, dev, rec):
                     plain_ms=pms, bound_ms=bound, bound_by=by,
                     library_ms=lib))
 
-    # ii: the training dW = X̂ᵀĜ over the 512 tokens of a 4 x 128 batch, at
-    # the tied LM head (d_model x vocab) and at one layer's w_down.
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    for name, (m, n) in (("ii", (896, 151936)), ("ii_w_down", (4864, 896))):
-        am = torch.randint(-127, 128, (1, m, tokens), generator=g, device=dev,
-                           dtype=torch.int8)
-        b_m = torch.randint(-127, 128, (1, n, tokens), generator=g, device=dev,
-                            dtype=torch.int8)
-        ea = torch.tensor(121, dtype=torch.int32, device=dev)
-        eb = torch.tensor(117, dtype=torch.int32, device=dev)
-        y = kfl.fused_ii_pt(am, b_m, ea, eb)
-        yp = kfl.fused_ii_pt_plain(am, b_m, ea, eb)
-        torch.cuda.synchronize()
-        err = (y - yp).abs().max().item()
-        if not torch.equal(y, yp):
-            raise AssertionError(f"{name}: kernel != plain (max |dy| {err})")
-        del y, yp
-        ms = _device_ms(torch, lambda: kfl.fused_ii_pt(am, b_m, ea, eb))
-        call = _time_ms(torch, lambda: kfl.fused_ii_pt(am, b_m, ea, eb))
-        pms = _device_ms(torch, lambda: kfl.fused_ii_pt_plain(am, b_m, ea, eb), iters=2)
-        lib = _int_mm_ms(torch, am, b_m)
-        nbytes = m * tokens + n * tokens + 4 * m * n
-        bound, by = _bound_ms(nbytes, 2.0 * m * n * tokens)
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/fused_linear.cu",
-                        replaces="src/repro/kernels/fused_linear.py:279",
-                        shape=[1, m, tokens, n], max_abs_err=err, ms=ms,
-                        call_ms=call, plain_ms=pms, bound_ms=bound,
-                        bound_by=by, library_ms=lib))
-        del am, b_m
 
     # The LM head's dX contracts over the vocabulary (K = 151936 >
     # accum_chunk): no kernel takes it; it stays on the plain chunked path
@@ -375,20 +351,198 @@ def check_kernels(torch, dev, rec):
     return out
 
 
+# qi / ii shapes held == in phase 2 beyond the four timed ones: ragged M
+# (17, 130) and N (70; 151936 at M = 4 is timed), a batch, K that is not a
+# multiple of 16 (the __dp4a variant), and N % 4 != 0 on the tensor cores
+# (y's rows not 16-byte aligned: 4-byte stores).  (kind, B, M, K, N)
+QGEMM_EDGE = [("qi", 1, 17, 896, 4864), ("qi", 1, 130, 896, 896),
+              ("qi", 1, 4, 896, 70), ("qi", 1, 130, 96, 70),
+              ("qi", 2, 130, 96, 72), ("qi", 3, 4, 128, 200),
+              ("qi", 1, 37, 67, 29), ("qi", 1, 4, 37, 100),
+              ("ii", 1, 17, 512, 4864), ("ii", 2, 130, 96, 70),
+              ("ii", 2, 4, 512, 70), ("ii", 1, 37, 67, 29),
+              ("ii", 3, 5, 33, 17)]
+
+
+def check_qgemm(torch, dev, g, bits):
+    """The qi and ii kernels' variants (``fused_linear.qgemm_variant``)
+    against their plain versions, y and mantissas ``==``, both roundings:
+    at the four timed shapes of the main path (the decode LM head and the
+    prefill gate on qi, the LM head's and ``w_down``'s training dW on ii),
+    at ``QGEMM_EDGE``, and through the ``iq`` and ``pp`` routes of
+    ``dispatch.contract_iq`` / ``contract_ii``.  Each call must move the
+    counter of the variant the rule names.  Returns the timed rows; each
+    row's ``line_as`` names the variant it stands for on the kernels
+    line."""
+    from repro_torch.core import prng
+    from repro_torch.core.bfp import BFP, QuantConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.kernels import ref
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def expect(kind, m, k, fn):
+        want = f"{kind}_{kfl.qgemm_variant(m, k)}"
+        dispatch.reset_kernel_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in dispatch.kernel_launches().items()
+               if n.startswith(f"{kind}_") and c}
+        if got != {want: 1}:
+            raise AssertionError(f"{kind} M={m} K={k}: variant launches "
+                                 f"{got}, expected {want}")
+        return res, want.split("_", 1)[1]
+
+    def qi_case(nb, m, k, n, stochastic):
+        a = torch.randn((nb, m, k), generator=g, device=dev)
+        ra = bits(5, a.shape) if stochastic else None
+        b_m = i8(nb, n, k)
+        ea = ref.max_biased_exp_ref(a)
+        eb = torch.tensor(130, dtype=torch.int32, device=dev)
+        (y, am), variant = expect("qi", m, k, lambda: kfl.fused_qi_pt(
+            a, ra, b_m, ea, eb, stochastic=stochastic))
+        yp, amp = kfl.fused_qi_pt_plain(a, ra, b_m, ea, eb,
+                                        stochastic=stochastic)
+        err = (y - yp).abs().max().item() if y.numel() else 0.0
+        if not (torch.equal(y, yp) and torch.equal(am, amp)):
+            raise AssertionError(f"qi {variant} {(nb, m, k, n)} "
+                                 f"stochastic={stochastic}: kernel != plain "
+                                 f"(max |dy| {err})")
+        return (a, ra, b_m, ea, eb, am), variant, err
+
+    def ii_case(nb, m, k, n):
+        am, b_m = i8(nb, m, k), i8(nb, n, k)
+        ea = torch.tensor(121, dtype=torch.int32, device=dev)
+        eb = torch.tensor(117, dtype=torch.int32, device=dev)
+        y, variant = expect("ii", m, k, lambda: kfl.fused_ii_pt(am, b_m, ea, eb))
+        yp = kfl.fused_ii_pt_plain(am, b_m, ea, eb)
+        err = (y - yp).abs().max().item() if y.numel() else 0.0
+        if not torch.equal(y, yp):
+            raise AssertionError(f"ii {variant} {(nb, m, k, n)}: kernel != "
+                                 f"plain (max |dy| {err})")
+        return (am, b_m, ea, eb), variant, err
+
+    out, held = [], []
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the timed shapes: (row name, kind, B, M, K, N, names on the line)
+    timed = [("qi", "qi", 1, BATCH, 896, 151936, ("qi_stream",)),
+             ("qi_prefill_gate", "qi", 1, BATCH * PROMPT, 896, 4864,
+              ("qi_wgmma",)),
+             ("ii", "ii", 1, 896, tokens, 151936, ("ii_wgmma",)),
+             ("ii_w_down", "ii", 1, 4864, tokens, 896, ()),
+             ("ii_decode_shape", "ii", 1, BATCH, tokens, 896, ("ii_stream",)),
+             ("qi_odd_k", "qi", 1, 130, 67, 70, ("qi_dp4a",)),
+             ("ii_odd_k", "ii", 1, 130, 67, 70, ("ii_dp4a",))]
+    for name, kind, nb, m, k, n, line_as in timed:
+        if kind == "qi":
+            qi_case(nb, m, k, n, False)
+            (a, ra, b_m, ea, eb, am), variant, err = qi_case(nb, m, k, n, True)
+            ra32 = kfl.as_u32(ra)
+            kernel = (lambda a=a, ra32=ra32, b_m=b_m, ea=ea, eb=eb:
+                      kfl.fused_qi_pt(a, ra32, b_m, ea, eb))
+            plain = (lambda a=a, ra=ra, b_m=b_m, ea=ea, eb=eb:
+                     kfl.fused_qi_pt_plain(a, ra, b_m, ea, eb))
+            lib = _int_mm_ms(torch, am, b_m)
+            nbytes = nb * (8 * m * k + n * k + 4 * m * n + m * k)
+            replaces = "src/repro/kernels/fused_linear.py:241"
+        else:
+            (am, b_m, ea, eb), variant, err = ii_case(nb, m, k, n)
+            kernel = (lambda am=am, b_m=b_m, ea=ea, eb=eb:
+                      kfl.fused_ii_pt(am, b_m, ea, eb))
+            plain = (lambda am=am, b_m=b_m, ea=ea, eb=eb:
+                     kfl.fused_ii_pt_plain(am, b_m, ea, eb))
+            lib = _int_mm_ms(torch, am, b_m)
+            nbytes = nb * (m * k + n * k + 4 * m * n)
+            replaces = "src/repro/kernels/fused_linear.py:279"
+        source = ("src/repro_torch/kernels/csrc/fused_linear.cu"
+                  if variant == "dp4a"
+                  else "src/repro_torch/kernels/csrc/qgemm_sm90.cu")
+        row = _record_kernel(torch, name, source, replaces, [nb, m, k, n],
+                             err, kernel, plain, nbytes, 2.0 * nb * m * n * k,
+                             lib, plain_iters=2)
+        out.append(dict(row, variant=variant, line_as=list(line_as)))
+        held.append(f"{name} {variant}")
+        torch.cuda.empty_cache()
+    for kind, nb, m, k, n in QGEMM_EDGE:
+        if kind == "qi":
+            for sr in (True, False):
+                variant = qi_case(nb, m, k, n, sr)[1]
+        else:
+            variant = ii_case(nb, m, k, n)[1]
+        held.append(f"{kind} {(nb, m, k, n)} {variant}")
+
+    # the iq route (qi with the roles swapped: b quantized in the kernel)
+    # and pp (ii) through dispatch, against the same calls on the plain
+    # versions: (a rows, b rows, K) with b's rows the kernel's M
+    cfg = QuantConfig()
+    for m, n, k in ((512, 4864, 896), (151936, BATCH, 896), (130, 70, 96)):
+        aq = BFP(i8(m, k), torch.tensor(119, dtype=torch.int32, device=dev),
+                 cfg)
+        b = torch.randn((n, k), generator=g, device=dev)
+        for sr in (True, False):
+            c = QuantConfig(stochastic=sr)
+            dec = dispatch.Decision("iq_check", dispatch.FUSED, "phase 2",
+                                    m, k, n, "iq", "cuda")
+            key = prng.key(7)
+            (y, bq), variant = expect("qi", n, k, lambda: dispatch.contract_iq(
+                aq, b, c, key, dec))
+            with dispatch.plain_kernels():
+                yp, bqp = dispatch.contract_iq(aq, b, c, key, dec)
+            if not (torch.equal(y, yp) and torch.equal(bq.m, bqp.m)
+                    and torch.equal(bq.e, bqp.e)):
+                raise AssertionError(f"iq {variant} {(m, k, n)} "
+                                     f"stochastic={sr}: kernel != plain")
+            held.append(f"iq {(m, k, n)} {variant}")
+    for m, n, k in ((4864, 896, tokens), (BATCH, 896, tokens), (130, 70, 96)):
+        aq = BFP(i8(m, k), torch.tensor(119, dtype=torch.int32, device=dev),
+                 cfg)
+        bq = BFP(i8(n, k), torch.tensor(123, dtype=torch.int32, device=dev),
+                 cfg)
+        dec = dispatch.Decision("pp_check", dispatch.FUSED, "phase 2", m, k,
+                                n, "pp", "cuda")
+        y, variant = expect("ii", m, k, lambda: dispatch.contract_ii(aq, bq,
+                                                                     dec))
+        with dispatch.plain_kernels():
+            yp = dispatch.contract_ii(aq, bq, dec)
+        if not torch.equal(y, yp):
+            raise AssertionError(f"pp {variant} {(m, k, n)}: kernel != plain")
+        held.append(f"pp {(m, k, n)} {variant}")
+    torch.cuda.empty_cache()
+    print(f"qi / ii variants == plain ({len(held)} cases): {held}")
+    return out
+
+
+def _check_variants(label, launches):
+    """Every qi and ii launch of a main-path phase is one of a variant, and
+    none of the __dp4a one (every main-path K is a multiple of 16)."""
+    for kind in ("qi", "ii"):
+        per = {v: launches[f"{kind}_{v}"] for v in ("wgmma", "stream", "dp4a")}
+        if sum(per.values()) != launches[kind] or per["dp4a"]:
+            raise AssertionError(f"{label}: {launches[kind]} {kind} launches "
+                                 f"as {per}, expected all on the tensor-core "
+                                 f"or streaming variant")
+        print(f"{label}: {kind} launches by variant {per}")
+
+
 def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
                    nbytes, ops, library_ms, note=None, plain_iters=3):
     """Time a kernel call and its plain version; the row of the kernels
-    line."""
-    ms = _device_ms(torch, kernel)
+    line, with the device ms of each kernel the call launches."""
+    split = {}
+    ms = _device_ms(torch, kernel, split=split)
     call = _time_ms(torch, kernel)
     pms = _device_ms(torch, plain, iters=plain_iters)
     bound, by = _bound_ms(nbytes, ops)
     print(f"{name} {shape}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
-          f"{by}; plain {pms:.3f} ms; library {library_ms}), kernel == plain")
+          f"{by}; plain {pms:.3f} ms; library {library_ms}), kernel == plain; "
+          f"by kernel {({k: round(v, 5) for k, v in split.items()})}")
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                shape=shape, max_abs_err=err, ms=ms, call_ms=call,
                plain_ms=pms, bound_ms=bound, bound_by=by, bytes=nbytes,
-               ops=ops, library_ms=library_ms)
+               ops=ops, library_ms=library_ms, ms_by_kernel=split)
     if note:
         row["library_note"] = note
     return row
@@ -900,14 +1054,22 @@ def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):
                     key=lambda x: -x[1])
     busy_ms = sum(t for _, t, _ in events)
     idle = 1.0 - busy_ms / step_ms
+    # the port's own kernels, by function name
+    port = collections.defaultdict(lambda: [0.0, 0])
+    for k, t, c in events:
+        if _is_port_kernel(k):
+            port[_kernel_name(k)][0] += t
+            port[_kernel_name(k)][1] += c
     rec[name] = dict(
         profiled_wall_ms=wall_ms, step_ms=step_ms, device_busy_ms=busy_ms,
         device_idle_share=idle,
         device_launches=sum(c for _, _, c in events),
-        top=[dict(name=k[:120], ms=t, count=c) for k, t, c in events[:12]])
+        top=[dict(name=k[:120], ms=t, count=c) for k, t, c in events[:12]],
+        port_kernels={k: dict(ms=t, count=c) for k, (t, c) in port.items()})
     print(f"{name}: device busy {busy_ms:.2f} ms of a {step_ms:.1f} ms "
           f"step (idle share {idle:.3f}), {rec[name]['device_launches']} "
-          f"device launches")
+          f"device launches; the port's kernels (ms, launches): "
+          f"{ {k: (round(t, 3), c) for k, (t, c) in port.items()} }")
 
 
 def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
@@ -1330,21 +1492,27 @@ def main() -> int:
     for name, run in phases:
         t1 = time.perf_counter()
         results[name] = run()
+        if name != "kernels":
+            _check_variants(name, results[name])
         rec["phase_s"][name] = time.perf_counter() - t1
         print(f"phase {name}: {rec['phase_s'][name]:.1f} s")
     kernels = results.pop("kernels")
     by_path = results
     line = []
     for kern in kernels:
-        if kern["name"] not in dispatch.kernel_launches():
-            continue           # extra shapes of a kernel: the json record
-        name = kern["name"]
-        line.append({k: kern[k] for k in (
-            "name", "route", "source", "replaces", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "act")
-            if k in kern}
-            | {"launches": sum(p[name] for p in by_path.values()),
-               "launches_by_path": {k: p[name] for k, p in by_path.items()}})
+        # extra shapes of a kernel stay in the json record; a row that
+        # stands for a qi / ii variant goes on the line under its name too
+        for name in [kern["name"]] + kern.get("line_as", []):
+            if name not in dispatch.kernel_launches():
+                continue
+            line.append({k: kern[k] for k in (
+                "route", "source", "replaces", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                "act", "variant") if k in kern}
+                | {"name": name,
+                   "launches": sum(p[name] for p in by_path.values()),
+                   "launches_by_path": {k: p[name]
+                                        for k, p in by_path.items()}})
     rec["kernels"] = kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

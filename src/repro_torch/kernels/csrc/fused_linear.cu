@@ -11,6 +11,9 @@
 //                        on each output tile; see gemm_epi below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
+// qi and ii take qgemm_kernel only where K % 16 != 0 or an operand is not
+// 16-byte aligned; every other shape runs on the Hopper kernels of
+// qgemm_sm90.cu (kernels/fused_linear.py qgemm_variant).
 // The shared exponents are per tensor (over the whole batched tensor) and
 // arrive as device scalars, so no host synchronisation is needed; rounding
 // bits are streamed in (uint32, one per element), none are drawn here.

@@ -1,0 +1,718 @@
+// The qi and ii GEMMs redesigned for Hopper (sm_90a): int8 tensor cores fed
+// by TMA through a ring of shared-memory stages.
+//
+// Replaces, beside the __dp4a qgemm_kernel of fused_linear.cu (which keeps
+// qq and the shapes this file does not take), the TPU kernels of
+// src/repro/kernels/fused_linear.py:
+//   fused_qi_pt_pallas  (a f32 quantized, b pre-quantized int8: every
+//                        projection and LM head of serving, the backward's dX)
+//   fused_ii_pt_pallas  (both operands int8 mantissas: the backward's dW)
+// Layout: a (B, M, K) x b (B, N, K), both contraction-last (K-major, the
+// only layout wgmma takes for 8-bit types) -> y (B, M, N) f32.  The shared
+// exponents are per tensor, device scalars; rounding bits come in as uint32.
+//
+// Exactness.  Mantissas lie in [-127, 127] and dispatch plans a kernel only
+// for K <= 65536, so every int32 partial sum is exact in any order; no
+// .satfinite.  The epilogue is float(acc) * 2^(sa + sb) (__int2float_rn,
+// __fmul_rn), and the quantizer is repro::quantize_one: y and the a
+// mantissas equal the plain versions bit for bit.
+//
+// Variants, chosen by the wrapper from the shapes alone
+// (kernels/fused_linear.py qgemm_variant): K % 16 == 0 (TMA's 16-byte row
+// stride) and 16-byte aligned operands, else the __dp4a kernel of
+// fused_linear.cu.
+//
+// wgmma (M > 16).  A persistent grid, one block per SM, walks 128 x 128
+// output tiles, M fastest (the blocks at work at one time share b tiles in
+// L2).  One producer warp keeps TMA loads of 128 x 128-byte a and b tiles
+// (128-byte swizzle) in flight through a ring of 4 stages with mbarrier
+// completion; two consumer warpgroups each run wgmma.m64n128k32.s32.s8.s8
+// on 64 of the tile's rows with int32 accumulators in registers, one
+// commit group a stage, releasing a stage once the next one's group is
+// issued.  The epilogue stages the tile through padded shared memory and
+// writes y with 16-byte coalesced stores (4-byte ones where N % 4 != 0,
+// whose rows are not 16-byte aligned); while it runs, the producer already
+// loads the next tile.  TMA zero-fills reads past M, N and K; the epilogue
+// writes nothing past M x N.  qi quantizes a once per call: a separate pass (one more
+// launch, counted with the call) reads a and its bits once and writes the
+// a mantissas, which qi returns anyway; the GEMM then reads them as int8.
+// Quantizing inside the GEMM instead would repeat it for every N tile (the
+// old kernel's 76 passes at N = 4864) or hold a strip of rows in shared
+// memory beside the ring.
+//
+// stream (M <= 16: decode, batch 4).  Bandwidth-bound on b (the LM head's
+// 136 MB).  Each block quantizes (qi) or loads (ii) the few a rows into
+// shared memory itself, with no extra launch, then streams its slab of
+// 64-row b tiles through a ring of 12 TMA stages (96 KB in flight a block)
+// and contracts with mma.sync.m16n8k32.s32.s8.s8 (a rows past M zero in
+// registers).  Only the first block of each batch slice writes the a
+// mantissas.
+//
+// Bounds on the H100 (bytes over 3.35 TB/s against 2*M*N*K int8 operations
+// at 1979 TOP/s): bytes for every shape of the main path; y's 4*M*N bytes
+// for the training dW (545 MB at the tied LM head), b's N*K for decode.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+#include "bfp.cuh"
+
+namespace {
+
+using repro::pow2f;
+using repro::quantize_one;
+using repro::scale_exp;
+
+// ---------------------------------------------------------------------------
+// PTX helpers: mbarrier, TMA, wgmma, mma.sync
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t s = smem_u32(p);
+  return p + (((s + 1023u) & ~1023u) - s);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 3-D box of a tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile of 128-byte rows written
+// by TMA with the 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), the
+// leading offset unused (1), layout 1 = SWIZZLE_128B.  Advancing the start
+// address by 32 bytes steps one k32 slice along the swizzled row.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// d (64 x 128 int32, the warpgroup's fragment) += a (64 x 32) * b (128 x 32)^T.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
+        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// c (16 x 8 int32) += a (16 x 32 s8, row) * b (32 x 8 s8, col).
+__device__ __forceinline__ void mma_s8_m16n8k32(int (&c)[4], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint32_t b0,
+                                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four consecutive f32 values and their bits -> four int8 mantissas packed
+// little-endian in one word.
+template <bool STOCH>
+__device__ __forceinline__ uint32_t quantize4(const float* __restrict__ x,
+                                              const uint32_t* __restrict__ r,
+                                              size_t idx, int e, int p) {
+  const float4 v = *reinterpret_cast<const float4*>(x + idx);
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (STOCH) u = *reinterpret_cast<const uint4*>(r + idx);
+  return ((uint32_t)quantize_one(v.x, u.x, e, p, STOCH) & 0xFFu) |
+         (((uint32_t)quantize_one(v.y, u.y, e, p, STOCH) & 0xFFu) << 8) |
+         (((uint32_t)quantize_one(v.z, u.z, e, p, STOCH) & 0xFFu) << 16) |
+         (((uint32_t)quantize_one(v.w, u.w, e, p, STOCH) & 0xFFu) << 24);
+}
+
+// ---------------------------------------------------------------------------
+// qi's quantize pass: a (n elements, n % 16 == 0) f32 [+ bits] -> am int8
+// ---------------------------------------------------------------------------
+
+template <bool STOCH>
+__global__ void __launch_bounds__(256) quantize_pass_kernel(
+    const float* __restrict__ a, const uint32_t* __restrict__ ra,
+    const int* __restrict__ ea_ptr, int p, int8_t* __restrict__ am,
+    size_t n16) {
+  const int e = *ea_ptr;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n16;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t idx = i * 16;
+    uint4 w;
+    w.x = quantize4<STOCH>(a, ra, idx, e, p);
+    w.y = quantize4<STOCH>(a, ra, idx + 4, e, p);
+    w.z = quantize4<STOCH>(a, ra, idx + 8, e, p);
+    w.w = quantize4<STOCH>(a, ra, idx + 12, e, p);
+    reinterpret_cast<uint4*>(am)[i] = w;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma: persistent warp-specialised tensor-core GEMM, int8 x int8 -> f32
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 128, TC_STAGES = 4;
+constexpr int TC_TILE_A = TC_BM * TC_BK;             // bytes
+constexpr int TC_TILE_B = TC_BN * TC_BK;
+constexpr int TC_STAGE = TC_TILE_A + TC_TILE_B;
+constexpr int TC_OUT_LD = TC_BN + 8;                 // floats: no bank conflict
+constexpr int TC_OUT = 64 * TC_OUT_LD * 4;           // bytes per consumer warpgroup
+constexpr int TC_THREADS = 288;  // two consumer warpgroups, one producer warp
+constexpr int TC_SMEM = 1024 + TC_STAGES * TC_STAGE + 2 * TC_OUT + 2 * TC_STAGES * 8;
+
+__global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
+    const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+    const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
+    float* __restrict__ y, int M, int N, int K, int B, int pa, int pb) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  float* out = reinterpret_cast<float*>(ring + TC_STAGES * TC_STAGE);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + TC_STAGES * TC_STAGE + 2 * TC_OUT);
+  uint64_t* empty = full + TC_STAGES;
+  const int m_tiles = (M + TC_BM - 1) / TC_BM, n_tiles = (N + TC_BN - 1) / TC_BN;
+  const int total = m_tiles * n_tiles * B, kc_n = (K + TC_BK - 1) / TC_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int mt = t % m_tiles, rest = t / m_tiles;
+        const int nt = rest % n_tiles, z = rest / n_tiles;
+        for (int kc = 0; kc < kc_n; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1u);
+          mbar_expect_tx(&full[stage], TC_STAGE);
+          uint8_t* st = ring + stage * TC_STAGE;
+          tma_load_3d(st, &ta, &full[stage], kc * TC_BK, mt * TC_BM, z);
+          tma_load_3d(st + TC_TILE_A, &tb, &full[stage], kc * TC_BK, nt * TC_BN, z);
+          if (++stage == TC_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const float scale = pow2f(scale_exp(*ea_ptr, pa) + scale_exp(*eb_ptr, pb));
+  float* my_out = out + wg * 64 * TC_OUT_LD;
+  const int r0 = (warp % 4) * 16 + lane / 4, c0 = (lane % 4) * 2;
+  const bool vec = N % 4 == 0;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int mt = t % m_tiles, rest = t / m_tiles;
+    const int nt = rest % n_tiles, z = rest / n_tiles;
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    // One commit group a stage; a stage is released once the next one's
+    // group is issued, so the tensor cores work while the next stage lands.
+    int prev = -1;
+    for (int kc = 0; kc < kc_n; ++kc) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t a_s = smem_u32(ring + stage * TC_STAGE + wg * 64 * TC_BK);
+      const uint32_t b_s = smem_u32(ring + stage * TC_STAGE + TC_TILE_A);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < TC_BK / 32; ++ks)
+        wgmma_s8_m64n128k32(d, gmma_desc(a_s + ks * 32), gmma_desc(b_s + ks * 32));
+      wgmma_commit();
+      wgmma_wait1();
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == TC_STAGES) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    wgmma_wait0();
+    if (tid == 0) mbar_arrive(&empty[prev]);
+    // epilogue: fragment -> padded shared tile -> coalesced rows of y
+    named_sync(1 + wg, 128);  // the previous tile's readers are done
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        const float2 v = make_float2(__fmul_rn(__int2float_rn(d[i]), scale),
+                                     __fmul_rn(__int2float_rn(d[i + 1]), scale));
+        *reinterpret_cast<float2*>(my_out + (r0 + 8 * h) * TC_OUT_LD + j * 8 + c0) = v;
+      }
+    named_sync(1 + wg, 128);
+    const int m_base = mt * TC_BM + wg * 64, n_base = nt * TC_BN;
+    float* yz = y + (size_t)z * M * N;
+    if (vec) {
+      for (int i = tid; i < 64 * (TC_BN / 4); i += 128) {
+        const int row = i / (TC_BN / 4), c4 = (i % (TC_BN / 4)) * 4;
+        const int gm = m_base + row, gn = n_base + c4;
+        if (gm < M && gn < N)
+          *reinterpret_cast<float4*>(yz + (size_t)gm * N + gn) =
+              *reinterpret_cast<const float4*>(my_out + row * TC_OUT_LD + c4);
+      }
+    } else {
+      for (int i = tid; i < 64 * TC_BN; i += 128) {
+        const int row = i / TC_BN, c = i % TC_BN;
+        const int gm = m_base + row, gn = n_base + c;
+        if (gm < M && gn < N) yz[(size_t)gm * N + gn] = my_out[row * TC_OUT_LD + c];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// stream: M <= 16, a in shared memory, b streamed through a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int ST_BN = 64, ST_BK = 128, ST_STAGES = 12;
+constexpr int ST_TILE = ST_BN * ST_BK;  // bytes
+constexpr int ST_THREADS = 160;         // 4 consumer warps + 1 producer warp
+constexpr int ST_A_LIMIT = 98304;       // bytes of a rows (M x padded K) held
+constexpr int ST_SMEM = 1024 + ST_STAGES * ST_TILE + ST_A_LIMIT + 2 * ST_STAGES * 8;
+
+__host__ __device__ constexpr int st_lda(int K) {
+  return (K + ST_BK - 1) / ST_BK * ST_BK + 16;  // +16: conflict-free row reads
+}
+
+// Four a mantissas of row `row` at byte `off` of the rows held in shared
+// memory; zero for the rows past M (the mma tile's 16 rows).
+__device__ __forceinline__ uint32_t a_word(const uint8_t* ar, int row, int lda,
+                                           int M, int off) {
+  return row < M ? *reinterpret_cast<const uint32_t*>(ar + row * lda + off) : 0u;
+}
+
+template <bool A_FLOAT, bool STOCH>
+__global__ void __launch_bounds__(ST_THREADS, 1) stream_gemm_kernel(
+    const __grid_constant__ CUtensorMap tb, const float* __restrict__ a,
+    const uint32_t* __restrict__ ra, const int8_t* __restrict__ ai,
+    const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
+    float* __restrict__ y, int8_t* __restrict__ am_out, int M, int N, int K,
+    int pa, int pb) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  const int lda = st_lda(K), kc_n = (K + ST_BK - 1) / ST_BK;
+  uint8_t* as = ring + ST_STAGES * ST_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(as + ((M * lda + 15) & ~15));
+  uint64_t* empty = full + ST_STAGES;
+  const int z = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ea = *ea_ptr;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  // the a rows, quantized (qi) or loaded (ii), zero past K
+  const size_t a0 = (size_t)z * M * K;
+  const bool write_am = A_FLOAT && blockIdx.x == 0;
+  const int words = lda / 4;
+  for (int w = threadIdx.x; w < M * words; w += ST_THREADS) {
+    const int row = w / words, k = (w % words) * 4;
+    uint32_t packed = 0;
+    if (k < K) {
+      const size_t idx = a0 + (size_t)row * K + k;
+      if (A_FLOAT) {
+        packed = quantize4<STOCH>(a, ra, idx, ea, pa);
+        if (write_am) *reinterpret_cast<uint32_t*>(am_out + idx) = packed;
+      } else {
+        packed = *reinterpret_cast<const uint32_t*>(ai + idx);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(as + row * lda + k) = packed;
+  }
+  __syncthreads();
+
+  const int n_tiles = (N + ST_BN - 1) / ST_BN;
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+        for (int kc = 0; kc < kc_n; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1u);
+          mbar_expect_tx(&full[stage], ST_TILE);
+          tma_load_3d(ring + stage * ST_TILE, &tb, &full[stage], kc * ST_BK,
+                      t * ST_BN, z);
+          if (++stage == ST_STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+    }
+    return;
+  }
+
+  // consumers: warp w owns tile rows [16 w, 16 w + 16), two n8 groups
+  const int gid = lane / 4, tig = lane % 4;
+  const float scale = pow2f(scale_exp(ea, pa) + scale_exp(*eb_ptr, pb));
+  float* yz = y + (size_t)z * M * N;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int c[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+    for (int kc = 0; kc < kc_n; ++kc) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* bt = ring + stage * ST_TILE;
+#pragma unroll
+      for (int ks = 0; ks < ST_BK / 32; ++ks) {
+        const int kb = ks * 32 + tig * 4;  // byte of the tile row
+        const uint8_t* ar = as + kc * ST_BK + kb;
+        const uint32_t x0 = a_word(ar, gid, lda, M, 0);
+        const uint32_t x1 = a_word(ar, gid + 8, lda, M, 0);
+        const uint32_t x2 = a_word(ar, gid, lda, M, 16);
+        const uint32_t x3 = a_word(ar, gid + 8, lda, M, 16);
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int n = warp * 16 + g * 8 + gid;  // row of the b tile
+          const uint8_t* br = bt + n * ST_BK;
+          const int sw = n & 7;                   // the 128-byte swizzle
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
+              br + ((((kb >> 4) ^ sw) << 4) | (kb & 15)));
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+              br + (((((kb + 16) >> 4) ^ sw) << 4) | (kb & 15)));
+          mma_s8_m16n8k32(c[g], x0, x1, x2, x3, w0, w1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == ST_STAGES) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int col = t * ST_BN + warp * 16 + g * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = gid + 8 * h;
+        if (row >= M) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col + e < N)
+            yz[(size_t)row * N + col + e] =
+                __fmul_rn(__int2float_rn(c[g][2 * h + e]), scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side: tensor maps, launches
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  });
+  return fn;
+}
+
+// A small cache of encoded maps: a map is a pure function of its key, so a
+// hit is always right, whatever else the pointer held before.
+struct MapKey {
+  const void* ptr;
+  int K, rows, B, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && K == o.K && rows == o.rows && B == o.B &&
+           box_rows == o.box_rows;
+  }
+};
+constexpr int MAP_CACHE = 64;
+struct MapEntry {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+MapEntry g_maps[MAP_CACHE];
+std::mutex g_maps_mu;
+
+// The (B, rows, K) int8 tensor at ptr, boxes of box_rows x 128 bytes, the
+// 128-byte swizzle, zero fill past every edge.
+cudaError_t int8_map(CUtensorMap* out, const void* ptr, int B, int rows, int K,
+                     int box_rows) {
+  const MapKey key{ptr, K, rows, B, box_rows};
+  const size_t h = (reinterpret_cast<uintptr_t>(ptr) >> 8) ^ (size_t)K * 31u ^
+                   (size_t)rows * 131u ^ (size_t)B * 7u ^ (size_t)box_rows;
+  MapEntry& slot = g_maps[h % MAP_CACHE];
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  if (slot.used && slot.key == key) {
+    *out = slot.map;
+    return cudaSuccess;
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)K, (cuuint64_t)K * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {128u, (cuuint32_t)box_rows, 1u};
+  const cuuint32_t estr[3] = {1u, 1u, 1u};
+  const CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
+                        dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  slot.key = key;
+  slot.map = *out;
+  slot.used = true;
+  return cudaSuccess;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+cudaError_t launch_tc(const int8_t* a, const int8_t* b, const int* ea, const int* eb,
+                      float* y, int B, int M, int N, int K, int pa, int pb,
+                      cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tc_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  CUtensorMap ta, tb;
+  cudaError_t e = int8_map(&ta, a, B, M, K, TC_BM);
+  if (e != cudaSuccess) return e;
+  e = int8_map(&tb, b, B, N, K, TC_BN);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)((M + TC_BM - 1) / TC_BM) *
+                          ((N + TC_BN - 1) / TC_BN) * B;
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  tc_gemm_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(ta, tb, ea, eb, y, M, N,
+                                                        K, B, pa, pb);
+  return cudaGetLastError();
+}
+
+template <bool A_FLOAT, bool STOCH>
+cudaError_t launch_stream(const float* a, const uint32_t* ra, const int8_t* ai,
+                          const int8_t* b, const int* ea, const int* eb, float* y,
+                          int8_t* am, int B, int M, int N, int K, int pa, int pb,
+                          cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stream_gemm_kernel<A_FLOAT, STOCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  CUtensorMap tb;
+  const cudaError_t e = int8_map(&tb, b, B, N, K, ST_BN);
+  if (e != cudaSuccess) return e;
+  const int n_tiles = (N + ST_BN - 1) / ST_BN;
+  int per = sm_count() / B;
+  if (per < 1) per = 1;
+  const dim3 grid(n_tiles < per ? n_tiles : per, B);
+  const int smem = 1024 + ST_STAGES * ST_TILE + ((M * st_lda(K) + 15) & ~15) +
+                   2 * ST_STAGES * 8;
+  stream_gemm_kernel<A_FLOAT, STOCH><<<grid, ST_THREADS, smem, stream>>>(
+      tb, a, ra, ai, ea, eb, y, am, M, N, K, pa, pb);
+  return cudaGetLastError();
+}
+
+template <bool STOCH>
+cudaError_t launch_quantize(const float* a, const uint32_t* ra, const int* ea, int p,
+                            int8_t* am, size_t n, cudaStream_t stream) {
+  const size_t n16 = n / 16;
+  size_t blocks = (n16 + 255) / 256;
+  const size_t cap = (size_t)sm_count() * 8;
+  if (blocks > cap) blocks = cap;
+  quantize_pass_kernel<STOCH><<<(unsigned)blocks, 256, 0, stream>>>(a, ra, ea, p, am,
+                                                                    n16);
+  return cudaGetLastError();
+}
+
+// The shapes and operands a variant takes; the wrapper's rule keeps to them.
+bool takes(int variant, int M, int K) {
+  if (K <= 0 || K % 16 != 0) return false;
+  if (variant == 1) return M <= 16 && M * st_lda(K) <= ST_A_LIMIT;
+  return variant == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// qi: a (B,M,K) f32 [+ ra], b_m (B,N,K) int8 -> y (B,M,N) f32, am int8.
+// variant 0: the quantize pass, then the wgmma GEMM; 1: stream (M <= 16).
+int repro_qi_sm90(const void* a, const void* ra, const void* b_m, const void* ea,
+                  const void* eb, void* y, void* am, int B, int M, int N, int K,
+                  int pa, int pb, int stochastic, int variant, void* stream) {
+  if (!takes(variant, M, K) || !aligned16(a) || !aligned16(ra) ||
+      !aligned16(b_m) || !aligned16(y) || !aligned16(am))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const uint32_t* rf = static_cast<const uint32_t*>(ra);
+  const int8_t* bi = static_cast<const int8_t*>(b_m);
+  const int* eap = static_cast<const int*>(ea);
+  const int* ebp = static_cast<const int*>(eb);
+  float* yf = static_cast<float*>(y);
+  int8_t* ami = static_cast<int8_t*>(am);
+  if (variant == 1)
+    return (int)(stochastic
+                     ? launch_stream<true, true>(af, rf, nullptr, bi, eap, ebp, yf, ami,
+                                                 B, M, N, K, pa, pb, s)
+                     : launch_stream<true, false>(af, rf, nullptr, bi, eap, ebp, yf,
+                                                  ami, B, M, N, K, pa, pb, s));
+  const size_t n = (size_t)B * M * K;
+  cudaError_t e = stochastic ? launch_quantize<true>(af, rf, eap, pa, ami, n, s)
+                             : launch_quantize<false>(af, rf, eap, pa, ami, n, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_tc(ami, bi, eap, ebp, yf, B, M, N, K, pa, pb, s);
+}
+
+// ii: a_m (B,M,K) int8, b_m (B,N,K) int8 -> y (B,M,N) f32.
+// variant 0: the wgmma GEMM; 1: stream (M <= 16).
+int repro_ii_sm90(const void* a_m, const void* b_m, const void* ea, const void* eb,
+                  void* y, int B, int M, int N, int K, int pa, int pb, int variant,
+                  void* stream) {
+  if (!takes(variant, M, K) || !aligned16(a_m) || !aligned16(b_m) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int8_t* ai = static_cast<const int8_t*>(a_m);
+  const int8_t* bi = static_cast<const int8_t*>(b_m);
+  const int* eap = static_cast<const int*>(ea);
+  const int* ebp = static_cast<const int*>(eb);
+  float* yf = static_cast<float*>(y);
+  if (variant == 1)
+    return (int)launch_stream<false, false>(nullptr, nullptr, ai, bi, eap, ebp, yf,
+                                            nullptr, B, M, N, K, pa, pb, s);
+  return (int)launch_tc(ai, bi, eap, ebp, yf, B, M, N, K, pa, pb, s);
+}
+
+}  // extern "C"

@@ -135,11 +135,14 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "gemm_epi": kfl.fused_gemm_epi, "norm_gemm": kfc.fused_norm_gemm,
              "decode_block": kfc.fused_decode_block,
              "bfp_quantize": kbq.bfp_quantize,
-             "int8_matmul": kim.int8_matmul}
+             "int8_matmul": kim.int8_matmul,
+             **{f"qi_{v}": c for v, c in kfl.qi_variants.items()},
+             **{f"ii_{v}": c for v, c in kfl.ii_variants.items()}}
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the kernel wrappers."""
+    """Launch counts of the kernel wrappers, and of the ``qi`` / ``ii``
+    variants (``qi_wgmma``, ``qi_stream``, ``qi_dp4a``, ``ii_...``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 

@@ -28,9 +28,14 @@ Ports of four TPU kernels of ``repro.kernels.fused_linear``:
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
 -> y (B, M, N).  The CUDA source is ``csrc/fused_linear.cu``; its note
-says what bounds it.  Each wrapper runs the kernel for CUDA tensors and
-the plain version (same file, below) for CPU tensors, and nothing else:
-a CUDA tensor never reaches the plain version through a wrapper.
+says what bounds it.  ``qi`` and ``ii`` run on the Hopper kernels of
+``csrc/qgemm_sm90.cu`` where the shapes allow (``qgemm_variant``): int8
+``wgmma`` fed by TMA for M > 16, a weight-streaming ``mma.sync`` kernel
+for M <= 16, and the ``__dp4a`` kernel of ``fused_linear.cu`` for a K
+that is not a multiple of 16; each variant has its own launch counter.
+Each wrapper runs the kernel for CUDA tensors and the plain version (same
+file, below) for CPU tensors, and nothing else: a CUDA tensor never
+reaches the plain version through a wrapper.
 Exponents are int32 device tensors, a scalar per tensor or one per row
 and block (no host synchronisation); rounding bits are uint32 values held
 in int64 (``core.prng``).
@@ -48,6 +53,7 @@ from . import build
 
 __all__ = ["eff_exp", "quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
            "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
+           "QGEMM_VARIANTS", "qgemm_variant", "qi_variants", "ii_variants",
            "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
            "fused_qq_blk_plain", "blk_combine", "as_u32", "EPI_ACTS",
            "epi_apply", "epi_pullback", "fused_gemm_epi",
@@ -294,6 +300,59 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+# The variants of the qi and ii kernels, in the order of their C codes
+# (``csrc/qgemm_sm90.cu``: 0 wgmma, 1 stream; dp4a is ``fused_linear.cu``).
+QGEMM_VARIANTS = ("wgmma", "stream", "dp4a")
+# Bytes of a rows (M x K rounded up to 128, plus 16) the stream kernel
+# holds in shared memory beside its ring of b tiles.
+_STREAM_A_BYTES = 98304
+
+
+def qgemm_variant(m: int, k: int, aligned: bool = True) -> str:
+    """The variant of the qi / ii kernel for an (M, K) x (N, K) contraction,
+    from the shapes alone: TMA reads rows of 16-byte multiples from 16-byte
+    aligned operands (``aligned``), so K % 16 != 0 takes the ``__dp4a``
+    kernel; M <= 16 whose a rows fit the stream kernel's shared memory
+    streams b; every other shape runs on the tensor cores."""
+    if k <= 0 or k % 16 or not aligned:
+        return "dp4a"
+    if m <= 16 and m * (-(-k // 128) * 128 + 16) <= _STREAM_A_BYTES:
+        return "stream"
+    return "wgmma"
+
+
+def _aligned(*ts: Optional[torch.Tensor]) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+class _Launches:
+    """The plain launch counter of one kernel variant."""
+
+    __slots__ = ("launches",)
+
+    def __init__(self):
+        self.launches = 0
+
+
+# Launches of each variant of the qi and ii kernels (a qi call on the
+# tensor cores is two launches, the quantize pass and the GEMM, counted
+# once).
+qi_variants = {v: _Launches() for v in QGEMM_VARIANTS}
+ii_variants = {v: _Launches() for v in QGEMM_VARIANTS}
+
+
+def _lib_sm90() -> ctypes.CDLL:
+    lib = build.load("qgemm_sm90")
+    if not getattr(lib, "_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.repro_qi_sm90.argtypes = [vp] * 7 + [i] * 8 + [vp]
+        lib.repro_qi_sm90.restype = i
+        lib.repro_ii_sm90.argtypes = [vp] * 5 + [i] * 7 + [vp]
+        lib.repro_ii_sm90.restype = i
+        lib._typed = True
+    return lib
+
+
 def _lib_linear() -> ctypes.CDLL:
     lib = build.load("fused_linear")
     if not getattr(lib, "_typed", False):
@@ -371,12 +430,21 @@ def fused_qi_pt(a: torch.Tensor, ra: Optional[torch.Tensor],
     ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
     y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
     am = torch.empty((nb, m, k), dtype=torch.int8, device=dev)
-    err = _lib_linear().repro_fused_qi(
-        _ptr(a), _ptr(ra if stochastic else None), _ptr(b_m), _ptr(ea),
-        _ptr(eb), _ptr(y), _ptr(am), nb, m, n, k, pa, pb, int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "fused_qi_pt")
+    ra = ra if stochastic else None
+    variant = qgemm_variant(m, k, _aligned(a, ra, b_m, y, am))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if variant == "dp4a":
+        err = _lib_linear().repro_fused_qi(
+            _ptr(a), _ptr(ra), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y),
+            _ptr(am), nb, m, n, k, pa, pb, int(stochastic), stream)
+    else:
+        err = _lib_sm90().repro_qi_sm90(
+            _ptr(a), _ptr(ra), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y),
+            _ptr(am), nb, m, n, k, pa, pb, int(stochastic),
+            QGEMM_VARIANTS.index(variant), stream)
+    _raise_on(err, f"fused_qi_pt ({variant})")
     fused_qi_pt.launches += 1
+    qi_variants[variant].launches += 1
     return y, am
 
 
@@ -393,11 +461,19 @@ def fused_ii_pt(a_m: torch.Tensor, b_m: torch.Tensor, ea: torch.Tensor,
     _check("b_m", b_m, torch.int8, (nb, n, k), dev)
     ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
     y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
-    err = _lib_linear().repro_fused_ii(
-        _ptr(a_m), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y), nb, m, n, k, pa,
-        pb, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "fused_ii_pt")
+    variant = qgemm_variant(m, k, _aligned(a_m, b_m, y))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if variant == "dp4a":
+        err = _lib_linear().repro_fused_ii(
+            _ptr(a_m), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y), nb, m, n, k,
+            pa, pb, stream)
+    else:
+        err = _lib_sm90().repro_ii_sm90(
+            _ptr(a_m), _ptr(b_m), _ptr(ea), _ptr(eb), _ptr(y), nb, m, n, k,
+            pa, pb, QGEMM_VARIANTS.index(variant), stream)
+    _raise_on(err, f"fused_ii_pt ({variant})")
     fused_ii_pt.launches += 1
+    ii_variants[variant].launches += 1
     return y
 
 

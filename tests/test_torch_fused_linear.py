@@ -174,7 +174,10 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0, "gemm_epi": 0,
                                     "norm_gemm": 0, "decode_block": 0,
-                                    "bfp_quantize": 0, "int8_matmul": 0}
+                                    "bfp_quantize": 0, "int8_matmul": 0,
+                                    "qi_wgmma": 0, "qi_stream": 0,
+                                    "qi_dp4a": 0, "ii_wgmma": 0,
+                                    "ii_stream": 0, "ii_dp4a": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

@@ -29,11 +29,28 @@ def cuda():
     return torch.device("cuda")
 
 
+def _variant_launches(kind):
+    return {n: c for n, c in kd.kernel_launches().items()
+            if n.startswith(f"{kind}_") and c}
+
+
+# qi shapes beyond the qq ones (B, M, K, N): the two timed main-path
+# shapes (the decode LM head, the prefill gate), ragged M (17, 130) and N
+# (70, at M = 4 too), N % 4 != 0 on the tensor cores, a batch on the
+# streaming variant, and K not a multiple of 16 at M <= 16 (__dp4a).
+QI_SHAPES = [(1, 4, 896, 151936), (1, 512, 896, 4864), (1, 4, 896, 70),
+             (1, 17, 896, 4864), (1, 130, 896, 896), (3, 4, 128, 200),
+             (1, 4, 37, 100)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("nb,m,k,n", [(1, 4, 896, 1000), (1, 37, 67, 29),
-                                      (8, 896, 64, 128), (2, 130, 96, 70)])
+                                      (8, 896, 64, 128), (2, 130, 96, 70)]
+                         + QI_SHAPES)
 def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
+    """y and mantissas ``==``; the qi call moves the counter of the
+    variant ``qgemm_variant`` names (wgmma, stream or dp4a)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn((nb, m, k), generator=g, device=cuda)
     b = torch.randn((nb, n, k), generator=g, device=cuda)
@@ -53,20 +70,30 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want = kfl.fused_qi_pt_plain(a, ra, bm, ea, eb, stochastic=stochastic)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert kd.kernel_launches() == {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0,
-                                    "attn_decode": 0, "attn_fwd": 0,
-                                    "attn_bwd": 0, "gemm_epi": 0,
-                                    "norm_gemm": 0, "decode_block": 0,
-                                    "bfp_quantize": 0, "int8_matmul": 0}
+    want = {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0, "attn_decode": 0,
+            "attn_fwd": 0, "attn_bwd": 0, "gemm_epi": 0, "norm_gemm": 0,
+            "decode_block": 0, "bfp_quantize": 0, "int8_matmul": 0}
+    want.update({f"{kind}_{v}": 0 for kind in ("qi", "ii")
+                 for v in kfl.QGEMM_VARIANTS})
+    want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
+    assert kd.kernel_launches() == want
+
+
+# ii shapes beyond the first five (B, M, K, N): the two timed main-path
+# shapes (the LM head's and w_down's training dW), M <= 16 with K % 16 ==
+# 0 (the streaming variant, a batch too), ragged M on the tensor cores.
+II_SHAPES = [(1, 896, 512, 151936), (1, 4864, 512, 896), (1, 4, 512, 896),
+             (2, 4, 512, 70), (1, 17, 512, 4864)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,m,k,n", [(1, 896, 512, 1000), (1, 37, 67, 29),
                                       (8, 64, 896, 128), (2, 13, 130, 70),
-                                      (3, 5, 33, 17)])
+                                      (3, 5, 33, 17)] + II_SHAPES)
 def test_ii_kernel_equal_plain(cuda, nb, m, k, n):
-    """K not a multiple of the 32-wide slice nor of 4 (the unvectorised
-    load), M under and over the 16-row tile, a batch grid dimension."""
+    """K not a multiple of 16 (the __dp4a variant; of 4: its unvectorised
+    load), M under and over 16, a batch grid dimension; the call moves the
+    counter of the variant ``qgemm_variant`` names."""
     g = torch.Generator(device=cuda).manual_seed(2)
     am = torch.randint(-127, 128, (nb, m, k), generator=g, device=cuda,
                        dtype=torch.int8)
@@ -80,6 +107,40 @@ def test_ii_kernel_equal_plain(cuda, nb, m, k, n):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert kd.kernel_launches()["ii"] == 1
+    assert _variant_launches("ii") == {f"ii_{kfl.qgemm_variant(m, k)}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("m,n,k", [(512, 4864, 896), (151936, 4, 896),
+                                   (130, 70, 96), (29, 37, 67)])
+def test_iq_and_pp_routes_equal_plain(cuda, m, n, k, stochastic):
+    """Kind iq (the qi kernel with b quantized in it: its M is b's rows)
+    and kind pp (the ii kernel) through dispatch, against the same calls
+    on the plain versions."""
+    from repro_torch.core.bfp import BFP, QuantConfig
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cfg = QuantConfig(stochastic=stochastic)
+    aq = BFP(torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                           dtype=torch.int8),
+             torch.tensor(119, dtype=torch.int32, device=cuda), cfg)
+    bq = BFP(torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                           dtype=torch.int8),
+             torch.tensor(123, dtype=torch.int32, device=cuda), cfg)
+    b = torch.randn((n, k), generator=g, device=cuda)
+    iq = kd.Decision("iq", kd.FUSED, "test", m, k, n, "iq", "cuda")
+    pp = kd.Decision("pp", kd.FUSED, "test", m, k, n, "pp", "cuda")
+    kd.reset_kernel_launches()
+    y, bqk = kd.contract_iq(aq, b, cfg, prng.key(9), iq)
+    y2 = kd.contract_ii(aq, bq, pp)
+    torch.cuda.synchronize()
+    assert _variant_launches("qi") == {f"qi_{kfl.qgemm_variant(n, k)}": 1}
+    assert _variant_launches("ii") == {f"ii_{kfl.qgemm_variant(m, k)}": 1}
+    with kd.plain_kernels():
+        yp, bqp = kd.contract_iq(aq, b, cfg, prng.key(9), iq)
+        y2p = kd.contract_ii(aq, bq, pp)
+    assert torch.equal(y, yp) and torch.equal(bqk.m, bqp.m)
+    assert torch.equal(bqk.e, bqp.e) and torch.equal(y2, y2p)
 
 
 @pytest.mark.cuda
