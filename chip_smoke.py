@@ -7,12 +7,16 @@ Phases, any of which failing exits non-zero:
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
 2. call each kernel at the shapes the serving and training paths give it
-   and hold it against its plain torch version on the same inputs: ``qq``
-   y and mantissas ``==``; each variant of ``qi`` and ``ii`` (``wgmma``,
-   ``stream``, ``__dp4a``: ``fused_linear.qgemm_variant``) y and
+   and hold it against its plain torch version on the same inputs: each
+   variant of ``qq`` (``wgmma``, ``stream``, ``__dp4a``:
+   ``fused_linear.qq_variant``) y and both mantissas ``==`` at every
+   main-path shape of qwen2-0.5b, minicpm-2b and starcoder2-7b (the
+   projections, the LM heads, the prefill attention) and odd ones, both
+   roundings, with and without residuals; each variant of ``qi`` and
+   ``ii`` (``fused_linear.qgemm_variant``) y and
    mantissas ``==`` at the main path's shapes, ragged, batched and odd-K
    ones, both roundings, and the ``iq`` and ``pp`` routes through
-   dispatch, each call moving its variant's counter; ``attn_decode`` y ``==``,
+   dispatch; each call moving its variant's counter; ``attn_decode`` y ``==``,
    ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
    at the qwen2 training slice and at an odd shape, ``qq_blk`` y and
    mantissas ``==`` at the per-block training shapes and odd ones (blocks
@@ -77,13 +81,16 @@ Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
 xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows) ``==``
 at the shapes of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd
 ones (relu, gelu, an odd GLU half), and ``bfp_quantize``
-(mantissas) and ``int8_matmul`` (y) ``==`` at the shapes of phase 9 and at
-odd ones (edge values, a batch, unaligned operands).
+(mantissas) and ``int8_matmul`` (y; ``wgmma``, ``stream`` and wmma:
+``int8_matmul.int8_matmul_variant``) ``==`` at the shapes of phase 9 and
+at odd ones (edge values, a batch, unaligned operands, a flushed scale),
+each call moving its variant's counter.
 
-After each of phases 3-10 every ``qi`` and ``ii`` launch must be one of
-the ``wgmma`` or ``stream`` variant (none on ``__dp4a``); the counts by
-variant are printed.  Each step profile also sums the device time of the
-port's own kernels by name.
+After each of phases 3-10 every ``qq``, ``qi`` and ``ii`` launch must be
+one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``) and every
+``int8_matmul`` launch one of ``wgmma``: the variants the shape rules name
+for the main path's shapes; the counts by variant are printed.  Each step
+profile also sums the device time of the port's own kernels by name.
 
 Kernel, plain and library times are device times from ``torch.profiler``
 (the sum of the CUDA kernels each call launches, per call); the wrapper's
@@ -126,9 +133,11 @@ EXPECTED_PER_STEP = {"int8_block": {"qq_blk": 24 * 25 + 3, "qq": 24 * 2,
                      # phase 9: per layer 9 contractions (7 projections,
                      # QKᵀ, PV) a direction, qq forward (2 quantizes), qi
                      # dX (1), ii dW (0); the LM head's forward and dW, its
-                     # dX (K = vocab > accum_chunk) on the plain path
+                     # dX (K = vocab > accum_chunk) on the plain path; every
+                     # int8_matmul on its wgmma variant (M > 16, K % 16 == 0)
                      "train_unfused": {"bfp_quantize": 24 * 27 + 2,
-                                       "int8_matmul": 24 * 27 + 2}}
+                                       "int8_matmul": 24 * 27 + 2,
+                                       "int8_matmul_wgmma": 24 * 27 + 2}}
 # Phases 7 and 8: minicpm-2b.  Training keeps full width and cuts the
 # depth from 40 to 24 layers (PERF.md §4: the int64 rounding-bit
 # temporaries grow with the stacked layer leaves; 24 layers fit the card's
@@ -166,18 +175,22 @@ def _fail(msg: str) -> int:
 def _device_ms(torch, fn, iters: int = 10, split=None) -> float:
     """Device time per call: every CUDA kernel the call launches, summed,
     from torch.profiler; ``split`` (a dict), when given, gets each
-    kernel's share by ``_kernel_name``.  Raises if the profiler sees no
-    device time."""
+    kernel's share by ``_kernel_name``.  A profile that holds no device
+    event at all is taken again, up to three times (a CUPTI trace of a few
+    short launches has come back empty once); raises if every one does."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    total_us = sum(us for _, us in events)
-    if total_us <= 0:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        total_us = sum(us for _, us in events)
+        if total_us > 0:
+            break
+    else:
         raise RuntimeError("torch.profiler recorded no device time")
     if split is not None:
         for name, us in events:
@@ -261,38 +274,7 @@ def check_kernels(torch, dev, rec):
 
     out += check_qgemm(torch, dev, g, bits)
 
-    # qq: the batched QKᵀ of the prefill attention (B*Hkv slices of
-    # (g*S, D) x (T, D)): stochastic and half up, with and without the
-    # mantissa residuals.
-    nb, m, k, n = BATCH * 2, 7 * PROMPT, 64, PROMPT
-    a = torch.randn((nb, m, k), generator=g, device=dev)
-    b = torch.randn((nb, n, k), generator=g, device=dev)
-    ra, rb = bits(2, a.shape), bits(3, b.shape)
-    ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
-    res = kfl.fused_qq_pt(a, ra, b, rb, ea, eb)
-    resp = kfl.fused_qq_pt_plain(a, ra, b, rb, ea, eb)
-    resn = kfl.fused_qq_pt(a, None, b, None, ea, eb, stochastic=False)
-    resnp = kfl.fused_qq_pt_plain(a, None, b, None, ea, eb, stochastic=False)
-    y_only = kfl.fused_qq_pt(a, ra, b, rb, ea, eb, emit_residuals=False)[0]
-    torch.cuda.synchronize()
-    err = max((res[0] - resp[0]).abs().max().item(),
-              (resn[0] - resnp[0]).abs().max().item())
-    for x, y in list(zip(res, resp)) + list(zip(resn, resnp)) + [(y_only, resp[0])]:
-        if not torch.equal(x, y):
-            raise AssertionError(f"qq: kernel != plain (max |dy| {err})")
-    ra32, rb32 = kfl.as_u32(ra), kfl.as_u32(rb)
-    ms = _device_ms(torch, lambda: kfl.fused_qq_pt(a, ra32, b, rb32, ea, eb))
-    call = _time_ms(torch, lambda: kfl.fused_qq_pt(a, ra32, b, rb32, ea, eb))
-    pms = _device_ms(torch, lambda: kfl.fused_qq_pt_plain(a, ra, b, rb, ea, eb), iters=3)
-    lib = _int_mm_ms(torch, res[1], res[2])
-    nbytes = nb * (8 * m * k + 8 * n * k + 4 * m * n + m * k + n * k)
-    bound, by = _bound_ms(nbytes, 2.0 * nb * m * n * k)
-    out.append(dict(name="qq", route="cuda",
-                    source="src/repro_torch/kernels/csrc/fused_linear.cu",
-                    replaces="src/repro/kernels/fused_linear.py:188",
-                    shape=[nb, m, k, n], max_abs_err=err, ms=ms, call_ms=call,
-                    plain_ms=pms, bound_ms=bound, bound_by=by,
-                    library_ms=lib))
+    out += check_qq(torch, dev, g, bits)
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
@@ -385,16 +367,9 @@ def check_qgemm(torch, dev, g, bits):
                              dtype=torch.int8)
 
     def expect(kind, m, k, fn):
-        want = f"{kind}_{kfl.qgemm_variant(m, k)}"
-        dispatch.reset_kernel_launches()
-        res = fn()
-        torch.cuda.synchronize()
-        got = {n: c for n, c in dispatch.kernel_launches().items()
-               if n.startswith(f"{kind}_") and c}
-        if got != {want: 1}:
-            raise AssertionError(f"{kind} M={m} K={k}: variant launches "
-                                 f"{got}, expected {want}")
-        return res, want.split("_", 1)[1]
+        want = kfl.qgemm_variant(m, k)
+        return _expect_variant(torch, kind, kfl.QGEMM_VARIANTS, want,
+                               f"M={m} K={k}", fn), want
 
     def qi_case(nb, m, k, n, stochastic):
         a = torch.randn((nb, m, k), generator=g, device=dev)
@@ -515,15 +490,160 @@ def check_qgemm(torch, dev, g, bits):
     return out
 
 
+def _expect_variant(torch, kind, variants, want, what, fn):
+    """``fn()`` with the launch counts set to 0 just before: of the
+    variant counters of ``kind`` it must move ``want``'s alone, by one."""
+    from repro_torch.kernels import dispatch
+    dispatch.reset_kernel_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = dispatch.kernel_launches()
+    got = {v: counts[f"{kind}_{v}"] for v in variants
+           if counts[f"{kind}_{v}"]}
+    if got != {want: 1}:
+        raise AssertionError(f"{kind} {what}: variant launches {got}, "
+                             f"expected {want}")
+    return res
+
+
+# qq shapes of the main path, (B, M, K, N): qwen2's prefill attention
+# (QKᵀ and PV of B*Hkv slices), its projections (wq, wk / wv, gate / up,
+# w_down) and tied LM head; minicpm-2b's (phase 8) wq, w_down and LM head
+# (N % 4 != 0); starcoder2-7b's (phase 10) merged QKV, w_down and LM head;
+# then odd ones: M <= 16 (stream), K % 16 != 0 (__dp4a), a batch with
+# ragged M and N.  The timed rows name themselves; the row named "qq"
+# stands on the kernels line for the kernel and for its wgmma variant.
+QQ_SHAPES = {"qq_attn": (BATCH * 2, 7 * PROMPT, 64, PROMPT),
+             "attn_pv": (BATCH * 2, 7 * PROMPT, PROMPT, 64),
+             "wq": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 896),
+             "wk": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 128),
+             "qq": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 4864),
+             "qq_w_down": (1, TRAIN_BATCH * TRAIN_SEQ, 4864, 896),
+             "qq_lm_head": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 151936),
+             "minicpm_wq": (1, TRAIN_BATCH * TRAIN_SEQ, 2304, 2304),
+             "minicpm_w_down": (1, TRAIN_BATCH * TRAIN_SEQ, 5760, 2304),
+             "minicpm_lm_head": (1, TRAIN_BATCH * TRAIN_SEQ, 2304, 122753),
+             "starcoder2_qkv": (1, TRAIN_BATCH * TRAIN_SEQ, 4608, 5632),
+             "starcoder2_w_down": (1, TRAIN_BATCH * TRAIN_SEQ, 18432, 4608),
+             "starcoder2_lm_head": (1, TRAIN_BATCH * TRAIN_SEQ, 4608, 49152),
+             "qq_stream": (1, BATCH, 896, 1000),
+             "qq_dp4a": (1, 130, 67, 70),
+             "odd_batch": (2, 130, 96, 70)}
+QQ_TIMED = ("qq_attn", "qq", "qq_w_down", "qq_lm_head", "qq_stream",
+            "qq_dp4a")
+
+
+def check_qq(torch, dev, g, bits):
+    """qq against its plain version at ``QQ_SHAPES``: y and both mantissas
+    ``==``, stochastic and half up, with residuals and without (y alone),
+    each call moving the counter of the variant ``qq_variant`` names;
+    timed at ``QQ_TIMED`` beside ``torch._int_mm`` of the same mantissas
+    and the bytes bound (f32 values and bits of both operands in, y and
+    both mantissas out)."""
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.kernels import ref
+
+    out, held = [], []
+    for name, (nb, m, k, n) in QQ_SHAPES.items():
+        a = torch.randn((nb, m, k), generator=g, device=dev)
+        b = torch.randn((nb, n, k), generator=g, device=dev)
+        ra, rb = bits(2, a.shape), bits(3, b.shape)
+        ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+        variant = kfl.qq_variant(m, k)
+        err = 0.0
+        for sr in (True, False):
+            r = (ra, rb) if sr else (None, None)
+            kw = dict(stochastic=sr)
+            res = _expect_variant(torch, "qq", kfl.QGEMM_VARIANTS, variant,
+                                  str((nb, m, k, n)), lambda: kfl.fused_qq_pt(
+                                      a, r[0], b, r[1], ea, eb, **kw))
+            y_only = _expect_variant(
+                torch, "qq", kfl.QGEMM_VARIANTS, variant, str((nb, m, k, n)),
+                lambda: kfl.fused_qq_pt(a, r[0], b, r[1], ea, eb,
+                                        emit_residuals=False, **kw))
+            want = kfl.fused_qq_pt_plain(a, r[0], b, r[1], ea, eb, **kw)
+            torch.cuda.synchronize()
+            err = max(err, (res[0] - want[0]).abs().max().item())
+            if not (all(torch.equal(x, y) for x, y in zip(res, want))
+                    and torch.equal(y_only[0], want[0])
+                    and y_only[1:] == (None, None)):
+                raise AssertionError(f"qq {name} {variant} stochastic={sr}: "
+                                     f"kernel != plain (max |dy| {err})")
+        held.append(f"{name} {variant}")
+        if name in QQ_TIMED:
+            ra32, rb32 = kfl.as_u32(ra), kfl.as_u32(rb)
+            src = ("src/repro_torch/kernels/csrc/fused_linear.cu"
+                   if variant == "dp4a"
+                   else "src/repro_torch/kernels/csrc/qgemm_sm90.cu")
+            nbytes = nb * (8 * m * k + 8 * n * k + 4 * m * n + m * k + n * k)
+            row = _record_kernel(
+                torch, name, src, "src/repro/kernels/fused_linear.py:188",
+                [nb, m, k, n], err,
+                lambda: kfl.fused_qq_pt(a, ra32, b, rb32, ea, eb),
+                lambda: kfl.fused_qq_pt_plain(a, ra, b, rb, ea, eb), nbytes,
+                2.0 * nb * m * n * k, _int_mm_ms(torch, res[1], res[2]),
+                "library_ms: torch._int_mm of the same mantissas, one a "
+                "batch slice", plain_iters=2)
+            if name == "qq_attn":
+                row["dp4a_ms"] = _dp4a_qq_ms(
+                    torch, kfl, a, ra32, b, rb32, ea, eb,
+                    kfl.fused_qq_pt_plain(a, ra, b, rb, ea, eb)[0])
+                print(f"qq_attn on the __dp4a kernel: {row['dp4a_ms']:.4f} ms "
+                      f"device time (the rule's wgmma: {row['ms']:.4f} ms)")
+            out.append(dict(row, variant=variant,
+                            line_as=["qq_wgmma"] if name == "qq" else []))
+        del a, b, ra, rb, res, y_only, want
+        torch.cuda.empty_cache()
+    print(f"qq == plain at every shape ({len(held)}, both roundings, with "
+          f"and without residuals): {held}")
+    return out
+
+
+def _dp4a_qq_ms(torch, kfl, a, ra32, b, rb32, ea, eb, y_want):
+    """Device ms of the __dp4a qq kernel on the same operands, launched
+    through its C entry point (the shape rule no longer picks it at K % 16
+    == 0): the comparison behind the rule at the attention shapes.  Its y
+    must equal ``y_want``, the plain version's stochastic y."""
+    import ctypes
+    nb, m, k = a.shape
+    n = b.shape[1]
+    y = torch.empty((nb, m, n), dtype=torch.float32, device=a.device)
+    am = torch.empty((nb, m, k), dtype=torch.int8, device=a.device)
+    bm = torch.empty((nb, n, k), dtype=torch.int8, device=a.device)
+    p = kfl._ptr
+    lib = kfl._lib_linear()
+
+    def run():
+        err = lib.repro_fused_qq(
+            p(a), p(ra32), p(b), p(rb32), p(ea), p(eb), p(y), p(am), p(bm),
+            nb, m, n, k, 7, 1, ctypes.c_void_p(
+                torch.cuda.current_stream(a.device).cuda_stream))
+        kfl._raise_on(err, "qq (__dp4a, timed)")
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_want):
+        raise AssertionError("qq __dp4a at the attention shape != plain")
+    return _device_ms(torch, run)
+
+
 def _check_variants(label, launches):
-    """Every qi and ii launch of a main-path phase is one of a variant, and
-    none of the __dp4a one (every main-path K is a multiple of 16)."""
-    for kind in ("qi", "ii"):
-        per = {v: launches[f"{kind}_{v}"] for v in ("wgmma", "stream", "dp4a")}
-        if sum(per.values()) != launches[kind] or per["dp4a"]:
+    """Every qq, qi, ii and int8_matmul launch of a main-path phase is one
+    of a variant, and each on the variant the shape rule names for it:
+    every main-path K is a multiple of 16 and every operand aligned, so
+    none on the fallback (``__dp4a``, wmma); every int8_matmul launch (M >
+    16 throughout phase 9) on wgmma."""
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.kernels import int8_matmul as kim
+    for kind, variants, allowed in (
+            ("qq", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
+            ("qi", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
+            ("ii", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
+            ("int8_matmul", kim.INT8_MATMUL_VARIANTS, ("wgmma",))):
+        per = {v: launches[f"{kind}_{v}"] for v in variants}
+        if sum(per.values()) != launches[kind] or any(
+                c for v, c in per.items() if v not in allowed):
             raise AssertionError(f"{label}: {launches[kind]} {kind} launches "
-                                 f"as {per}, expected all on the tensor-core "
-                                 f"or streaming variant")
+                                 f"as {per}, expected all on {allowed}")
         print(f"{label}: {kind} launches by variant {per}")
 
 
@@ -748,8 +868,9 @@ def check_unfused(torch, dev, g, bits):
 
     src_q = "src/repro_torch/kernels/csrc/bfp_quant.cu"
     src_m = "src/repro_torch/kernels/csrc/int8_matmul.cu"
+    src_sm90 = "src/repro_torch/kernels/csrc/qgemm_sm90.cu"
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    out = []
+    out, held = [], []
     # name: (M, N); the LM-head weight and an MLP activation of phase 9
     for name, (m, n) in (("bfp_quantize", (151936, 896)),
                          ("bfp_quantize_act", (tokens, 4864)),
@@ -788,52 +909,75 @@ def check_unfused(torch, dev, g, bits):
     # (B, M, K, N): a projection, the LM head's forward and its dW, the
     # attention's batched qbmm (batch x kv heads, the 7 query heads of a
     # group x 128 positions: QKᵀ, PV and QKᵀ's dW; phase 9's shapes), then
-    # odd ones
+    # odd ones: K % 16 != 0 (wmma), M <= 16 (stream), ragged M and N with a
+    # batch, an operand off 16-byte alignment (wmma).  Each call must move
+    # the counter of the variant int8_matmul_variant names.  The names
+    # starting with int8_matmul are timed; those named as a variant counter
+    # stand for it on the kernels line.
     qrows = 14 // 2 * TRAIN_SEQ
-    for name, (nb, m, k, n) in (
-            ("int8_matmul", (1, tokens, 896, 4864)),
-            ("int8_matmul_lm_head", (1, tokens, 896, 151936)),
-            ("int8_matmul_lm_head_dw", (1, 896, tokens, 151936)),
-            ("qbmm_qk", (TRAIN_BATCH * 2, qrows, 64, TRAIN_SEQ)),
-            ("qbmm_pv", (TRAIN_BATCH * 2, qrows, TRAIN_SEQ, 64)),
-            ("qbmm_qk_dw", (TRAIN_BATCH * 2, 64, qrows, TRAIN_SEQ)),
-            ("odd", (3, 37, 67, 29)), ("odd_k", (1, 5, 33, 130)),
-            ("odd_batch", (2, 130, 96, 70))):
+    for name, (nb, m, k, n), line_as in (
+            ("int8_matmul", (1, tokens, 896, 4864), ["int8_matmul_wgmma"]),
+            ("int8_matmul_lm_head", (1, tokens, 896, 151936), []),
+            ("int8_matmul_lm_head_dw", (1, 896, tokens, 151936), []),
+            ("qbmm_qk", (TRAIN_BATCH * 2, qrows, 64, TRAIN_SEQ), []),
+            ("qbmm_pv", (TRAIN_BATCH * 2, qrows, TRAIN_SEQ, 64), []),
+            ("qbmm_qk_dw", (TRAIN_BATCH * 2, 64, qrows, TRAIN_SEQ), []),
+            ("odd", (3, 37, 67, 29), []),
+            ("int8_matmul_wmma", (1, 5, 33, 130), []),
+            ("int8_matmul_stream", (2, 4, 512, 70), []),
+            ("odd_batch", (2, 130, 96, 70), []),
+            ("odd_unaligned", (1, 37, 64, 29), [])):
         am = torch.randint(-127, 128, (nb, m, k), generator=g, device=dev,
                            dtype=torch.int8)
         bm = torch.randint(-127, 128, (nb, n, k), generator=g, device=dev,
                            dtype=torch.int8)
+        if name == "odd_unaligned":       # a view one byte into its storage
+            am = torch.randint(-127, 128, (nb * m * k + 16,), generator=g,
+                               device=dev, dtype=torch.int8
+                               )[1:1 + nb * m * k].view(nb, m, k)
+        variant = kim.int8_matmul_variant(m, k, kfl._aligned(am, bm))
         err = 0.0
         for e in (-20, -150):             # -150: the scale flushes to 0
             scale = kfl.pow2_f32(torch.tensor(e, device=dev))
-            got = kim.int8_matmul(am, bm, scale)
+            got = _expect_variant(torch, "int8_matmul",
+                                  kim.INT8_MATMUL_VARIANTS, variant,
+                                  str((nb, m, k, n)),
+                                  lambda: kim.int8_matmul(am, bm, scale))
             want = kim.int8_matmul_plain(am, bm, scale)
             torch.cuda.synchronize()
             err = max(err, (got - want).abs().max().item())
             if not torch.equal(got, want):
-                raise AssertionError(f"int8_matmul {name}: kernel != plain "
-                                     f"(max |dy| {err})")
+                raise AssertionError(f"int8_matmul {name} {variant}: kernel "
+                                     f"!= plain (max |dy| {err})")
+        held.append(f"{name} {variant}")
         del got, want
         if not name.startswith("int8_matmul"):
             continue
         scale = kfl.pow2_f32(torch.tensor(-20, device=dev))
         pairs = [(am[i], bm[i].t()) for i in range(nb)]
+        if m <= 16:                       # _int_mm needs M > 16
+            pairs = [(torch.nn.functional.pad(x, (0, 0, 0, 32 - m)), w)
+                     for x, w in pairs]
         try:                              # the yardstick only; not the port
             lib = _device_ms(torch, lambda: [torch._int_mm(a, b) * scale
                                              for a, b in pairs], iters=5)
         except RuntimeError as err_lib:
             print(f"library call unavailable: {err_lib}", file=sys.stderr)
             lib = None
-        out.append(_record_kernel(
-            torch, name, src_m, "src/repro/kernels/int8_matmul.py:47",
+        src = src_m if variant == "wmma" else src_sm90
+        row = _record_kernel(
+            torch, name, src, "src/repro/kernels/int8_matmul.py:47",
             [nb, m, k, n], err, lambda: kim.int8_matmul(am, bm, scale),
             lambda: kim.int8_matmul_plain(am, bm, scale),
             nb * (m * k + n * k + 4 * m * n) + 4, 2.0 * nb * m * n * k, lib,
             "library_ms: torch._int_mm of the same mantissas times the "
-            "scale", plain_iters=2))
+            "scale" + (" (rows padded to 32)" if m <= 16 else ""),
+            plain_iters=2)
+        out.append(dict(row, variant=variant, line_as=line_as))
         del am, bm
-    print("bfp_quantize and int8_matmul == plain at every shape (qbmm and "
-          "odd shapes untimed)")
+        torch.cuda.empty_cache()
+    print(f"int8_matmul == plain at every shape ({held}; qbmm and odd "
+          "shapes untimed)")
     return out
 
 

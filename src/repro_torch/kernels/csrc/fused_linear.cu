@@ -11,9 +11,10 @@
 //                        on each output tile; see gemm_epi below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
-// qi and ii take qgemm_kernel only where K % 16 != 0 or an operand is not
-// 16-byte aligned; every other shape runs on the Hopper kernels of
-// qgemm_sm90.cu (kernels/fused_linear.py qgemm_variant).
+// qq, qi and ii take qgemm_kernel only where K % 16 != 0 or an operand is
+// not 16-byte aligned; every other shape runs on the Hopper kernels of
+// qgemm_sm90.cu (kernels/fused_linear.py qq_variant, qgemm_variant).
+// qq_blk and gemm_epi run here at every shape.
 // The shared exponents are per tensor (over the whole batched tensor) and
 // arrive as device scalars, so no host synchronisation is needed; rounding
 // bits are streamed in (uint32, one per element), none are drawn here.
@@ -28,6 +29,10 @@
 // tile write the a mantissas, those of the first M tile the b mantissas (the
 // residual outputs of the TPU kernel).  y is float(int32) * 2^(sa + sb):
 // exactly the plain version's arithmetic, so the two agree bit for bit.
+// Quantizing in the tiles repeats the work for every tile of the other
+// operand (76 passes over a at N = 4864): the main path's shapes, whose K
+// is a multiple of 16, quantize once and contract on the tensor cores in
+// qgemm_sm90.cu instead; this kernel is the fallback for the rest.
 //
 // Bounds on the H100.  Each call must move (4+4)*M*K bytes of a and its
 // rounding bits (M*K for ii), N*K (qi, ii) or 8*N*K (qq) bytes of b, 4*M*N
@@ -35,11 +40,10 @@
 // at 1979 TOP/s: bytes over 3.35 TB/s bound every shape of the serving path,
 // the prefill projections (M = 512) and decode (M = batch = 4, where the
 // N*K weight read dominates), and the training dW (K = 512 tokens, where
-// the 4*M*N f32 output dominates: 545 MB at the tied LM head).  This first
-// kernel uses __dp4a, not the tensor cores (wgmma), and no asynchronous
-// copies: it is right first; fast is later work.  A 16-row tile variant
-// serves M <= 16 so decode wastes at most 4x of the dot products on padding
-// rows instead of 16x.
+// the 4*M*N f32 output dominates: 545 MB at the tied LM head).  This
+// kernel uses __dp4a, not the tensor cores, and no asynchronous copies.  A
+// 16-row tile variant serves M <= 16 so a small M wastes at most 4x of the
+// dot products on padding rows instead of 16x.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,10 +1,16 @@
-// The int8 x int8 -> int32 GEMM with one scalar rescale, for Hopper (sm_90a).
+// The int8 x int8 -> int32 GEMM with one scalar rescale, for Hopper (sm_90a):
+// the fallback kernel.
 //
 // Replaces int8_matmul_pallas of src/repro/kernels/int8_matmul.py: a (B, M, K)
 // int8 against b (B, N, K) int8 (contraction-last, the layout the port holds
 // every mantissa in), the exact int32 sum over all of K, then one float32
 // multiply by the scalar scale 2^(sa + sb) -> y (B, M, N) f32.  The batch
-// grid dimension serves the batched qbmm.
+// grid dimension serves the batched qbmm.  Every shape whose K is a
+// multiple of 16, with 16-byte aligned operands (every shape of the
+// unfused training step), runs instead on the wgmma / TMA kernels of
+// qgemm_sm90.cu with the scalar scale as their epilogue
+// (kernels/int8_matmul.py int8_matmul_variant); this kernel takes the rest:
+// K % 16 != 0 or an unaligned operand.
 //
 // Design.  The TPU kernel walks K on its sequential grid axis with the sum in
 // VMEM scratch.  Here one block owns a 64 x 64 output tile and loops over K
@@ -17,13 +23,11 @@
 // the scale once (__fmul_rn): the plain version's arithmetic, so the two
 // agree bit for bit; int32 addition is exact in any order, and the callers
 // bound K * 127^2 below 2^31.  Blocks walk M fastest, so the b tile of an
-// output column strip (the large operand: the LM head) is read from device
-// memory about once.
+// output column strip is read from device memory about once.  The
+// unaligned path loads byte by byte.
 //
 // Bound on the H100: max(bytes, operations): M*K + N*K bytes in, 4*M*N out,
-// over 3.35 TB/s, against 2*M*N*K int8 operations at 1979 TOP/s.  This
-// first version uses neither wgmma nor TMA nor a pipelined ring of tiles:
-// it is right first; fast is later work.
+// over 3.35 TB/s, against 2*M*N*K int8 operations at 1979 TOP/s.
 
 #include <cuda_runtime.h>
 #include <mma.h>

@@ -1,26 +1,37 @@
-// The qi and ii GEMMs redesigned for Hopper (sm_90a): int8 tensor cores fed
-// by TMA through a ring of shared-memory stages.
+// The qq, qi, ii and int8_matmul GEMMs redesigned for Hopper (sm_90a): int8
+// tensor cores fed by TMA through a ring of shared-memory stages.
 //
-// Replaces, beside the __dp4a qgemm_kernel of fused_linear.cu (which keeps
-// qq and the shapes this file does not take), the TPU kernels of
-// src/repro/kernels/fused_linear.py:
+// Replaces, beside the __dp4a qgemm_kernel of fused_linear.cu and the wmma
+// kernel of int8_matmul.cu (which keep the shapes this file does not take),
+// the TPU kernels
+//   fused_qq_pt_pallas  (both operands f32, quantized: every forward
+//                        projection, QK^T and PV of training and prefill)
 //   fused_qi_pt_pallas  (a f32 quantized, b pre-quantized int8: every
 //                        projection and LM head of serving, the backward's dX)
 //   fused_ii_pt_pallas  (both operands int8 mantissas: the backward's dW)
+// of src/repro/kernels/fused_linear.py, and int8_matmul_pallas of
+// src/repro/kernels/int8_matmul.py (both operands int8, one f32 scale: the
+// unfused rung).
 // Layout: a (B, M, K) x b (B, N, K), both contraction-last (K-major, the
 // only layout wgmma takes for 8-bit types) -> y (B, M, N) f32.  The shared
 // exponents are per tensor, device scalars; rounding bits come in as uint32.
 //
-// Exactness.  Mantissas lie in [-127, 127] and dispatch plans a kernel only
-// for K <= 65536, so every int32 partial sum is exact in any order; no
-// .satfinite.  The epilogue is float(acc) * 2^(sa + sb) (__int2float_rn,
-// __fmul_rn), and the quantizer is repro::quantize_one: y and the a
-// mantissas equal the plain versions bit for bit.
+// Exactness.  Mantissas lie in [-127, 127], dispatch plans qq / qi / ii
+// only for K <= 65536 and int8_matmul's wrapper takes only K * 127^2 <
+// 2^31, so every int32 partial sum is exact in any order; no .satfinite.
+// Nothing here bounds K further: K is a tensor-map extent (64 bits) and a
+// count of 128-byte chunks; every offset into an operand is 64-bit.  The
+// epilogue is float(acc) * s (__int2float_rn, __fmul_rn), s = 2^(sa + sb)
+// from the exponents or int8_matmul's scalar, read once per block (a
+// template parameter, not a branch in the loop); the quantizer is
+// repro::quantize_one: y and the mantissas equal the plain versions bit
+// for bit.
 //
-// Variants, chosen by the wrapper from the shapes alone
-// (kernels/fused_linear.py qgemm_variant): K % 16 == 0 (TMA's 16-byte row
-// stride) and 16-byte aligned operands, else the __dp4a kernel of
-// fused_linear.cu.
+// Variants, chosen by the wrappers from the shapes alone
+// (kernels/fused_linear.py qgemm_variant / qq_variant,
+// kernels/int8_matmul.py int8_matmul_variant): K % 16 == 0 (TMA's 16-byte
+// row stride) and 16-byte aligned operands, else the __dp4a kernel of
+// fused_linear.cu (qq, qi, ii) or the wmma kernel of int8_matmul.cu.
 //
 // wgmma (M > 16).  A persistent grid, one block per SM, walks 128 x 128
 // output tiles, M fastest (the blocks at work at one time share b tiles in
@@ -33,24 +44,30 @@
 // writes y with 16-byte coalesced stores (4-byte ones where N % 4 != 0,
 // whose rows are not 16-byte aligned); while it runs, the producer already
 // loads the next tile.  TMA zero-fills reads past M, N and K; the epilogue
-// writes nothing past M x N.  qi quantizes a once per call: a separate pass (one more
-// launch, counted with the call) reads a and its bits once and writes the
-// a mantissas, which qi returns anyway; the GEMM then reads them as int8.
-// Quantizing inside the GEMM instead would repeat it for every N tile (the
-// old kernel's 76 passes at N = 4864) or hold a strip of rows in shared
-// memory beside the ring.
+// writes nothing past M x N.
+//
+// Quantize once.  qi and qq quantize each f32 operand once per call: one
+// pass (one more launch, counted with the call) reads the operand and its
+// bits once and writes the mantissas, which qi and qq return anyway as
+// residuals (qq without residuals writes them to scratch); the GEMM then
+// reads them as int8.  qq's pass takes both operands in one launch, a's
+// groups of 16 first, then b's.  Quantizing inside the GEMM instead would
+// repeat it for every tile (the __dp4a kernel's 76 passes over a at N =
+// 4864, 4 over b at M = 512) or hold a strip of rows in shared memory
+// beside the ring.
 //
 // stream (M <= 16: decode, batch 4).  Bandwidth-bound on b (the LM head's
-// 136 MB).  Each block quantizes (qi) or loads (ii) the few a rows into
-// shared memory itself, with no extra launch, then streams its slab of
-// 64-row b tiles through a ring of 12 TMA stages (96 KB in flight a block)
-// and contracts with mma.sync.m16n8k32.s32.s8.s8 (a rows past M zero in
-// registers).  Only the first block of each batch slice writes the a
-// mantissas.
+// 136 MB).  Each block quantizes (qi, qq) or loads (ii, int8_matmul) the
+// few a rows into shared memory itself, with no extra launch, then streams
+// its slab of 64-row b tiles through a ring of 12 TMA stages (96 KB in
+// flight a block) and contracts with mma.sync.m16n8k32.s32.s8.s8 (a rows
+// past M zero in registers).  Only the first block of each batch slice
+// writes the a mantissas.  qq quantizes b in its own pass first.
 //
 // Bounds on the H100 (bytes over 3.35 TB/s against 2*M*N*K int8 operations
 // at 1979 TOP/s): bytes for every shape of the main path; y's 4*M*N bytes
-// for the training dW (545 MB at the tied LM head), b's N*K for decode.
+// for the training dW (545 MB at the tied LM head), b's N*K for decode, the
+// f32 values and bits of b (8*N*K) for qq's LM head.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -212,25 +229,43 @@ __device__ __forceinline__ uint32_t quantize4(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// qi's quantize pass: a (n elements, n % 16 == 0) f32 [+ bits] -> am int8
+// The quantize pass: one or two f32 tensors [+ bits] -> int8 mantissas
 // ---------------------------------------------------------------------------
 
+// One tensor of the pass: n4 groups of 4 elements of x (and bits r),
+// quantized against the exponent *e into m.
+struct QSeg {
+  const float* x;
+  const uint32_t* r;
+  const int* e;
+  int8_t* m;
+  size_t n4;
+};
+
+// qi quantizes a (s1 empty); qq quantizes a and b in the same launch, the
+// groups of s0 first, then those of s1.  Four elements a thread and step,
+// as bfp_quantize: more threads in flight than wider steps would leave.
 template <bool STOCH>
-__global__ void __launch_bounds__(256) quantize_pass_kernel(
-    const float* __restrict__ a, const uint32_t* __restrict__ ra,
-    const int* __restrict__ ea_ptr, int p, int8_t* __restrict__ am,
-    size_t n16) {
-  const int e = *ea_ptr;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n16;
+__global__ void __launch_bounds__(256) quantize_pass_kernel(QSeg s0, QSeg s1, int p) {
+  const int e0 = *s0.e, e1 = s1.n4 ? *s1.e : 0;
+  const size_t total = s0.n4 + s1.n4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    const size_t idx = i * 16;
-    uint4 w;
-    w.x = quantize4<STOCH>(a, ra, idx, e, p);
-    w.y = quantize4<STOCH>(a, ra, idx + 4, e, p);
-    w.z = quantize4<STOCH>(a, ra, idx + 8, e, p);
-    w.w = quantize4<STOCH>(a, ra, idx + 12, e, p);
-    reinterpret_cast<uint4*>(am)[i] = w;
+    const bool first = i < s0.n4;
+    const size_t j = first ? i : i - s0.n4;
+    const uint32_t w = quantize4<STOCH>(first ? s0.x : s1.x, first ? s0.r : s1.r,
+                                        j * 4, first ? e0 : e1, p);
+    reinterpret_cast<uint32_t*>(first ? s0.m : s1.m)[j] = w;
   }
+}
+
+// The epilogue's float32 scale, read once per block: 2^(sa + sb) from the
+// two shared exponents (qq, qi, ii), or one given scalar (int8_matmul).
+template <bool SCALAR>
+__device__ __forceinline__ float epi_scale(const int* ea, const int* eb,
+                                           const float* scale, int pa, int pb) {
+  if (SCALAR) return *scale;
+  return pow2f(scale_exp(*ea, pa) + scale_exp(*eb, pb));
 }
 
 // ---------------------------------------------------------------------------
@@ -246,10 +281,12 @@ constexpr int TC_OUT = 64 * TC_OUT_LD * 4;           // bytes per consumer warpg
 constexpr int TC_THREADS = 288;  // two consumer warpgroups, one producer warp
 constexpr int TC_SMEM = 1024 + TC_STAGES * TC_STAGE + 2 * TC_OUT + 2 * TC_STAGES * 8;
 
+template <bool SCALAR>
 __global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
     const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
     const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
-    float* __restrict__ y, int M, int N, int K, int B, int pa, int pb) {
+    const float* __restrict__ scale_ptr, float* __restrict__ y, int M, int N,
+    int K, int B, int pa, int pb) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   float* out = reinterpret_cast<float*>(ring + TC_STAGES * TC_STAGE);
@@ -293,7 +330,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
 
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
   const int wg = warp / 4, tid = threadIdx.x % 128;
-  const float scale = pow2f(scale_exp(*ea_ptr, pa) + scale_exp(*eb_ptr, pb));
+  const float scale = epi_scale<SCALAR>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
   float* my_out = out + wg * 64 * TC_OUT_LD;
   const int r0 = (warp % 4) * 16 + lane / 4, c0 = (lane % 4) * 2;
   const bool vec = N % 4 == 0;
@@ -380,13 +417,13 @@ __device__ __forceinline__ uint32_t a_word(const uint8_t* ar, int row, int lda,
   return row < M ? *reinterpret_cast<const uint32_t*>(ar + row * lda + off) : 0u;
 }
 
-template <bool A_FLOAT, bool STOCH>
+template <bool A_FLOAT, bool STOCH, bool SCALAR>
 __global__ void __launch_bounds__(ST_THREADS, 1) stream_gemm_kernel(
     const __grid_constant__ CUtensorMap tb, const float* __restrict__ a,
     const uint32_t* __restrict__ ra, const int8_t* __restrict__ ai,
     const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
-    float* __restrict__ y, int8_t* __restrict__ am_out, int M, int N, int K,
-    int pa, int pb) {
+    const float* __restrict__ scale_ptr, float* __restrict__ y,
+    int8_t* __restrict__ am_out, int M, int N, int K, int pa, int pb) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   const int lda = st_lda(K), kc_n = (K + ST_BK - 1) / ST_BK;
@@ -394,7 +431,7 @@ __global__ void __launch_bounds__(ST_THREADS, 1) stream_gemm_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(as + ((M * lda + 15) & ~15));
   uint64_t* empty = full + ST_STAGES;
   const int z = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ea = *ea_ptr;
+  const int ea = A_FLOAT ? *ea_ptr : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST_STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -444,7 +481,7 @@ __global__ void __launch_bounds__(ST_THREADS, 1) stream_gemm_kernel(
 
   // consumers: warp w owns tile rows [16 w, 16 w + 16), two n8 groups
   const int gid = lane / 4, tig = lane % 4;
-  const float scale = pow2f(scale_exp(ea, pa) + scale_exp(*eb_ptr, pb));
+  const float scale = epi_scale<SCALAR>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
   float* yz = y + (size_t)z * M * N;
   int stage = 0;
   uint32_t phase = 0;
@@ -592,13 +629,14 @@ bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <bool SCALAR>
 cudaError_t launch_tc(const int8_t* a, const int8_t* b, const int* ea, const int* eb,
-                      float* y, int B, int M, int N, int K, int pa, int pb,
-                      cudaStream_t stream) {
+                      const float* scale, float* y, int B, int M, int N, int K, int pa,
+                      int pb, cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tc_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+        tc_gemm_kernel<SCALAR>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
   }
@@ -610,20 +648,20 @@ cudaError_t launch_tc(const int8_t* a, const int8_t* b, const int* ea, const int
   const long long tiles = (long long)((M + TC_BM - 1) / TC_BM) *
                           ((N + TC_BN - 1) / TC_BN) * B;
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  tc_gemm_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(ta, tb, ea, eb, y, M, N,
-                                                        K, B, pa, pb);
+  tc_gemm_kernel<SCALAR><<<grid, TC_THREADS, TC_SMEM, stream>>>(ta, tb, ea, eb, scale,
+                                                                y, M, N, K, B, pa, pb);
   return cudaGetLastError();
 }
 
-template <bool A_FLOAT, bool STOCH>
+template <bool A_FLOAT, bool STOCH, bool SCALAR>
 cudaError_t launch_stream(const float* a, const uint32_t* ra, const int8_t* ai,
-                          const int8_t* b, const int* ea, const int* eb, float* y,
-                          int8_t* am, int B, int M, int N, int K, int pa, int pb,
-                          cudaStream_t stream) {
+                          const int8_t* b, const int* ea, const int* eb,
+                          const float* scale, float* y, int8_t* am, int B, int M, int N,
+                          int K, int pa, int pb, cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stream_gemm_kernel<A_FLOAT, STOCH>,
+        stream_gemm_kernel<A_FLOAT, STOCH, SCALAR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
@@ -637,24 +675,37 @@ cudaError_t launch_stream(const float* a, const uint32_t* ra, const int8_t* ai,
   const dim3 grid(n_tiles < per ? n_tiles : per, B);
   const int smem = 1024 + ST_STAGES * ST_TILE + ((M * st_lda(K) + 15) & ~15) +
                    2 * ST_STAGES * 8;
-  stream_gemm_kernel<A_FLOAT, STOCH><<<grid, ST_THREADS, smem, stream>>>(
-      tb, a, ra, ai, ea, eb, y, am, M, N, K, pa, pb);
+  stream_gemm_kernel<A_FLOAT, STOCH, SCALAR><<<grid, ST_THREADS, smem, stream>>>(
+      tb, a, ra, ai, ea, eb, scale, y, am, M, N, K, pa, pb);
   return cudaGetLastError();
 }
 
-template <bool STOCH>
-cudaError_t launch_quantize(const float* a, const uint32_t* ra, const int* ea, int p,
-                            int8_t* am, size_t n, cudaStream_t stream) {
-  const size_t n16 = n / 16;
-  size_t blocks = (n16 + 255) / 256;
-  const size_t cap = (size_t)sm_count() * 8;
+// The stream variant of qq and qi: a quantized in the block.
+cudaError_t launch_stream_qa(const float* a, const uint32_t* ra, const int8_t* b,
+                             const int* ea, const int* eb, float* y, int8_t* am,
+                             int B, int M, int N, int K, int pa, int pb,
+                             bool stochastic, cudaStream_t s) {
+  return stochastic ? launch_stream<true, true, false>(a, ra, nullptr, b, ea, eb,
+                                                       nullptr, y, am, B, M, N, K,
+                                                       pa, pb, s)
+                    : launch_stream<true, false, false>(a, ra, nullptr, b, ea, eb,
+                                                        nullptr, y, am, B, M, N, K,
+                                                        pa, pb, s);
+}
+
+cudaError_t launch_quantize(QSeg s0, QSeg s1, int p, bool stochastic,
+                            cudaStream_t stream) {
+  size_t blocks = (s0.n4 + s1.n4 + 255) / 256;
+  const size_t cap = (size_t)sm_count() * 16;
   if (blocks > cap) blocks = cap;
-  quantize_pass_kernel<STOCH><<<(unsigned)blocks, 256, 0, stream>>>(a, ra, ea, p, am,
-                                                                    n16);
+  if (stochastic)
+    quantize_pass_kernel<true><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p);
+  else
+    quantize_pass_kernel<false><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p);
   return cudaGetLastError();
 }
 
-// The shapes and operands a variant takes; the wrapper's rule keeps to them.
+// The shapes and operands a variant takes; the wrappers' rules keep to them.
 bool takes(int variant, int M, int K) {
   if (K <= 0 || K % 16 != 0) return false;
   if (variant == 1) return M <= 16 && M * st_lda(K) <= ST_A_LIMIT;
@@ -664,6 +715,37 @@ bool takes(int variant, int M, int K) {
 }  // namespace
 
 extern "C" {
+
+// qq: a (B,M,K) f32 [+ ra], b (B,N,K) f32 [+ rb] -> y (B,M,N) f32, am, bm int8.
+// variant 0: one quantize launch over a then b, then the wgmma GEMM;
+// 1: b's quantize pass, then stream (M <= 16, a quantized in the block).
+int repro_qq_sm90(const void* a, const void* ra, const void* b, const void* rb,
+                  const void* ea, const void* eb, void* y, void* am, void* bm, int B,
+                  int M, int N, int K, int p, int stochastic, int variant,
+                  void* stream) {
+  if (!takes(variant, M, K) || !aligned16(a) || !aligned16(ra) || !aligned16(b) ||
+      !aligned16(rb) || !aligned16(y) || !aligned16(am) || !aligned16(bm))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int* eap = static_cast<const int*>(ea);
+  const int* ebp = static_cast<const int*>(eb);
+  int8_t* ami = static_cast<int8_t*>(am);
+  int8_t* bmi = static_cast<int8_t*>(bm);
+  const QSeg sa{static_cast<const float*>(a), static_cast<const uint32_t*>(ra), eap,
+                ami, (size_t)B * M * K / 4};
+  const QSeg sb{static_cast<const float*>(b), static_cast<const uint32_t*>(rb), ebp,
+                bmi, (size_t)B * N * K / 4};
+  const QSeg none{nullptr, nullptr, nullptr, nullptr, 0};
+  cudaError_t e = launch_quantize(variant == 0 ? sa : sb, variant == 0 ? sb : none,
+                                  p, stochastic != 0, s);
+  if (e != cudaSuccess) return (int)e;
+  if (variant == 1)
+    return (int)launch_stream_qa(sa.x, sa.r, bmi, eap, ebp, static_cast<float*>(y),
+                                 ami, B, M, N, K, p, p, stochastic != 0, s);
+  return (int)launch_tc<false>(ami, bmi, eap, ebp, nullptr, static_cast<float*>(y), B,
+                               M, N, K, p, p, s);
+}
 
 // qi: a (B,M,K) f32 [+ ra], b_m (B,N,K) int8 -> y (B,M,N) f32, am int8.
 // variant 0: the quantize pass, then the wgmma GEMM; 1: stream (M <= 16).
@@ -683,16 +765,13 @@ int repro_qi_sm90(const void* a, const void* ra, const void* b_m, const void* ea
   float* yf = static_cast<float*>(y);
   int8_t* ami = static_cast<int8_t*>(am);
   if (variant == 1)
-    return (int)(stochastic
-                     ? launch_stream<true, true>(af, rf, nullptr, bi, eap, ebp, yf, ami,
-                                                 B, M, N, K, pa, pb, s)
-                     : launch_stream<true, false>(af, rf, nullptr, bi, eap, ebp, yf,
-                                                  ami, B, M, N, K, pa, pb, s));
-  const size_t n = (size_t)B * M * K;
-  cudaError_t e = stochastic ? launch_quantize<true>(af, rf, eap, pa, ami, n, s)
-                             : launch_quantize<false>(af, rf, eap, pa, ami, n, s);
+    return (int)launch_stream_qa(af, rf, bi, eap, ebp, yf, ami, B, M, N, K, pa, pb,
+                                 stochastic != 0, s);
+  const QSeg sa{af, rf, eap, ami, (size_t)B * M * K / 4};
+  const QSeg none{nullptr, nullptr, nullptr, nullptr, 0};
+  const cudaError_t e = launch_quantize(sa, none, pa, stochastic != 0, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_tc(ami, bi, eap, ebp, yf, B, M, N, K, pa, pb, s);
+  return (int)launch_tc<false>(ami, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
 }
 
 // ii: a_m (B,M,K) int8, b_m (B,N,K) int8 -> y (B,M,N) f32.
@@ -710,9 +789,29 @@ int repro_ii_sm90(const void* a_m, const void* b_m, const void* ea, const void* 
   const int* ebp = static_cast<const int*>(eb);
   float* yf = static_cast<float*>(y);
   if (variant == 1)
-    return (int)launch_stream<false, false>(nullptr, nullptr, ai, bi, eap, ebp, yf,
-                                            nullptr, B, M, N, K, pa, pb, s);
-  return (int)launch_tc(ai, bi, eap, ebp, yf, B, M, N, K, pa, pb, s);
+    return (int)launch_stream<false, false, false>(nullptr, nullptr, ai, bi, eap, ebp,
+                                                   nullptr, yf, nullptr, B, M, N, K,
+                                                   pa, pb, s);
+  return (int)launch_tc<false>(ai, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
+}
+
+// int8_matmul: a (B,M,K) int8, b (B,N,K) int8, scale f32 scalar -> y (B,M,N)
+// f32 = float(acc) * scale.  variant 0: the wgmma GEMM; 1: stream (M <= 16).
+int repro_int8_matmul_sm90(const void* a, const void* b, const void* scale, void* y,
+                           int B, int M, int N, int K, int variant, void* stream) {
+  if (!takes(variant, M, K) || !aligned16(a) || !aligned16(b) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int8_t* ai = static_cast<const int8_t*>(a);
+  const int8_t* bi = static_cast<const int8_t*>(b);
+  const float* sc = static_cast<const float*>(scale);
+  float* yf = static_cast<float*>(y);
+  if (variant == 1)
+    return (int)launch_stream<false, false, true>(nullptr, nullptr, ai, bi, nullptr,
+                                                  nullptr, sc, yf, nullptr, B, M, N, K,
+                                                  0, 0, s);
+  return (int)launch_tc<true>(ai, bi, nullptr, nullptr, sc, yf, B, M, N, K, 0, 0, s);
 }
 
 }  // extern "C"

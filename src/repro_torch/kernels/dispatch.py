@@ -136,13 +136,18 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "decode_block": kfc.fused_decode_block,
              "bfp_quantize": kbq.bfp_quantize,
              "int8_matmul": kim.int8_matmul,
+             **{f"qq_{v}": c for v, c in kfl.qq_variants.items()},
              **{f"qi_{v}": c for v, c in kfl.qi_variants.items()},
-             **{f"ii_{v}": c for v, c in kfl.ii_variants.items()}}
+             **{f"ii_{v}": c for v, c in kfl.ii_variants.items()},
+             **{f"int8_matmul_{v}": c
+                for v, c in kim.int8_matmul_variants.items()}}
 
 
 def kernel_launches() -> dict:
-    """Launch counts of the kernel wrappers, and of the ``qi`` / ``ii``
-    variants (``qi_wgmma``, ``qi_stream``, ``qi_dp4a``, ``ii_...``)."""
+    """Launch counts of the kernel wrappers, and of the ``qq`` / ``qi`` /
+    ``ii`` variants (``qq_wgmma``, ``qq_stream``, ``qq_dp4a``, ``qi_...``,
+    ``ii_...``) and the ``int8_matmul`` ones (``int8_matmul_wgmma``,
+    ``_stream``, ``_wmma``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 

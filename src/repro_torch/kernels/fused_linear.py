@@ -27,12 +27,16 @@ Ports of four TPU kernels of ``repro.kernels.fused_linear``:
                    per-tensor out-quantize), which run on the CPU only.
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
--> y (B, M, N).  The CUDA source is ``csrc/fused_linear.cu``; its note
-says what bounds it.  ``qi`` and ``ii`` run on the Hopper kernels of
-``csrc/qgemm_sm90.cu`` where the shapes allow (``qgemm_variant``): int8
-``wgmma`` fed by TMA for M > 16, a weight-streaming ``mma.sync`` kernel
-for M <= 16, and the ``__dp4a`` kernel of ``fused_linear.cu`` for a K
-that is not a multiple of 16; each variant has its own launch counter.
+-> y (B, M, N).  The CUDA sources are ``csrc/fused_linear.cu`` and
+``csrc/qgemm_sm90.cu``; their notes say what bounds them.  ``qq``, ``qi``
+and ``ii`` run on the Hopper kernels of ``qgemm_sm90.cu`` where the shapes
+allow (``qq_variant``, ``qgemm_variant``): each f32 operand quantized
+once by a pass, then int8 ``wgmma`` fed by TMA for M > 16, or a
+weight-streaming ``mma.sync`` kernel that quantizes a itself for M <= 16;
+the ``__dp4a`` kernel of ``fused_linear.cu``, which quantizes in its tiles,
+takes a K that is not a multiple of 16 or an operand not 16-byte aligned.
+Each variant has its own launch counter.  ``qq_blk`` and ``gemm_epi`` run
+on ``fused_linear.cu`` at every shape.
 Each wrapper runs the kernel for CUDA tensors and the plain version (same
 file, below) for CPU tensors, and nothing else: a CUDA tensor never
 reaches the plain version through a wrapper.
@@ -53,7 +57,8 @@ from . import build
 
 __all__ = ["eff_exp", "quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
            "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
-           "QGEMM_VARIANTS", "qgemm_variant", "qi_variants", "ii_variants",
+           "QGEMM_VARIANTS", "qgemm_variant", "qq_variant", "qq_variants",
+           "qi_variants", "ii_variants",
            "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
            "fused_qq_blk_plain", "blk_combine", "as_u32", "EPI_ACTS",
            "epi_apply", "epi_pullback", "fused_gemm_epi",
@@ -321,6 +326,13 @@ def qgemm_variant(m: int, k: int, aligned: bool = True) -> str:
     return "wgmma"
 
 
+# The variant of the qq kernel: qi's rule.  qq quantizes both operands
+# once, in one pass, and then contracts as qi does; the card measured that
+# route faster than the __dp4a kernel at every main-path shape, the
+# prefill attention's small ones too (PERF.md, row 1 of the kernel table).
+qq_variant = qgemm_variant
+
+
 def _aligned(*ts: Optional[torch.Tensor]) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
@@ -334,9 +346,10 @@ class _Launches:
         self.launches = 0
 
 
-# Launches of each variant of the qi and ii kernels (a qi call on the
-# tensor cores is two launches, the quantize pass and the GEMM, counted
+# Launches of each variant of the qq, qi and ii kernels (a qq or qi call on
+# the tensor cores is two launches, the quantize pass and the GEMM, counted
 # once).
+qq_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 qi_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 ii_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 
@@ -345,6 +358,10 @@ def _lib_sm90() -> ctypes.CDLL:
     lib = build.load("qgemm_sm90")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.repro_qq_sm90.argtypes = [vp] * 9 + [i] * 7 + [vp]
+        lib.repro_qq_sm90.restype = i
+        lib.repro_int8_matmul_sm90.argtypes = [vp] * 4 + [i] * 5 + [vp]
+        lib.repro_int8_matmul_sm90.restype = i
         lib.repro_qi_sm90.argtypes = [vp] * 7 + [i] * 8 + [vp]
         lib.repro_qi_sm90.restype = i
         lib.repro_ii_sm90.argtypes = [vp] * 5 + [i] * 7 + [vp]
@@ -379,8 +396,8 @@ def fused_qq_pt(a: torch.Tensor, ra: Optional[torch.Tensor], b: torch.Tensor,
                            Optional[torch.Tensor]]:
     """a (B, M, K) f32, b (B, N, K) f32, ra/rb their bits (None for half
     up), ea/eb int32 biased exponents -> (y (B, M, N) f32, a and b int8
-    mantissas); without residuals the kernel writes no mantissa and both
-    come back None."""
+    mantissas); without residuals both come back None (the Hopper
+    variants write them to scratch, the ``__dp4a`` kernel not at all)."""
     if not a.is_cuda:
         return fused_qq_pt_plain(a, ra, b, rb, ea, eb, p=p,
                                  stochastic=stochastic,
@@ -396,18 +413,27 @@ def fused_qq_pt(a: torch.Tensor, ra: Optional[torch.Tensor], b: torch.Tensor,
         _check("rb", rb, torch.int32, (nb, n, k), dev)
     ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
     y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
+    ra, rb = (ra, rb) if stochastic else (None, None)
+    variant = qq_variant(m, k, _aligned(a, ra, b, rb, y))
     am = bm = None
-    if emit_residuals:
+    if emit_residuals or variant != "dp4a":
         am = torch.empty((nb, m, k), dtype=torch.int8, device=dev)
         bm = torch.empty((nb, n, k), dtype=torch.int8, device=dev)
-    err = _lib_linear().repro_fused_qq(
-        _ptr(a), _ptr(ra if stochastic else None), _ptr(b),
-        _ptr(rb if stochastic else None), _ptr(ea), _ptr(eb), _ptr(y),
-        _ptr(am), _ptr(bm), nb, m, n, k, p, int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "fused_qq_pt")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if variant == "dp4a":
+        err = _lib_linear().repro_fused_qq(
+            _ptr(a), _ptr(ra), _ptr(b), _ptr(rb), _ptr(ea), _ptr(eb),
+            _ptr(y), _ptr(am), _ptr(bm), nb, m, n, k, p, int(stochastic),
+            stream)
+    else:
+        err = _lib_sm90().repro_qq_sm90(
+            _ptr(a), _ptr(ra), _ptr(b), _ptr(rb), _ptr(ea), _ptr(eb),
+            _ptr(y), _ptr(am), _ptr(bm), nb, m, n, k, p, int(stochastic),
+            QGEMM_VARIANTS.index(variant), stream)
+    _raise_on(err, f"fused_qq_pt ({variant})")
     fused_qq_pt.launches += 1
-    return y, am, bm
+    qq_variants[variant].launches += 1
+    return (y, am, bm) if emit_residuals else (y, None, None)
 
 
 def fused_qi_pt(a: torch.Tensor, ra: Optional[torch.Tensor],

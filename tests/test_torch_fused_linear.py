@@ -175,9 +175,14 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "attn_bwd": 0, "gemm_epi": 0,
                                     "norm_gemm": 0, "decode_block": 0,
                                     "bfp_quantize": 0, "int8_matmul": 0,
+                                    "qq_wgmma": 0, "qq_stream": 0,
+                                    "qq_dp4a": 0,
                                     "qi_wgmma": 0, "qi_stream": 0,
                                     "qi_dp4a": 0, "ii_wgmma": 0,
-                                    "ii_stream": 0, "ii_dp4a": 0}
+                                    "ii_stream": 0, "ii_dp4a": 0,
+                                    "int8_matmul_wgmma": 0,
+                                    "int8_matmul_stream": 0,
+                                    "int8_matmul_wmma": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

@@ -29,9 +29,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _variant_launches(kind):
-    return {n: c for n, c in kd.kernel_launches().items()
-            if n.startswith(f"{kind}_") and c}
+def _variant_launches(kind, variants=kfl.QGEMM_VARIANTS):
+    counts = kd.kernel_launches()
+    return {f"{kind}_{v}": counts[f"{kind}_{v}"] for v in variants
+            if counts[f"{kind}_{v}"]}
 
 
 # qi shapes beyond the qq ones (B, M, K, N): the two timed main-path
@@ -43,14 +44,27 @@ QI_SHAPES = [(1, 4, 896, 151936), (1, 512, 896, 4864), (1, 4, 896, 70),
              (1, 4, 37, 100)]
 
 
+# qq's main-path shapes beyond those above (B, M, K, N): qwen2's PV of the
+# prefill attention, its wq, wk / wv, w_down and tied LM head (full width);
+# minicpm-2b's wq and w_down and its LM head narrowed to 4099 of 122753
+# rows (N % 4 != 0 kept); starcoder2-7b's merged QKV and w_down and its LM
+# head narrowed to 8192 of 49152 rows.
+QQ_SHAPES = [(8, 896, 128, 64), (1, 512, 896, 896), (1, 512, 896, 128),
+             (1, 512, 4864, 896), (1, 512, 896, 151936),
+             (1, 512, 2304, 2304), (1, 512, 5760, 2304), (1, 512, 2304, 4099),
+             (1, 512, 4608, 5632), (1, 512, 18432, 4608),
+             (1, 512, 4608, 8192)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("nb,m,k,n", [(1, 4, 896, 1000), (1, 37, 67, 29),
                                       (8, 896, 64, 128), (2, 130, 96, 70)]
-                         + QI_SHAPES)
+                         + QI_SHAPES + QQ_SHAPES)
 def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
-    """y and mantissas ``==``; the qi call moves the counter of the
-    variant ``qgemm_variant`` names (wgmma, stream or dp4a)."""
+    """y and mantissas ``==``; the qq calls move the counter of the variant
+    ``qq_variant`` names, the qi call that of ``qgemm_variant``'s (wgmma,
+    stream or dp4a)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     a = torch.randn((nb, m, k), generator=g, device=cuda)
     b = torch.randn((nb, n, k), generator=g, device=cuda)
@@ -73,8 +87,10 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want = {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0, "attn_decode": 0,
             "attn_fwd": 0, "attn_bwd": 0, "gemm_epi": 0, "norm_gemm": 0,
             "decode_block": 0, "bfp_quantize": 0, "int8_matmul": 0}
-    want.update({f"{kind}_{v}": 0 for kind in ("qi", "ii")
+    want.update({f"{kind}_{v}": 0 for kind in ("qq", "qi", "ii")
                  for v in kfl.QGEMM_VARIANTS})
+    want.update({f"int8_matmul_{v}": 0 for v in kim.INT8_MATMUL_VARIANTS})
+    want[f"qq_{kfl.qq_variant(m, k)}"] = 2
     want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
     assert kd.kernel_launches() == want
 
@@ -506,6 +522,27 @@ def test_bfp_quantize_kernel_equal_plain(cuda, shape):
 MATMUL_SHAPES = [(1, 512, 896, 8192), (1, 896, 512, 8192),
                  (1, 512, 896, 4864), (3, 37, 67, 29), (1, 5, 33, 130),
                  (2, 130, 96, 70)]
+# Phase 9's shapes at full width (B, M, K, N): the LM head's forward and
+# dW, the attention's batched QKᵀ, PV and QKᵀ's dW; then M <= 16 with a
+# batch (the streaming variant).
+MATMUL_MAIN_SHAPES = [(1, 512, 896, 151936), (1, 896, 512, 151936),
+                      (8, 896, 64, 128), (8, 896, 128, 64), (8, 64, 896, 128),
+                      (2, 4, 512, 70)]
+
+
+def _int8_matmul_equal_plain(cuda, am, bm, variant):
+    """Two calls (scale 2^-20 and one that flushes to 0) ``==`` the plain
+    version, both on ``variant``."""
+    kd.reset_kernel_launches()
+    for e in (-20, -150):
+        scale = kfl.pow2_f32(torch.tensor(e, device=cuda))
+        got = kim.int8_matmul(am, bm, scale)
+        want = kim.int8_matmul_plain(am, bm, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    assert kd.kernel_launches()["int8_matmul"] == 2
+    assert _variant_launches("int8_matmul", kim.INT8_MATMUL_VARIANTS) == {
+        f"int8_matmul_{variant}": 2}
 
 
 @pytest.mark.cuda
@@ -517,14 +554,31 @@ def test_int8_matmul_kernel_equal_plain(cuda, shape):
                        dtype=torch.int8)
     bm = torch.randint(-127, 128, (nb, n, k), generator=g, device=cuda,
                        dtype=torch.int8)
-    kd.reset_kernel_launches()
-    for e in (-20, -150):                      # a scale that flushes to 0
-        scale = kfl.pow2_f32(torch.tensor(e, device=cuda))
-        got = kim.int8_matmul(am, bm, scale)
-        want = kim.int8_matmul_plain(am, bm, scale)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), (got - want).abs().max().item()
-    assert kd.kernel_launches()["int8_matmul"] == 2
+    _int8_matmul_equal_plain(cuda, am, bm, kim.int8_matmul_variant(m, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MATMUL_MAIN_SHAPES + ["unaligned"])
+def test_int8_matmul_variants_equal_plain(cuda, shape):
+    """Phase 9's shapes on wgmma, M <= 16 on stream, and an operand one
+    byte into its storage (K % 16 == 0, yet not 16-byte aligned) on wmma;
+    each call moves its variant's counter."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    if shape == "unaligned":
+        nb, m, k, n = 1, 37, 64, 29
+        am = torch.randint(-127, 128, (nb * m * k + 16,), generator=g,
+                           device=cuda, dtype=torch.int8
+                           )[1:1 + nb * m * k].view(nb, m, k)
+        want = "wmma"
+    else:
+        nb, m, k, n = shape
+        am = torch.randint(-127, 128, (nb, m, k), generator=g, device=cuda,
+                           dtype=torch.int8)
+        want = "stream" if m <= 16 else "wgmma"
+    bm = torch.randint(-127, 128, (nb, n, k), generator=g, device=cuda,
+                       dtype=torch.int8)
+    assert kim.int8_matmul_variant(m, k, kfl._aligned(am, bm)) == want
+    _int8_matmul_equal_plain(cuda, am, bm, want)
 
 
 @pytest.mark.cuda
