@@ -19,11 +19,14 @@ Phases, any of which failing exits non-zero:
    dispatch; each call moving its variant's counter; ``attn_decode`` y ``==``,
    ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
    at the qwen2 training slice and at an odd shape, ``qq_blk`` y and
-   mantissas ``==`` at the per-block training shapes and odd ones (blocks
-   of 128 and 32, more than 32 blocks, a batch, both rounding modes, with
-   and without residuals, a flushed block scale); time kernel, plain
-   version and one library call where there is one, and compute the
-   card's bound for the same work;
+   mantissas ``==`` on each variant (``fused_linear.qq_blk_variant``: the
+   128 x 128 and 64 x 64 tilings of the Hopper route, ``__dp4a``) at the
+   per-block training shapes and odd ones (blocks of 128, 32 and 8, more
+   than 32 blocks, a batch, K % 16 != 0, M <= 16, an unaligned view, both
+   rounding modes, with and without residuals, a flushed block scale),
+   each call moving its variant's counter; time kernel, plain version and
+   one library call where there is one, and compute the card's bound for
+   the same work;
 3. serve full-width qwen2-0.5b (random weights from a seeded generator):
    4 prompts x 128 tokens, 32 greedy tokens, int8 weights quantized once
    and an int8 KV cache, with the launch counts set to 0 just before and
@@ -49,8 +52,10 @@ Phases, any of which failing exits non-zero:
 6. the same for ``int8_block`` training (one exponent per 128 elements of
    each contraction axis): one step, every per-block contraction, forward
    and A.2 backward, on ``qq_blk`` and the per-tensor rest on ``qq``
-   (``EXPECTED_PER_STEP`` launches), no contraction planned on a plain
-   path, the plain replay ``==``;
+   (``EXPECTED_PER_STEP`` launches, the ``qq_blk`` ones split between its
+   two tilings as the shape rule names them; each shape's count
+   recorded), no contraction planned on a plain path, the plain replay
+   ``==``;
 7. serve full-width minicpm-2b (all 40 layers, random weights): 4 prompts
    x 128 tokens, 32 greedy tokens, int8 weights and KV cache; every decode
    step runs each layer as one ``decode_block`` launch (1240 in all); the
@@ -78,16 +83,18 @@ Phases, any of which failing exits non-zero:
    on a plain path, the plain replay ``==``.
 
 Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
-xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows) ``==``
-at the shapes of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd
-ones (relu, gelu, an odd GLU half), and ``bfp_quantize``
+xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows, at
+positions 159 and 0, with a window, for one stream) ``==`` at the shapes
+of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd ones (relu,
+gelu, an odd GLU half), and ``bfp_quantize``
 (mantissas) and ``int8_matmul`` (y; ``wgmma``, ``stream`` and wmma:
 ``int8_matmul.int8_matmul_variant``) ``==`` at the shapes of phase 9 and
 at odd ones (edge values, a batch, unaligned operands, a flushed scale),
 each call moving its variant's counter.
 
 After each of phases 3-10 every ``qq``, ``qi`` and ``ii`` launch must be
-one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``) and every
+one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``), every
+``qq_blk`` launch one of ``wgmma`` or ``wgmma64`` and every
 ``int8_matmul`` launch one of ``wgmma``: the variants the shape rules name
 for the main path's shapes; the counts by variant are printed.  Each step
 profile also sums the device time of the port's own kernels by name.
@@ -128,8 +135,15 @@ TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
 # contractions a layer (7 projections x forward, dX, dW; QKᵀ's dA and dB;
 # PV's forward and dB) and 3 of the tied LM head; QKᵀ's forward and PV's
 # dA contract the head dim 64, per tensor.
+# Of those, qq_blk_variant puts on the 128 x 128 tiles the gate and up
+# forwards, w_down's dX, the gate, up and w_down dW (6 a layer) and the LM
+# head's forward and dW; on the 64 x 64 tiles the 19 others a layer (fewer
+# than 132 tiles of 128 x 128) and the LM head's dX (N 896).
 EXPECTED_PER_STEP = {"int8_block": {"qq_blk": 24 * 25 + 3, "qq": 24 * 2,
-                                    "qi": 0, "ii": 0},
+                                    "qi": 0, "ii": 0,
+                                    "qq_blk_wgmma": 24 * 6 + 2,
+                                    "qq_blk_wgmma64": 24 * 19 + 1,
+                                    "qq_blk_dp4a": 0},
                      # phase 9: per layer 9 contractions (7 projections,
                      # QKᵀ, PV) a direction, qq forward (2 quantizes), qi
                      # dX (1), ii dW (0); the LM head's forward and dW, its
@@ -627,17 +641,19 @@ def _dp4a_qq_ms(torch, kfl, a, ra32, b, rb32, ea, eb, y_want):
 
 
 def _check_variants(label, launches):
-    """Every qq, qi, ii and int8_matmul launch of a main-path phase is one
-    of a variant, and each on the variant the shape rule names for it:
-    every main-path K is a multiple of 16 and every operand aligned, so
-    none on the fallback (``__dp4a``, wmma); every int8_matmul launch (M >
-    16 throughout phase 9) on wgmma."""
+    """Every qq, qi, ii, qq_blk and int8_matmul launch of a main-path phase
+    is one of a variant, and each on the variant the shape rule names for
+    it: every main-path K is a multiple of 16, every block 128 and every
+    operand aligned, so none on the fallback (``__dp4a``, wmma); every
+    int8_matmul launch (M > 16 throughout phase 9) on wgmma (phase 6 also
+    holds the qq_blk split between the two tilings to its count)."""
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import int8_matmul as kim
     for kind, variants, allowed in (
             ("qq", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
             ("qi", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
             ("ii", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
+            ("qq_blk", kfl.QQ_BLK_VARIANTS, ("wgmma", "wgmma64")),
             ("int8_matmul", kim.INT8_MATMUL_VARIANTS, ("wgmma",))):
         per = {v: launches[f"{kind}_{v}"] for v in variants}
         if sum(per.values()) != launches[kind] or any(
@@ -673,6 +689,7 @@ def check_chain(torch, dev, g, bits):
     at the minicpm-2b shapes of phases 7 and 8, gemm_epi also at the
     starcoder2-7b shape of phase 10, and at odd ones, ``==``; timed at the
     minicpm-2b and starcoder2-7b shapes."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import ref
@@ -786,10 +803,14 @@ def check_chain(torch, dev, g, bits):
         del x, rin, rout, got, want
 
     # decode_block: one minicpm-2b layer for 4 streams at the last decode
-    # position of phase 7, then GQA groups of 4 with a window
+    # position of phase 7 (timed), at position 0, with a window, for one
+    # stream; then GQA groups of 4 with a window
+    minicpm = (2304, 5760, 36, 36, 64, PROMPT + GEN)
     for label, (b, d, n_ff, hq, hkv, dh, t, pos, window) in (
-            ("serve", (BATCH, 2304, 5760, 36, 36, 64, PROMPT + GEN,
-                       PROMPT + GEN - 1, 0)),
+            ("serve", (BATCH, *minicpm, PROMPT + GEN - 1, 0)),
+            ("serve_pos0", (BATCH, *minicpm, 0, 0)),
+            ("serve_window", (BATCH, *minicpm, PROMPT + GEN - 10, 64)),
+            ("serve_b1", (1, *minicpm, PROMPT + GEN - 1, 0)),
             ("odd", (3, 256, 320, 8, 2, 32, 40, 37, 8))):
         def i8(*shp):
             return torch.randint(-127, 128, shp, generator=g, device=dev,
@@ -815,6 +836,7 @@ def check_chain(torch, dev, g, bits):
                 cossin.contiguous(), pos)
         kw = dict(n_d=d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, window=window,
                   se_g1=-14, se_g2=-14)
+        dispatch.reset_kernel_launches()
         got = kfc.fused_decode_block(*args, **kw)
         want = kfc.decode_block_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -822,6 +844,8 @@ def check_chain(torch, dev, g, bits):
         if not all(torch.equal(x_, y_) for x_, y_ in zip(got, want)):
             raise AssertionError(f"decode_block {label}: kernel != plain "
                                  f"(max |dx_out| {err})")
+        if dispatch.kernel_launches()["decode_block"] != 1:
+            raise AssertionError(f"decode_block {label}: launch not counted")
         if label != "serve":
             continue
         weights = nqkv * d + d * hq * dh + 2 * n_ff * d + d * n_ff
@@ -838,7 +862,7 @@ def check_chain(torch, dev, g, bits):
             "no single PyTorch call computes a decoder layer over an int8 "
             "cache"))
     print("gemm_epi, norm_gemm and decode_block == plain at every shape "
-          "(odd shapes untimed)")
+          "(odd shapes and positions untimed)")
     return out
 
 
@@ -1002,26 +1026,45 @@ def _int_mm_blocks_ms(torch, am, bm, blk):
         return None
 
 
+# qq_blk shapes, (B, M, K, N, blk, residuals): the int8_block step's
+# (phase 6) gate forward, w_down forward, gate dW, the tied LM head's
+# forward, dX (1187 blocks, the 64 x 64 tiles) and dW, the attention's
+# batched PV; then odd ones: blk 32 with the 64 x 64 tiles, K % 16 != 0
+# and M <= 16 (the __dp4a kernel).  The names starting with qq_blk are
+# timed; those named as a variant counter stand for it on the kernels line.
+QQ_BLK_CASES = {"qq_blk": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 4864, 128, True),
+                "qq_blk_w_down": (1, TRAIN_BATCH * TRAIN_SEQ, 4864, 896, 128, True),
+                "qq_blk_gate_dw": (1, 4864, TRAIN_BATCH * TRAIN_SEQ, 896, 128, True),
+                "qq_blk_lm_head": (1, TRAIN_BATCH * TRAIN_SEQ, 896, 151936, 128, True),
+                "qq_blk_lm_head_dx": (1, TRAIN_BATCH * TRAIN_SEQ, 151936, 896, 128,
+                                      False),
+                "qq_blk_lm_head_dw": (1, 896, TRAIN_BATCH * TRAIN_SEQ, 151936, 128,
+                                      True),
+                "pv": (TRAIN_BATCH * 2, 7 * TRAIN_SEQ, TRAIN_SEQ, 64, 128, True),
+                "odd": (2, 37, 40 * 32, 29, 32, True),
+                "odd_k": (1, 37, 168, 29, 8, True),
+                "odd_m16": (1, 16, 256, 64, 128, True),
+                "odd_unaligned": (1, 37, 256, 29, 32, True)}
+QQ_BLK_LINE_AS = {"qq_blk": ["qq_blk_wgmma"], "qq_blk_lm_head_dx": ["qq_blk_wgmma64"]}
+
+
 def check_qq_blk(torch, dev, g, bits):
     """qq_blk against its plain version, y and both mantissa arrays ==:
-    stochastic with residuals, half up, and y alone; the first block of
-    row 0 of both operands is tiny, so its scale 2^(sa + sb) is below
-    2^-126 and flushes to 0.  Timed at the gate's forward, the tied LM
-    head's forward and its dX over 1187 blocks of the vocabulary."""
+    stochastic with residuals, half up, and y alone, each call moving the
+    counter of the variant ``qq_blk_variant`` names (an unaligned view of
+    a takes __dp4a); the first block of row 0 of both operands is tiny, so
+    its scale 2^(sa + sb) is below 2^-126 and flushes to 0.  Timed at the
+    names starting with qq_blk."""
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import ref
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    # name: (B, M, K, N, blk, residuals); the names starting with qq_blk
-    # are timed
-    shapes = {"qq_blk": (1, tokens, 896, 4864, 128, True),
-              "qq_blk_lm_head": (1, tokens, 896, 151936, 128, True),
-              "qq_blk_lm_head_dx": (1, tokens, 151936, 896, 128, False),
-              "pv": (TRAIN_BATCH * 2, 7 * TRAIN_SEQ, TRAIN_SEQ, 64, 128, True),
-              "odd": (2, 37, 40 * 32, 29, 32, True)}
-    out = []
-    for name, (nb, m, k, n, blk, res) in shapes.items():
-        a = torch.randn((nb, m, k), generator=g, device=dev)
+    out, held = [], []
+    for name, (nb, m, k, n, blk, res) in QQ_BLK_CASES.items():
+        if name == "odd_unaligned":      # a view one float into its storage
+            a = torch.randn((nb * m * k + 4,), generator=g, device=dev
+                            )[1:1 + nb * m * k].view(nb, m, k)
+        else:
+            a = torch.randn((nb, m, k), generator=g, device=dev)
         b = torch.randn((nb, n, k), generator=g, device=dev)
         a[:, 0, :blk] *= 2.0 ** -70
         b[:, 0, :blk] *= 2.0 ** -70
@@ -1030,26 +1073,35 @@ def check_qq_blk(torch, dev, g, bits):
         eb = ref.max_biased_exp_blocks_ref(b, blk)
         if int(kfl.scale_exp(ea[0, 0, 0], 7) + kfl.scale_exp(eb[0, 0, 0], 7)) >= -126:
             raise AssertionError(f"{name}: the flush case is not below 2^-126")
+        variant = kfl.qq_blk_variant(m, n, k, blk, kfl._aligned(a), nb)
         err = 0.0
         for sr in (True, False):
             r = (ra, rb) if sr else (None, None)
             kw = dict(blk=blk, stochastic=sr)
-            got = kfl.fused_qq_blk(a, r[0], ea, b, r[1], eb, **kw)
+            got = _expect_variant(torch, "qq_blk", kfl.QQ_BLK_VARIANTS, variant,
+                                  str((nb, m, k, n, blk)), lambda: kfl.fused_qq_blk(
+                                      a, r[0], ea, b, r[1], eb, **kw))
             want = kfl.fused_qq_blk_plain(a, r[0], ea, b, r[1], eb, **kw)
-            y_only = kfl.fused_qq_blk(a, r[0], ea, b, r[1], eb,
-                                      emit_residuals=False, **kw)[0]
+            y_only = _expect_variant(
+                torch, "qq_blk", kfl.QQ_BLK_VARIANTS, variant, str((nb, m, k, n, blk)),
+                lambda: kfl.fused_qq_blk(a, r[0], ea, b, r[1], eb,
+                                         emit_residuals=False, **kw))
             torch.cuda.synchronize()
             err = max(err, (got[0] - want[0]).abs().max().item())
-            for x, y in list(zip(got, want)) + [(y_only, want[0])]:
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{name}: qq_blk kernel != plain "
-                                         f"(max |dy| {err})")
+            if not (all(torch.equal(x, y) for x, y in zip(got, want))
+                    and torch.equal(y_only[0], want[0])
+                    and y_only[1:] == (None, None)):
+                raise AssertionError(f"{name}: qq_blk {variant} kernel != plain "
+                                     f"(max |dy| {err})")
+        held.append(f"{name} {variant}")
         if name.startswith("qq_blk"):
-            out.append(_time_qq_blk(torch, kfl, name, (a, ra, ea, b, rb, eb),
-                                    want[1], want[2], blk, res, err))
+            row = _time_qq_blk(torch, kfl, name, (a, ra, ea, b, rb, eb),
+                               want[1], want[2], blk, res, err)
+            out.append(dict(row, variant=variant, line_as=QQ_BLK_LINE_AS.get(name, [])))
         del a, b, ra, rb, got, want, y_only
         torch.cuda.empty_cache()
-    print("qq_blk == plain at every shape (pv and odd shapes untimed)")
+    print(f"qq_blk == plain at every shape ({len(held)}, both roundings, with "
+          f"and without residuals): {held}")
     return out
 
 
@@ -1059,7 +1111,8 @@ def _time_qq_blk(torch, kfl, name, args, am, bm, blk, res, err):
     n = b.shape[1]
     args32 = (a, kfl.as_u32(ra), ea, b, kfl.as_u32(rb), eb)
     kw = dict(blk=blk, emit_residuals=res)
-    ms = _device_ms(torch, lambda: kfl.fused_qq_blk(*args32, **kw))
+    split = {}
+    ms = _device_ms(torch, lambda: kfl.fused_qq_blk(*args32, **kw), split=split)
     call = _time_ms(torch, lambda: kfl.fused_qq_blk(*args32, **kw))
     pms = _device_ms(torch, lambda: kfl.fused_qq_blk_plain(*args, **kw),
                      iters=2)
@@ -1072,12 +1125,14 @@ def _time_qq_blk(torch, kfl, name, args, am, bm, blk, res, err):
     print(f"{name} {[m, k, n]}: {ms:.4f} ms device time (bound "
           f"{bound:.5f} ms by {by}; plain {pms:.3f} ms; per-block "
           f"_int_mm {blocks_ms}), kernel == plain")
+    src = "fused_linear.cu" if kfl.qq_blk_variant(m, n, k, blk, True, nb) == "dp4a" \
+        else "qgemm_sm90.cu"
     return dict(name=name, route="cuda",
-                source="src/repro_torch/kernels/csrc/fused_linear.cu",
+                source=f"src/repro_torch/kernels/csrc/{src}",
                 replaces="src/repro/kernels/fused_linear.py:367",
                 shape=[nb, m, k, n], blk=blk, residuals=res, max_abs_err=err,
                 ms=ms, call_ms=call, plain_ms=pms, bound_ms=bound,
-                bound_by=by, bytes=nbytes, library_ms=None,
+                bound_by=by, bytes=nbytes, library_ms=None, ms_by_kernel=split,
                 int_mm_blocks_ms=blocks_ms,
                 library_note="no single PyTorch call applies a scale per "
                              "row and block inside the contraction; "
@@ -1322,7 +1377,7 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_kernel_launches()
         t0 = time.perf_counter()
-        with dispatch.record_decisions() as log:
+        with dispatch.record_decisions() as log, _qq_blk_census() as shapes:
             losses, state, stats = train(ARCH, **kw)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
@@ -1385,7 +1440,11 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
     torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message)[:200] for w in caught
                      if "deterministic" in str(w.message)})
+    if shapes:
+        print(f"{label}: qq_blk launches per step by (B, M, K, N, blk, "
+              f"variant): {shapes}")
     rec[label] = dict(stats, losses=losses, launches=launches,
+                      qq_blk_shapes={str(k): v / steps for k, v in shapes.items()},
                       launches_per_step=per_step, step_s_median=step_s,
                       tokens_per_s=tokens / step_s, peak_bytes=peak,
                       plain_replay_equal=True, jnp_decisions=jnp,
@@ -1393,6 +1452,28 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
                       replay_call_s=replay_s, profile_call_s=profile_s,
                       replay_step_s=stats_p["step_s"])
     return launches
+
+
+class _qq_blk_census:
+    """Counts each qq_blk call's (B, M, K, N, blk, variant) while open: the
+    wrapper asks ``qq_blk_variant`` once a call, so the count wraps it."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.kernels import fused_linear as kfl
+        self.kfl, self.rule = kfl, kfl.qq_blk_variant
+        self.seen = collections.Counter()
+
+        def counted(m, n, k, blk, aligned=True, nb=1):
+            v = self.rule(m, n, k, blk, aligned, nb)
+            self.seen[(nb, m, k, n, blk, v)] += 1
+            return v
+        kfl.qq_blk_variant = counted
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.kfl.qq_blk_variant = self.rule
 
 
 def _state_digest(state) -> dict:

@@ -11,10 +11,11 @@
 //                        on each output tile; see gemm_epi below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
-// qq, qi and ii take qgemm_kernel only where K % 16 != 0 or an operand is
-// not 16-byte aligned; every other shape runs on the Hopper kernels of
-// qgemm_sm90.cu (kernels/fused_linear.py qq_variant, qgemm_variant).
-// qq_blk and gemm_epi run here at every shape.
+// qq, qi and ii take qgemm_kernel, and qq_blk its kernel below, only where
+// K % 16 != 0 or an operand is not 16-byte aligned (qq_blk also for a block
+// that is not a multiple of 32 or M <= 16); every other shape runs on the
+// Hopper kernels of qgemm_sm90.cu (kernels/fused_linear.py qq_variant,
+// qgemm_variant, qq_blk_variant).  gemm_epi runs here at every shape.
 // The shared exponents are per tensor (over the whole batched tensor) and
 // arrive as device scalars, so no host synchronisation is needed; rounding
 // bits are streamed in (uint32, one per element), none are drawn here.
@@ -198,9 +199,15 @@ cudaError_t launch(const Args& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The vector loads (16 bytes of f32 and bits, 4 of int8) need K % 4 == 0
+// and 16-byte aligned operands: the shape rules send an unaligned operand
+// here, whose rows are then read element by element.
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 template <bool A_FLOAT, bool B_FLOAT, bool STOCH>
 cudaError_t dispatch(const Args& g, cudaStream_t stream) {
-  const bool vec = g.K % 4 == 0;
+  const bool vec = g.K % 4 == 0 && aligned16(g.a) && aligned16(g.ra) && aligned16(g.ai) &&
+                   aligned16(g.bf) && aligned16(g.rb) && aligned16(g.bi);
   if (g.M <= 16) {
     return vec ? launch<1, A_FLOAT, B_FLOAT, STOCH, true>(g, stream)
                : launch<1, A_FLOAT, B_FLOAT, STOCH, false>(g, stream);
@@ -228,8 +235,9 @@ cudaError_t dispatch(const Args& g, cudaStream_t stream) {
 // exponents, against 2*M*N*K int8 operations: bytes bound every shape of
 // the training path.  Each N tile quantizes its a tile again (and each M
 // tile its b tile); the grid runs the M tiles of one N tile next to each
-// other, so the b tile they share comes from L2.  Quantizing each operand
-// once, wgmma and TMA are later work.
+// other, so the b tile they share comes from L2.  The main path's shapes
+// quantize each operand once and contract on the tensor cores in
+// qgemm_sm90.cu instead; this kernel is the fallback for the rest.
 
 constexpr int BLK_TM = 4;                 // rows per thread
 constexpr int BLK_BM = 16 * BLK_TM;       // a rows per block
@@ -373,7 +381,8 @@ struct BlkArgs {
 template <bool STOCH>
 cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
   const dim3 grid((g.M + BLK_BM - 1) / BLK_BM, (g.N + BN - 1) / BN, g.B);
-  if (g.K % 4 == 0 && g.blk % 4 == 0) {
+  if (g.K % 4 == 0 && g.blk % 4 == 0 && aligned16(g.a) && aligned16(g.ra) &&
+      aligned16(g.b) && aligned16(g.rb)) {
     qq_blk_kernel<STOCH, true><<<grid, THREADS, 0, stream>>>(
         g.a, g.ra, g.ea, g.b, g.rb, g.eb, g.y, g.am, g.bm, g.M, g.N, g.K,
         g.blk, g.p);

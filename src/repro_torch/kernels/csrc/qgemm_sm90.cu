@@ -1,7 +1,8 @@
-// The qq, qi, ii and int8_matmul GEMMs redesigned for Hopper (sm_90a): int8
-// tensor cores fed by TMA through a ring of shared-memory stages.
+// The qq, qi, ii, qq_blk and int8_matmul GEMMs redesigned for Hopper
+// (sm_90a): int8 tensor cores fed by TMA through a ring of shared-memory
+// stages.
 //
-// Replaces, beside the __dp4a qgemm_kernel of fused_linear.cu and the wmma
+// Replaces, beside the __dp4a kernels of fused_linear.cu and the wmma
 // kernel of int8_matmul.cu (which keep the shapes this file does not take),
 // the TPU kernels
 //   fused_qq_pt_pallas  (both operands f32, quantized: every forward
@@ -9,6 +10,8 @@
 //   fused_qi_pt_pallas  (a f32 quantized, b pre-quantized int8: every
 //                        projection and LM head of serving, the backward's dX)
 //   fused_ii_pt_pallas  (both operands int8 mantissas: the backward's dW)
+//   fused_qq_blk_pallas (both operands f32, one exponent per row and blk
+//                        elements of K: every int8_block contraction)
 // of src/repro/kernels/fused_linear.py, and int8_matmul_pallas of
 // src/repro/kernels/int8_matmul.py (both operands int8, one f32 scale: the
 // unfused rung).
@@ -28,10 +31,10 @@
 // for bit.
 //
 // Variants, chosen by the wrappers from the shapes alone
-// (kernels/fused_linear.py qgemm_variant / qq_variant,
+// (kernels/fused_linear.py qgemm_variant / qq_variant / qq_blk_variant,
 // kernels/int8_matmul.py int8_matmul_variant): K % 16 == 0 (TMA's 16-byte
 // row stride) and 16-byte aligned operands, else the __dp4a kernel of
-// fused_linear.cu (qq, qi, ii) or the wmma kernel of int8_matmul.cu.
+// fused_linear.cu (qq, qi, ii, qq_blk) or the wmma kernel of int8_matmul.cu.
 //
 // wgmma (M > 16).  A persistent grid, one block per SM, walks 128 x 128
 // output tiles, M fastest (the blocks at work at one time share b tiles in
@@ -56,6 +59,25 @@
 // 4864, 4 over b at M = 512) or hold a strip of rows in shared memory
 // beside the ring.
 //
+// qq_blk (the block mode of the wgmma kernel; M > 16, blk % 32 == 0 and
+// blk dividing the 128-byte stage or a multiple of it).  A per-block pass
+// quantizes a, then b, once, each element against its row's exponent of
+// its block (repro::quantize_one), and writes each row's scale column once,
+// transposed ((B, K/blk, rows rounded up to 128)).  The GEMM's producer
+// copies the stage's block columns beside its a and b tiles (1-D bulk
+// copies on the same mbarrier).  A consumer warpgroup issues a block's k32
+// steps (the first without accumulating), waits for the group and promotes
+// it: acc = acc + float(d) * 2^(sa + sb), each step rounded on its own in
+// block order from a zero start, never split -- blk_combine's order
+// exactly, so K is never split across blocks of the grid either.  Two
+// tilings: 128 x 128 (two consumer warpgroups, the one waiting while the
+// other's wgmmas run) where they make 132 tiles or more; else 64 x 64, one
+// warpgroup with two int32 accumulators at blocks of 128, so stage kc's
+// wgmmas run while stage kc - 1 is promoted (the LM head's dX: N 896 gives
+// 28 tiles of 128 x 128, 112 of 64 x 64).  The 128 x 128 tiling holds one
+// accumulator: 9 warps a block leave 168 registers a thread (3 warps on one
+// SM sub-partition), too few for a second 64.
+//
 // stream (M <= 16: decode, batch 4).  Bandwidth-bound on b (the LM head's
 // 136 MB).  Each block quantizes (qi, qq) or loads (ii, int8_matmul) the
 // few a rows into shared memory itself, with no extra launch, then streams
@@ -67,7 +89,7 @@
 // Bounds on the H100 (bytes over 3.35 TB/s against 2*M*N*K int8 operations
 // at 1979 TOP/s): bytes for every shape of the main path; y's 4*M*N bytes
 // for the training dW (545 MB at the tied LM head), b's N*K for decode, the
-// f32 values and bits of b (8*N*K) for qq's LM head.
+// f32 values and bits of b (8*N*K) for qq's and qq_blk's LM head.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -76,60 +98,29 @@
 #include <mutex>
 
 #include "bfp.cuh"
+#include "sm90.cuh"
 
 namespace {
 
+using repro::bulk_load;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_fence_init;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::mma_s8_m16n8k32;
 using repro::pow2f;
 using repro::quantize_one;
 using repro::scale_exp;
+using repro::smem_u32;
 
 // ---------------------------------------------------------------------------
-// PTX helpers: mbarrier, TMA, wgmma, mma.sync
+// PTX helpers: TMA, wgmma (mbarriers, bulk copies, mma.sync: sm90.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   const uint32_t s = smem_u32(p);
   return p + (((s + 1023u) & ~1023u) - s);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // One 3-D box of a tensor map into shared memory, completing on `bar`.
@@ -169,9 +160,18 @@ __device__ __forceinline__ void wgmma_wait1() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// d (64 x 128 int32, the warpgroup's fragment) += a (64 x 32) * b (128 x 32)^T.
+// After a wait: the accumulators are read only from here on (the compiler
+// sees no asynchronous write behind the wgmma statement otherwise).
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128 int32, the warpgroup's fragment) = a (64 x 32) * b (128 x 32)^T,
+// plus d when acc != 0.
 __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
-                                                    uint64_t db) {
+                                                    uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -198,19 +198,37 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
         "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
         "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// c (16 x 8 int32) += a (16 x 32 s8, row) * b (32 x 8 s8, col).
-__device__ __forceinline__ void mma_s8_m16n8k32(int (&c)[4], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint32_t b0,
-                                                uint32_t b1) {
+// The same with a 64 x 64 fragment: d (64 x 64 int32) = a (64 x 32) * b (64 x 32)^T.
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
+                                                   uint64_t db, int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db,
+                                         int acc) {
+  if constexpr (BN == 128)
+    wgmma_s8_m64n128k32(d, da, db, acc);
+  else
+    wgmma_s8_m64n64k32(d, da, db, acc);
 }
 
 // Four consecutive f32 values and their bits -> four int8 mantissas packed
@@ -259,53 +277,200 @@ __global__ void __launch_bounds__(256) quantize_pass_kernel(QSeg s0, QSeg s1, in
   }
 }
 
-// The epilogue's float32 scale, read once per block: 2^(sa + sb) from the
-// two shared exponents (qq, qi, ii), or one given scalar (int8_matmul).
-template <bool SCALAR>
-__device__ __forceinline__ float epi_scale(const int* ea, const int* eb,
-                                           const float* scale, int pa, int pb) {
-  if (SCALAR) return *scale;
-  return pow2f(scale_exp(*ea, pa) + scale_exp(*eb, pb));
+// The per-block pass of qq_blk: a's and b's rows [+ bits] -> int8
+// mantissas, each element against its row's exponent of its block of K.
+// One segment per operand: rows = B * (M or N) rows of K elements, e (rows,
+// K/blk) biased exponents; each row's exponent of each block is also
+// written once, transposed and with the scale-exponent offset added, as the
+// GEMM's block scale columns: st[(z * nb + bi) * st_ld + row] = e + st_add.
+struct QBlkSeg {
+  const float* x;
+  const uint32_t* r;
+  const int* e;
+  int8_t* m;
+  int* st;
+  int st_ld, st_add, rows_per_z, rows;
+};
+
+// A grid-stride walk over the groups of 4 of both segments' rows, as the
+// per-tensor pass; each thread steps its (row, group) by the stride's
+// quotient and remainder, so no 64-bit division is left in the loop.
+template <bool STOCH>
+__global__ void __launch_bounds__(256) quantize_blk_pass_kernel(QBlkSeg s0, QBlkSeg s1,
+                                                                int K, int blk, int p) {
+  const int g4 = K / 4, nb = K / blk;
+  const size_t total = (size_t)(s0.rows + s1.rows) * g4;
+  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const int drow = (int)(stride / g4), dg = (int)(stride % g4);
+  int row = (int)(i0 / g4), g = (int)(i0 % g4);
+  for (size_t i = i0; i < total; i += stride) {
+    const bool first = row < s0.rows;
+    const QBlkSeg s = first ? s0 : s1;
+    const int rr = first ? row : row - s0.rows;
+    const int k = g * 4, bi = k / blk;
+    const int e = s.e[(size_t)rr * nb + bi];
+    const size_t idx = (size_t)rr * K + k;
+    reinterpret_cast<uint32_t*>(s.m)[idx / 4] = quantize4<STOCH>(s.x, s.r, idx, e, p);
+    if (k % blk == 0) {
+      const int z = rr / s.rows_per_z, ri = rr % s.rows_per_z;
+      s.st[((size_t)z * nb + bi) * s.st_ld + ri] = e + s.st_add;
+    }
+    row += drow;
+    g += dg;
+    if (g >= g4) {
+      g -= g4;
+      ++row;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // wgmma: persistent warp-specialised tensor-core GEMM, int8 x int8 -> f32
 // ---------------------------------------------------------------------------
 
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 128, TC_STAGES = 4;
-constexpr int TC_TILE_A = TC_BM * TC_BK;             // bytes
-constexpr int TC_TILE_B = TC_BN * TC_BK;
-constexpr int TC_STAGE = TC_TILE_A + TC_TILE_B;
-constexpr int TC_OUT_LD = TC_BN + 8;                 // floats: no bank conflict
-constexpr int TC_OUT = 64 * TC_OUT_LD * 4;           // bytes per consumer warpgroup
-constexpr int TC_THREADS = 288;  // two consumer warpgroups, one producer warp
-constexpr int TC_SMEM = 1024 + TC_STAGES * TC_STAGE + 2 * TC_OUT + 2 * TC_STAGES * 8;
+// What the epilogue scales by: the two shared exponents (qq, qi, ii), one
+// given scalar (int8_matmul), or a scale per row and block of K (qq_blk:
+// each block's exact int32 partial promoted into a float32 accumulator).
+constexpr int EPI_EXP = 0, EPI_SCALAR = 1, EPI_BLOCK = 2;
 
-template <bool SCALAR>
-__global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
+// The float32 scale of the per-tensor epilogues, read once per block.
+template <int EPI>
+__device__ __forceinline__ float epi_scale(const int* ea, const int* eb,
+                                           const float* scale, int pa, int pb) {
+  if (EPI == EPI_SCALAR) return *scale;
+  if (EPI == EPI_BLOCK) return 0.0f;
+  return pow2f(scale_exp(*ea, pa) + scale_exp(*eb, pb));
+}
+
+// Tiles of WGS * 64 rows of a and BN rows of b, 128 bytes of K a stage; in
+// the block mode each stage also carries the scale columns of up to four
+// blocks (blk = 32: four blocks a stage).
+template <int EPI, int WGS, int BN>
+struct Tc {
+  static constexpr int BM = 64 * WGS, BK = 128, THREADS = 128 * WGS + 32;
+  static constexpr int STAGES = WGS == 2 ? 4 : 6;
+  static constexpr int TILE_A = BM * BK, TILE_B = BN * BK;  // bytes
+  static constexpr int EXP_SLOT = (BM + BN) * 4;            // one block's columns
+  static constexpr int STAGE = TILE_A + TILE_B + (EPI == EPI_BLOCK ? 4 * EXP_SLOT : 0);
+  static constexpr int OUT_LD = BN + 8;                     // floats: no bank conflict
+  static constexpr int OUT = 64 * OUT_LD * 4;               // bytes per consumer warpgroup
+  static constexpr int SMEM = 1024 + STAGES * STAGE + WGS * OUT + 2 * STAGES * 8;
+  static_assert(STAGE % 1024 == 0, "stages keep the 128-byte swizzle's alignment");
+};
+
+// Block mode: acc += float(d) * 2^(sa + sb) for each element of the
+// fragment, then d is free for the next block.  ex holds the block's
+// columns: sa + 127 for the tile's BM rows, then sb for its BN columns, so
+// e = sa + sb + 127 and 2^(sa + sb) has the bits clamp(e, 0, 254) << 23:
+// 0 below 2^-126 and at most 2^127, as pow2f.  float(d) is exact either
+// way; below 2^22 (blk <= 256) as the difference of two floats, cheaper
+// than the conversion unit.
+template <int BN, bool SMALL>
+__device__ __forceinline__ void promote_as(float (&acc)[BN / 2], const int (&d)[BN / 2],
+                                           const int* ex, int BM, int row0, int c0) {
+  const int* eb = ex + BM;
+  const int ar[2] = {ex[row0], ex[row0 + 8]};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int2 bc = *reinterpret_cast<const int2*>(eb + j * 8 + c0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        int x = (int)((unsigned)ar[h] + (unsigned)(e ? bc.y : bc.x));
+        x = min(max(x, 0), 254);
+        const float f = SMALL ? __fsub_rn(__int_as_float(d[i] + 0x4B400000), 12582912.0f)
+                              : __int2float_rn(d[i]);
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(f, __int_as_float(x << 23)));
+      }
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void promote(float (&acc)[BN / 2], const int (&d)[BN / 2],
+                                        const int* ex, int BM, int row0, int c0,
+                                        bool small) {
+  if (small)
+    promote_as<BN, true>(acc, d, ex, BM, row0, c0);
+  else
+    promote_as<BN, false>(acc, d, ex, BM, row0, c0);
+}
+
+// One step of the double-buffered block loop (one warpgroup, blk = 128):
+// issue stage kc's four k32 steps into cur (when kc < kc_n), then wait for
+// stage kc - 1's group (in prv), promote it with its scale columns and
+// release its stage.  stage / phase name the ring slot of kc, pstage that
+// of kc - 1.
+template <int BN, int BM, int BK, int STAGES>
+__device__ __forceinline__ void blk_step(int kc, int kc_n, int (&cur)[BN / 2],
+                                         int (&prv)[BN / 2], float (&acc)[BN / 2],
+                                         uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                         int& stage, uint32_t& phase, int& pstage,
+                                         int stage_bytes, int tile_a, int tile_b, int r0,
+                                         int c0, bool small) {
+  const int tid = threadIdx.x % 128;
+  if (kc < kc_n) {
+    mbar_wait(&full[stage], phase);
+    const uint8_t* st = ring + stage * stage_bytes;
+    const uint32_t a_s = smem_u32(st), b_s = smem_u32(st + tile_a);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks)
+      wgmma_s8<BN>(cur, gmma_desc(a_s + ks * 32), gmma_desc(b_s + ks * 32), ks != 0);
+    wgmma_commit();
+  }
+  if (kc >= 1 && kc <= kc_n) {
+    if (kc < kc_n)
+      wgmma_wait1();
+    else
+      wgmma_wait0();
+    fence_operands(prv);
+    const int* ex = reinterpret_cast<const int*>(ring + pstage * stage_bytes + tile_a + tile_b);
+    promote<BN>(acc, prv, ex, BM, r0, c0, small);
+    if (tid == 0) mbar_arrive(&empty[pstage]);
+  }
+  if (kc < kc_n) {
+    pstage = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+}
+
+template <int EPI, int WGS, int BN>
+__global__ void __launch_bounds__(Tc<EPI, WGS, BN>::THREADS, 1) tc_gemm_kernel(
     const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
     const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
-    const float* __restrict__ scale_ptr, float* __restrict__ y, int M, int N,
-    int K, int B, int pa, int pb) {
+    const float* __restrict__ scale_ptr, const int* __restrict__ sa_t,
+    const int* __restrict__ sb_t, float* __restrict__ y, int M, int N, int K, int B,
+    int pa, int pb, int blk, int lda_t, int ldb_t) {
+  using T = Tc<EPI, WGS, BN>;
+  constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, NF = BN / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
-  float* out = reinterpret_cast<float*>(ring + TC_STAGES * TC_STAGE);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(ring + TC_STAGES * TC_STAGE + 2 * TC_OUT);
-  uint64_t* empty = full + TC_STAGES;
-  const int m_tiles = (M + TC_BM - 1) / TC_BM, n_tiles = (N + TC_BN - 1) / TC_BN;
-  const int total = m_tiles * n_tiles * B, kc_n = (K + TC_BK - 1) / TC_BK;
+  float* out = reinterpret_cast<float*>(ring + STAGES * T::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * T::STAGE + WGS * T::OUT);
+  uint64_t* empty = full + STAGES;
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int total = m_tiles * n_tiles * B, kc_n = (K + BK - 1) / BK;
+  // block mode: blocks of K, k32 steps a block, blocks a stage (blk < 128)
+  const bool block_mode = EPI == EPI_BLOCK;
+  const int nb = block_mode ? K / blk : 0, spb = block_mode ? blk / 32 : 1;
+  const int bps = block_mode && blk < BK ? BK / blk : 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2);
+      mbar_init(&empty[s], WGS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp == 8) {  // producer
+  if (warp == 4 * WGS) {  // producer
     if (lane == 0) {
       int stage = 0;
       uint32_t phase = 0;
@@ -313,12 +478,24 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
         const int mt = t % m_tiles, rest = t / m_tiles;
         const int nt = rest % n_tiles, z = rest / n_tiles;
         for (int kc = 0; kc < kc_n; ++kc) {
+          // the blocks whose scale columns ride with this stage
+          int b0 = 0, nbk = 0;
+          if (EPI == EPI_BLOCK) {
+            b0 = blk < BK ? kc * bps : kc * BK / blk;
+            nbk = blk < BK ? min(bps, nb - b0) : 1;
+          }
           mbar_wait(&empty[stage], phase ^ 1u);
-          mbar_expect_tx(&full[stage], TC_STAGE);
-          uint8_t* st = ring + stage * TC_STAGE;
-          tma_load_3d(st, &ta, &full[stage], kc * TC_BK, mt * TC_BM, z);
-          tma_load_3d(st + TC_TILE_A, &tb, &full[stage], kc * TC_BK, nt * TC_BN, z);
-          if (++stage == TC_STAGES) {
+          mbar_expect_tx(&full[stage], T::TILE_A + T::TILE_B + nbk * T::EXP_SLOT);
+          uint8_t* st = ring + stage * T::STAGE;
+          tma_load_3d(st, &ta, &full[stage], kc * BK, mt * BM, z);
+          tma_load_3d(st + T::TILE_A, &tb, &full[stage], kc * BK, nt * BN, z);
+          for (int j = 0; j < nbk; ++j) {
+            const size_t col = (size_t)z * nb + b0 + j;
+            uint8_t* ex = st + T::TILE_A + T::TILE_B + j * T::EXP_SLOT;
+            bulk_load(ex, sa_t + col * lda_t + mt * BM, BM * 4, &full[stage]);
+            bulk_load(ex + BM * 4, sb_t + col * ldb_t + nt * BN, BN * 4, &full[stage]);
+          }
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1u;
           }
@@ -330,67 +507,131 @@ __global__ void __launch_bounds__(TC_THREADS, 1) tc_gemm_kernel(
 
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
   const int wg = warp / 4, tid = threadIdx.x % 128;
-  const float scale = epi_scale<SCALAR>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
-  float* my_out = out + wg * 64 * TC_OUT_LD;
+  const float scale = epi_scale<EPI>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
+  float* my_out = out + wg * 64 * T::OUT_LD;
   const int r0 = (warp % 4) * 16 + lane / 4, c0 = (lane % 4) * 2;
-  const bool vec = N % 4 == 0;
+  const bool vec = N % 4 == 0, small = blk <= 256;
+  const int steps = K / 32;  // block mode: K is a multiple of blk, so of 32
   int stage = 0;
   uint32_t phase = 0;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
     const int mt = t % m_tiles, rest = t / m_tiles;
     const int nt = rest % n_tiles, z = rest / n_tiles;
-    int d[64];
+    int d[NF];
+    float acc[NF];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0;
-    // One commit group a stage; a stage is released once the next one's
-    // group is issued, so the tensor cores work while the next stage lands.
-    int prev = -1;
-    for (int kc = 0; kc < kc_n; ++kc) {
-      mbar_wait(&full[stage], phase);
-      const uint32_t a_s = smem_u32(ring + stage * TC_STAGE + wg * 64 * TC_BK);
-      const uint32_t b_s = smem_u32(ring + stage * TC_STAGE + TC_TILE_A);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < TC_BK / 32; ++ks)
-        wgmma_s8_m64n128k32(d, gmma_desc(a_s + ks * 32), gmma_desc(b_s + ks * 32));
-      wgmma_commit();
-      wgmma_wait1();
-      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
-      prev = stage;
-      if (++stage == TC_STAGES) {
-        stage = 0;
-        phase ^= 1u;
-      }
+    for (int i = 0; i < NF; ++i) {
+      d[i] = 0;
+      acc[i] = 0.0f;
     }
-    wgmma_wait0();
-    if (tid == 0) mbar_arrive(&empty[prev]);
+    if (EPI == EPI_BLOCK && WGS == 1 && blk == BK) {
+      // One block a stage, one warpgroup: two int32 accumulators, so that
+      // the tensor cores take stage kc while stage kc - 1's block is
+      // promoted (still in block order); the loop is unrolled by two to
+      // keep the accumulators in registers.
+      if constexpr (EPI == EPI_BLOCK && WGS == 1) {
+        int d2[NF];
+#pragma unroll
+        for (int i = 0; i < NF; ++i) d2[i] = 0;
+        int pstage = 0;
+        for (int kc = 0; kc <= kc_n; kc += 2) {
+          blk_step<BN, BM, BK, STAGES>(kc, kc_n, d, d2, acc, ring, full, empty, stage, phase,
+                                       pstage, T::STAGE, T::TILE_A, T::TILE_B, r0, c0, small);
+          blk_step<BN, BM, BK, STAGES>(kc + 1, kc_n, d2, d, acc, ring, full, empty, stage,
+                                       phase, pstage, T::STAGE, T::TILE_A, T::TILE_B, r0, c0,
+                                       small);
+        }
+      }
+    } else if (EPI == EPI_BLOCK) {
+      // Each block from a zero start (the first k32 step of a block does not
+      // accumulate), waited for, promoted in block order: never split.
+      int in_blk = 0;  // k32 step within the block
+      for (int kc = 0; kc < kc_n; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* st = ring + stage * T::STAGE;
+        const uint32_t a_s = smem_u32(st + wg * 64 * BK);
+        const uint32_t b_s = smem_u32(st + T::TILE_A);
+        const int* ex = reinterpret_cast<const int*>(st + T::TILE_A + T::TILE_B);
+        int j = 0;  // the stage's block (blk < 128: several)
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 32; ++ks) {
+          if (kc * (BK / 32) + ks < steps) {
+            if (in_blk == 0) wgmma_fence();
+            wgmma_s8<BN>(d, gmma_desc(a_s + ks * 32), gmma_desc(b_s + ks * 32),
+                         in_blk != 0);
+            if (++in_blk == spb) {
+              in_blk = 0;
+              wgmma_commit();
+              wgmma_wait0();
+              fence_operands(d);
+              promote<BN>(acc, d, ex + j * (BM + BN), BM, wg * 64 + r0, c0, small);
+              if (blk < BK) ++j;
+            }
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        if (tid == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    } else {
+      // One commit group a stage; a stage is released once the next one's
+      // group is issued, so the tensor cores work while the next stage lands.
+      int prev = -1;
+      for (int kc = 0; kc < kc_n; ++kc) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a_s = smem_u32(ring + stage * T::STAGE + wg * 64 * BK);
+        const uint32_t b_s = smem_u32(ring + stage * T::STAGE + T::TILE_A);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 32; ++ks)
+          wgmma_s8<BN>(d, gmma_desc(a_s + ks * 32), gmma_desc(b_s + ks * 32), 1);
+        wgmma_commit();
+        wgmma_wait1();
+        if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait0();
+      fence_operands(d);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+    }
     // epilogue: fragment -> padded shared tile -> coalesced rows of y
     named_sync(1 + wg, 128);  // the previous tile's readers are done
 #pragma unroll
-    for (int j = 0; j < TC_BN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * j + 2 * h;
-        const float2 v = make_float2(__fmul_rn(__int2float_rn(d[i]), scale),
-                                     __fmul_rn(__int2float_rn(d[i + 1]), scale));
-        *reinterpret_cast<float2*>(my_out + (r0 + 8 * h) * TC_OUT_LD + j * 8 + c0) = v;
+        const float2 v =
+            EPI == EPI_BLOCK ? make_float2(acc[i], acc[i + 1])
+                             : make_float2(__fmul_rn(__int2float_rn(d[i]), scale),
+                                           __fmul_rn(__int2float_rn(d[i + 1]), scale));
+        *reinterpret_cast<float2*>(my_out + (r0 + 8 * h) * T::OUT_LD + j * 8 + c0) = v;
       }
     named_sync(1 + wg, 128);
-    const int m_base = mt * TC_BM + wg * 64, n_base = nt * TC_BN;
+    const int m_base = mt * BM + wg * 64, n_base = nt * BN;
     float* yz = y + (size_t)z * M * N;
     if (vec) {
-      for (int i = tid; i < 64 * (TC_BN / 4); i += 128) {
-        const int row = i / (TC_BN / 4), c4 = (i % (TC_BN / 4)) * 4;
+      for (int i = tid; i < 64 * (BN / 4); i += 128) {
+        const int row = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
         const int gm = m_base + row, gn = n_base + c4;
         if (gm < M && gn < N)
           *reinterpret_cast<float4*>(yz + (size_t)gm * N + gn) =
-              *reinterpret_cast<const float4*>(my_out + row * TC_OUT_LD + c4);
+              *reinterpret_cast<const float4*>(my_out + row * T::OUT_LD + c4);
       }
     } else {
-      for (int i = tid; i < 64 * TC_BN; i += 128) {
-        const int row = i / TC_BN, c = i % TC_BN;
+      for (int i = tid; i < 64 * BN; i += 128) {
+        const int row = i / BN, c = i % BN;
         const int gm = m_base + row, gn = n_base + c;
-        if (gm < M && gn < N) yz[(size_t)gm * N + gn] = my_out[row * TC_OUT_LD + c];
+        if (gm < M && gn < N) yz[(size_t)gm * N + gn] = my_out[row * T::OUT_LD + c];
       }
     }
   }
@@ -481,7 +722,8 @@ __global__ void __launch_bounds__(ST_THREADS, 1) stream_gemm_kernel(
 
   // consumers: warp w owns tile rows [16 w, 16 w + 16), two n8 groups
   const int gid = lane / 4, tig = lane % 4;
-  const float scale = epi_scale<SCALAR>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
+  const float scale =
+      epi_scale<SCALAR ? EPI_SCALAR : EPI_EXP>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
   float* yz = y + (size_t)z * M * N;
   int stage = 0;
   uint32_t phase = 0;
@@ -629,27 +871,32 @@ bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <bool SCALAR>
+// The GEMM on tiles of WGS * 64 x BN; the block mode (EPI_BLOCK) reads the
+// scale columns sa_t (B, K/blk, lda_t) and sb_t (B, K/blk, ldb_t).
+template <int EPI, int WGS = 2, int BN = 128>
 cudaError_t launch_tc(const int8_t* a, const int8_t* b, const int* ea, const int* eb,
                       const float* scale, float* y, int B, int M, int N, int K, int pa,
-                      int pb, cudaStream_t stream) {
+                      int pb, cudaStream_t stream, const int* sa_t = nullptr,
+                      const int* sb_t = nullptr, int blk = 0, int lda_t = 0,
+                      int ldb_t = 0) {
+  using T = Tc<EPI, WGS, BN>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tc_gemm_kernel<SCALAR>, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+        tc_gemm_kernel<EPI, WGS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
   }
   CUtensorMap ta, tb;
-  cudaError_t e = int8_map(&ta, a, B, M, K, TC_BM);
+  cudaError_t e = int8_map(&ta, a, B, M, K, T::BM);
   if (e != cudaSuccess) return e;
-  e = int8_map(&tb, b, B, N, K, TC_BN);
+  e = int8_map(&tb, b, B, N, K, BN);
   if (e != cudaSuccess) return e;
-  const long long tiles = (long long)((M + TC_BM - 1) / TC_BM) *
-                          ((N + TC_BN - 1) / TC_BN) * B;
+  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + BN - 1) / BN) * B;
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  tc_gemm_kernel<SCALAR><<<grid, TC_THREADS, TC_SMEM, stream>>>(ta, tb, ea, eb, scale,
-                                                                y, M, N, K, B, pa, pb);
+  tc_gemm_kernel<EPI, WGS, BN><<<grid, T::THREADS, T::SMEM, stream>>>(
+      ta, tb, ea, eb, scale, sa_t, sb_t, y, M, N, K, B, pa, pb, blk, lda_t, ldb_t);
   return cudaGetLastError();
 }
 
@@ -705,6 +952,18 @@ cudaError_t launch_quantize(QSeg s0, QSeg s1, int p, bool stochastic,
   return cudaGetLastError();
 }
 
+cudaError_t launch_quantize_blk(const QBlkSeg& s0, const QBlkSeg& s1, int K, int blk,
+                                int p, bool stochastic, cudaStream_t stream) {
+  size_t blocks = ((size_t)(s0.rows + s1.rows) * (K / 4) + 255) / 256;
+  const size_t cap = (size_t)sm_count() * 16;
+  if (blocks > cap) blocks = cap;
+  if (stochastic)
+    quantize_blk_pass_kernel<true><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, K, blk, p);
+  else
+    quantize_blk_pass_kernel<false><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, K, blk, p);
+  return cudaGetLastError();
+}
+
 // The shapes and operands a variant takes; the wrappers' rules keep to them.
 bool takes(int variant, int M, int K) {
   if (K <= 0 || K % 16 != 0) return false;
@@ -743,7 +1002,7 @@ int repro_qq_sm90(const void* a, const void* ra, const void* b, const void* rb,
   if (variant == 1)
     return (int)launch_stream_qa(sa.x, sa.r, bmi, eap, ebp, static_cast<float*>(y),
                                  ami, B, M, N, K, p, p, stochastic != 0, s);
-  return (int)launch_tc<false>(ami, bmi, eap, ebp, nullptr, static_cast<float*>(y), B,
+  return (int)launch_tc<EPI_EXP>(ami, bmi, eap, ebp, nullptr, static_cast<float*>(y), B,
                                M, N, K, p, p, s);
 }
 
@@ -771,7 +1030,7 @@ int repro_qi_sm90(const void* a, const void* ra, const void* b_m, const void* ea
   const QSeg none{nullptr, nullptr, nullptr, nullptr, 0};
   const cudaError_t e = launch_quantize(sa, none, pa, stochastic != 0, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_tc<false>(ami, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
+  return (int)launch_tc<EPI_EXP>(ami, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
 }
 
 // ii: a_m (B,M,K) int8, b_m (B,N,K) int8 -> y (B,M,N) f32.
@@ -792,7 +1051,7 @@ int repro_ii_sm90(const void* a_m, const void* b_m, const void* ea, const void* 
     return (int)launch_stream<false, false, false>(nullptr, nullptr, ai, bi, eap, ebp,
                                                    nullptr, yf, nullptr, B, M, N, K,
                                                    pa, pb, s);
-  return (int)launch_tc<false>(ai, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
+  return (int)launch_tc<EPI_EXP>(ai, bi, eap, ebp, nullptr, yf, B, M, N, K, pa, pb, s);
 }
 
 // int8_matmul: a (B,M,K) int8, b (B,N,K) int8, scale f32 scalar -> y (B,M,N)
@@ -811,7 +1070,46 @@ int repro_int8_matmul_sm90(const void* a, const void* b, const void* scale, void
     return (int)launch_stream<false, false, true>(nullptr, nullptr, ai, bi, nullptr,
                                                   nullptr, sc, yf, nullptr, B, M, N, K,
                                                   0, 0, s);
-  return (int)launch_tc<true>(ai, bi, nullptr, nullptr, sc, yf, B, M, N, K, 0, 0, s);
+  return (int)launch_tc<EPI_SCALAR>(ai, bi, nullptr, nullptr, sc, yf, B, M, N, K, 0, 0, s);
+}
+
+// qq_blk: a (B,M,K) f32 [+ ra], ea (B,M,K/blk) int32, b (B,N,K) f32 [+ rb],
+// eb (B,N,K/blk) int32 -> y (B,M,N) f32, am, bm int8 (scratch when the
+// caller keeps no residuals); sa_t (B, K/blk, lda_t) and sb_t (B, K/blk,
+// ldb_t) int32 scratch for the scale columns, lda_t and ldb_t M and N
+// rounded up to 128.  One per-block quantize launch over a then b, then the
+// wgmma GEMM in block mode: variant 0 on 128 x 128 tiles, 1 on 64 x 64.
+int repro_qq_blk_sm90(const void* a, const void* ra, const void* ea, const void* b,
+                      const void* rb, const void* eb, void* y, void* am, void* bm,
+                      void* sa_t, void* sb_t, int B, int M, int N, int K, int blk, int p,
+                      int stochastic, int variant, void* stream) {
+  if (K <= 0 || K % 16 != 0 || blk <= 0 || blk % 32 != 0 || K % blk != 0 ||
+      (128 % blk != 0 && blk % 128 != 0) || (variant != 0 && variant != 1) ||
+      !aligned16(a) || !aligned16(ra) || !aligned16(b) || !aligned16(rb) ||
+      !aligned16(y) || !aligned16(am) || !aligned16(bm) || !aligned16(sa_t) ||
+      !aligned16(sb_t))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int lda_t = (M + 127) / 128 * 128, ldb_t = (N + 127) / 128 * 128;
+  int8_t* ami = static_cast<int8_t*>(am);
+  int8_t* bmi = static_cast<int8_t*>(bm);
+  int* sat = static_cast<int*>(sa_t);
+  int* sbt = static_cast<int*>(sb_t);
+  // a's column holds sa + 127, b's sb: their sum is the exponent field of
+  // 2^(sa + sb), sa = e - 126 - p
+  const QBlkSeg sa{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
+                   static_cast<const int*>(ea), ami, sat, lda_t, 1 - p, M, B * M};
+  const QBlkSeg sb{static_cast<const float*>(b), static_cast<const uint32_t*>(rb),
+                   static_cast<const int*>(eb), bmi, sbt, ldb_t, -126 - p, N, B * N};
+  const cudaError_t e = launch_quantize_blk(sa, sb, K, blk, p, stochastic != 0, s);
+  if (e != cudaSuccess) return (int)e;
+  float* yf = static_cast<float*>(y);
+  if (variant == 1)
+    return (int)launch_tc<EPI_BLOCK, 1, 64>(ami, bmi, nullptr, nullptr, nullptr, yf, B, M,
+                                            N, K, p, p, s, sat, sbt, blk, lda_t, ldb_t);
+  return (int)launch_tc<EPI_BLOCK, 2, 128>(ami, bmi, nullptr, nullptr, nullptr, yf, B, M,
+                                           N, K, p, p, s, sat, sbt, blk, lda_t, ldb_t);
 }
 
 }  // extern "C"

@@ -139,6 +139,7 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              **{f"qq_{v}": c for v, c in kfl.qq_variants.items()},
              **{f"qi_{v}": c for v, c in kfl.qi_variants.items()},
              **{f"ii_{v}": c for v, c in kfl.ii_variants.items()},
+             **{f"qq_blk_{v}": c for v, c in kfl.qq_blk_variants.items()},
              **{f"int8_matmul_{v}": c
                 for v, c in kim.int8_matmul_variants.items()}}
 
@@ -146,8 +147,9 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
 def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers, and of the ``qq`` / ``qi`` /
     ``ii`` variants (``qq_wgmma``, ``qq_stream``, ``qq_dp4a``, ``qi_...``,
-    ``ii_...``) and the ``int8_matmul`` ones (``int8_matmul_wgmma``,
-    ``_stream``, ``_wmma``)."""
+    ``ii_...``), the ``qq_blk`` ones (``qq_blk_wgmma``,
+    ``qq_blk_wgmma64``, ``qq_blk_dp4a``) and the ``int8_matmul`` ones
+    (``int8_matmul_wgmma``, ``_stream``, ``_wmma``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 

@@ -46,14 +46,14 @@ from .fused_linear import (_check, _ptr, _raise_on, _scalar_i32, as_u32,
 __all__ = ["div_n_consts", "eps_consts", "norm_gemm_plain",
            "fused_norm_gemm", "decode_block_plain", "fused_decode_block",
            "norm_gemm_smem_bytes", "decode_block_smem_bytes",
-           "decode_block_unsupported", "DECODE_BLOCK_MAX_B",
-           "DECODE_BLOCK_MAX_T"]
+           "decode_block_stages", "decode_block_unsupported",
+           "DECODE_BLOCK_MAX_B", "DECODE_BLOCK_MAX_T", "DECODE_BLOCK_STAMPS"]
 
 _META_LANES = 128
 _M32 = 0xFFFFFFFF
-# The decode block kernel keeps the batch's accumulators in registers
-# (at most this many rows) and sums a softmax row in at most 32 windows
-# of 32 (T <= 1024, one level of the reference's windowed sum).
+# The decode block kernel contracts at most this many batch rows (the
+# rows of an mma tile it fills) and sums a softmax row in at most 32
+# windows of 32 (T <= 1024, one level of the reference's windowed sum).
 DECODE_BLOCK_MAX_B = 8
 DECODE_BLOCK_MAX_T = 1024
 
@@ -234,7 +234,7 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_norm_gemm.argtypes = [vp] * 13 + [i] * 11 + [vp]
         lib.repro_norm_gemm.restype = i
-        lib.repro_decode_block.argtypes = [vp] * 25 + [i] * 17 + [vp]
+        lib.repro_decode_block.argtypes = [vp] * 27 + [i] * 20 + [vp]
         lib.repro_decode_block.restype = i
         lib._typed = True
     return lib
@@ -370,17 +370,102 @@ def _align16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def _round32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+# The decode block kernel streams each weight through a ring of stages of
+# 8 rows x at most this many bytes of K (the longest of these that leaves
+# room for two stages), at most this many stages deep, and needs at least
+# two; its producer keeps at most ``_DEC_INFLIGHT`` of them issued and not
+# yet landed (1 measured fastest on the card, PERF.md).
+_DEC_KCH = (2304, 1152, 576, 288, 128, 64, 32)
+_DEC_MAX_STAGES = 12
+_DEC_MIN_STAGES = 2
+_DEC_INFLIGHT = 1
+
+
+def _dec_chunk(k: int, kch: int = _DEC_KCH[0]) -> int:
+    """Bytes of K one ring stage holds for a weight of contraction ``k``:
+    K split into equal chunks of at most ``kch``, rounded up to 32."""
+    nch = -(-k // kch)
+    return _round32(-(-k // nch))
+
+
+def _dec_layout(b: int, d: int, n_ff: int, hq: int, hkv: int, dh: int,
+                t: int, kch: int = _DEC_KCH[0]):
+    """(bytes besides the ring, bytes of one ring stage with its two
+    mbarriers and its tag) of ``dec_layout`` in the source."""
+    gs = hq // hkv
+    ldx = _round32(max(d, hq * dh, n_ff)) + 16
+    ldw = max(_dec_chunk(k, kch) for k in (d, hq * dh, n_ff)) + 16
+    # att_layout: the f32 rows, the K and V exponents, the scores, the PV
+    # sums, 48 words of reductions, the int8 query group and fresh rows,
+    # the int8 p, the rows' p exponents
+    att = (4 * (gs + 4) * dh + _align16(8 * t) + _align16(4 * gs * t)
+           + _align16(4 * gs * dh) + 4 * 48 + _align16(gs * dh + 2 * dh)
+           + _align16(gs * t) + _align16(4 * gs))
+    rest = _align16(b * ldx) + max(_align16(2 * b * d), att) + 128
+    return rest, 8 * ldw + 24
+
+
+def _dec_ring(b: int, d: int, n_ff: int, hq: int, hkv: int, dh: int,
+              t: int):
+    """(chunk bytes, stages, bytes besides the ring, bytes a stage): the
+    longest chunk with which two stages fit beside the rest of the layout
+    (the shortest when none does)."""
+    for kch in _DEC_KCH:
+        rest, stage = _dec_layout(b, d, n_ff, hq, hkv, dh, t, kch)
+        nst = min(_DEC_MAX_STAGES, (kfa.SMEM_LIMIT - rest) // stage)
+        if nst >= _DEC_MIN_STAGES:
+            break
+    return kch, nst, rest, stage
+
+
+def decode_block_stages(b: int, d: int, n_ff: int, hq: int, hkv: int,
+                        dh: int, t: int) -> int:
+    """Ring stages of the decode block kernel: as many as shared memory
+    leaves beside the activation rows, the norm rows or attention scratch
+    (one region) and the per-row scales, at most 12."""
+    return _dec_ring(b, d, n_ff, hq, hkv, dh, t)[1]
+
+
 def decode_block_smem_bytes(b: int, d: int, n_ff: int, hq: int, hkv: int,
                             dh: int, t: int) -> int:
     """Dynamic shared memory of one block of the decode block kernel
     (``dec_layout`` in the source): the int8 GEMV input of the widest
-    stage, the int16 norm rows, per-row scales, and for each of the 8
-    warps its attention tiles: the query group, the fresh K and V rows,
-    the scores and quantized probabilities over T, the rows' exponents."""
-    gs = hq // hkv
-    per_warp = _align16(gs * dh + 2 * dh + 5 * gs * t) + _align16(4 * gs)
-    return (_align16(b * max(d, hq * dh, n_ff)) + _align16(2 * b * d)
-            + _align16(16 * b) + 8 * per_warp)
+    stage (rows padded against bank conflicts); one region that holds the
+    int16 norm rows or, in the attention stage,
+    the block's tiles of one (batch row, KV head) (its f32 rows and rope
+    row, the K and V rows' scale exponents, the scores and quantized
+    probabilities over T, the PV sums, the int8 query group and fresh
+    rows); the per-row scales, exponents and reductions; the ring of weight
+    stages
+    (``decode_block_stages``, at least two), their mbarriers and tags."""
+    _, nst, rest, stage = _dec_ring(b, d, n_ff, hq, hkv, dh, t)
+    return rest + max(_DEC_MIN_STAGES, nst) * stage
+
+
+# Each device's grid barriers of the decode block kernel (an arrival count
+# each, in words 1-4; the kernel zeroes each before its next use).
+_GRID_BARRIERS = {}
+
+
+def _grid_barrier(dev: torch.device) -> torch.Tensor:
+    bar = _GRID_BARRIERS.get(dev)
+    if bar is None:
+        bar = _GRID_BARRIERS[dev] = torch.zeros(5, dtype=torch.int32,
+                                                device=dev)
+    return bar
+
+
+# clock64 stamps the kernel writes per block when asked (``stamps``):
+# start, QKV done, barrier passed, attention done, passed, out-proj done,
+# passed, gate|up done, passed, down done; warp 0's attention unit: rows
+# loaded, fresh rows and query quantized, scores, softmax, PV done; norm1,
+# the attention rows' quantize, norm2, the activation rows' quantize done;
+# the producer's last stage issued.
+DECODE_BLOCK_STAMPS = 20
 
 
 def fused_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
@@ -389,14 +474,30 @@ def fused_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
                        p: int = 7, window: int = 0, eps_m: int = 1,
                        eps_e: int = -32, se_g1: int = 0, se_g2: int = 0):
     """One decoder layer for one token (arguments and results of
-    ``decode_block_plain``): the CUDA kernel (one cooperative launch over
-    the card) for CUDA tensors, the plain version for CPU tensors."""
+    ``decode_block_plain``): the CUDA kernel (one block per SM, weights
+    streamed ahead of the grid barriers) for CUDA tensors, the plain
+    version for CPU tensors."""
     kw = dict(n_d=n_d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, p=p, window=window,
               eps_m=eps_m, eps_e=eps_e, se_g1=se_g1, se_g2=se_g2)
     if not x.is_cuda:
         return decode_block_plain(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m,
                                   se_gu, wd_m, se_d, g1m, g2m, km, ke, vm, ve,
                                   cossin, pos, **kw)
+    out = _launch_decode_block(
+        (x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m, se_d, g1m, g2m,
+         km, ke, vm, ve, cossin), pos, **kw)
+    fused_decode_block.launches += 1
+    return out
+
+
+def _launch_decode_block(args, pos: int, *, n_d, n_ff, hq, hkv, dh, p,
+                         window, eps_m, eps_e, se_g1, se_g2,
+                         stamps: Optional[torch.Tensor] = None):
+    """The kernel launch of ``fused_decode_block``; ``stamps``, an int64
+    (SMs, ``DECODE_BLOCK_STAMPS``) tensor or None, gets each block's clock
+    at the stage boundaries (``tools/torch_decode_block_probe.py``)."""
+    (x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m, se_d, g1m, g2m, km,
+     ke, vm, ve, cossin) = args
     b, d = x.shape
     t = km.shape[2]
     nqkv = (hq + 2 * hkv) * dh
@@ -423,6 +524,11 @@ def fused_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
             ("ve", ve, torch.int32, (b, hkv, t, 1)),
             ("cossin", cossin, torch.float32, (1, 2 * dh))):
         _check(name, a, dt, shape, dev)
+    for name, w in (("wqkv_m", wqkv_m), ("wo_m", wo_m), ("wgu_m", wgu_m),
+                    ("wd_m", wd_m)):
+        if w.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies 16-byte aligned "
+                             "weight rows")
     rows = b * hkv
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((b, d), **f32)
@@ -435,16 +541,18 @@ def fused_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
     attn = torch.empty((b, hq * dh), **f32)
     h2 = torch.empty((b, d), **f32)
     act = torch.empty((b, n_ff), **f32)
+    shape = (b, d, n_ff, hq, hkv, dh, t)
+    kch, nst, _, _ = _dec_ring(*shape)
     err = _lib().repro_decode_block(
         *(_ptr(a) for a in (x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
                             se_d, g1m, g2m, km, ke, vm, ve, cossin, x_out,
-                            k_new, ek_new, v_new, ev_new, qkv, attn, h2, act)),
-        b, d, n_ff, hq, hkv, dh, t, int(pos), window, p, eps_m, eps_e, se_g1,
-        se_g2, *div_n_consts(d),
-        decode_block_smem_bytes(b, d, n_ff, hq, hkv, dh, t),
+                            k_new, ek_new, v_new, ev_new, qkv, attn, h2, act,
+                            _grid_barrier(dev), stamps)),
+        *shape, int(pos), window, p, eps_m, eps_e, se_g1, se_g2,
+        *div_n_consts(d), nst, kch, min(_DEC_INFLIGHT, nst),
+        decode_block_smem_bytes(*shape),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, "decode_block")
-    fused_decode_block.launches += 1
     return x_out, k_new, ek_new, v_new, ev_new
 
 
@@ -462,7 +570,8 @@ def decode_block_unsupported(b: int, d: int, n_ff: int, hq: int, hkv: int,
         return f"cache length {t} > {DECODE_BLOCK_MAX_T}"
     need = decode_block_smem_bytes(b, d, n_ff, hq, hkv, dh, t)
     if need > kfa.SMEM_LIMIT:
-        return f"needs {need} B of shared memory > {kfa.SMEM_LIMIT}"
+        return (f"needs {need} B of shared memory (a ring of "
+                f"{_DEC_MIN_STAGES} stages) > {kfa.SMEM_LIMIT}")
     return ""
 
 

@@ -35,8 +35,12 @@ once by a pass, then int8 ``wgmma`` fed by TMA for M > 16, or a
 weight-streaming ``mma.sync`` kernel that quantizes a itself for M <= 16;
 the ``__dp4a`` kernel of ``fused_linear.cu``, which quantizes in its tiles,
 takes a K that is not a multiple of 16 or an operand not 16-byte aligned.
-Each variant has its own launch counter.  ``qq_blk`` and ``gemm_epi`` run
-on ``fused_linear.cu`` at every shape.
+``qq_blk`` runs there too by ``qq_blk_variant``: a per-block quantize pass,
+then ``wgmma`` promoting each block's int32 partial in block order, on 128 x
+128 or 64 x 64 tiles; its ``__dp4a`` kernel takes the rest (M <= 16, a
+block not a multiple of 32, K % 16 != 0, an unaligned operand).  Each
+variant has its own launch counter.  ``gemm_epi`` runs on
+``fused_linear.cu`` at every shape.
 Each wrapper runs the kernel for CUDA tensors and the plain version (same
 file, below) for CPU tensors, and nothing else: a CUDA tensor never
 reaches the plain version through a wrapper.
@@ -58,7 +62,8 @@ from . import build
 __all__ = ["eff_exp", "quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
            "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
            "QGEMM_VARIANTS", "qgemm_variant", "qq_variant", "qq_variants",
-           "qi_variants", "ii_variants",
+           "qi_variants", "ii_variants", "QQ_BLK_VARIANTS", "qq_blk_variant",
+           "qq_blk_variants",
            "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
            "fused_qq_blk_plain", "blk_combine", "as_u32", "EPI_ACTS",
            "epi_apply", "epi_pullback", "fused_gemm_epi",
@@ -333,6 +338,34 @@ def qgemm_variant(m: int, k: int, aligned: bool = True) -> str:
 qq_variant = qgemm_variant
 
 
+# The variants of the qq_blk kernel, in the order of their C codes
+# (``csrc/qgemm_sm90.cu``: 0 the 128 x 128 tiles, 1 the 64 x 64 ones;
+# dp4a is ``fused_linear.cu``).
+QQ_BLK_VARIANTS = ("wgmma", "wgmma64", "dp4a")
+# Output tiles of 128 x 128 that fill one round of the H100's 132 SMs: a
+# shape with fewer takes the 64 x 64 tiles (4x as many; the sum over blocks
+# stays sequential in each, so K is never split).
+_QQ_BLK_TILES = 132
+
+
+def qq_blk_variant(m: int, n: int, k: int, blk: int, aligned: bool = True,
+                   nb: int = 1) -> str:
+    """The variant of the qq_blk kernel for ``nb`` (M, K) x (N, K)
+    contractions with one exponent per ``blk`` elements of K, from the
+    shapes alone: the Hopper route (a per-block quantize pass, then
+    ``wgmma`` promoting each block's int32 partial into a float32
+    accumulator) where K % 16 == 0 and the operands are 16-byte aligned
+    (TMA), blk % 32 == 0 (whole k32 steps) and blk divides the 128-byte
+    stage or is a multiple of it, and M > 16; else the ``__dp4a`` kernel.
+    The Hopper route takes 128 x 128 tiles where they fill the card, and
+    64 x 64 ones where they would not (the LM head's dX: N 896)."""
+    if (k <= 0 or k % 16 or blk <= 0 or blk % 32 or k % blk
+            or (128 % blk and blk % 128) or not aligned or m <= 16):
+        return "dp4a"
+    tiles = nb * -(-m // 128) * -(-n // 128)
+    return "wgmma" if tiles >= _QQ_BLK_TILES else "wgmma64"
+
+
 def _aligned(*ts: Optional[torch.Tensor]) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
@@ -352,6 +385,9 @@ class _Launches:
 qq_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 qi_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 ii_variants = {v: _Launches() for v in QGEMM_VARIANTS}
+# Launches of each qq_blk variant (on the Hopper route a call is two
+# launches, the per-block quantize pass and the GEMM, counted once).
+qq_blk_variants = {v: _Launches() for v in QQ_BLK_VARIANTS}
 
 
 def _lib_sm90() -> ctypes.CDLL:
@@ -366,6 +402,8 @@ def _lib_sm90() -> ctypes.CDLL:
         lib.repro_qi_sm90.restype = i
         lib.repro_ii_sm90.argtypes = [vp] * 5 + [i] * 7 + [vp]
         lib.repro_ii_sm90.restype = i
+        lib.repro_qq_blk_sm90.argtypes = [vp] * 11 + [i] * 8 + [vp]
+        lib.repro_qq_blk_sm90.restype = i
         lib._typed = True
     return lib
 
@@ -532,18 +570,30 @@ def fused_qq_blk(a: torch.Tensor, ra: Optional[torch.Tensor],
         _check("ra", ra, torch.int32, (nb, m, k), dev)
         _check("rb", rb, torch.int32, (nb, n, k), dev)
     y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
+    ra, rb = (ra, rb) if stochastic else (None, None)
+    variant = qq_blk_variant(m, n, k, blk, _aligned(a, ra, b, rb, y), nb)
     am = bm = None
-    if emit_residuals:
+    if emit_residuals or variant != "dp4a":
         am = torch.empty((nb, m, k), dtype=torch.int8, device=dev)
         bm = torch.empty((nb, n, k), dtype=torch.int8, device=dev)
-    err = _lib_linear().repro_fused_qq_blk(
-        _ptr(a), _ptr(ra if stochastic else None), _ptr(ea), _ptr(b),
-        _ptr(rb if stochastic else None), _ptr(eb), _ptr(y), _ptr(am),
-        _ptr(bm), nb, m, n, k, blk, p, int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "fused_qq_blk")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if variant == "dp4a":
+        err = _lib_linear().repro_fused_qq_blk(
+            _ptr(a), _ptr(ra), _ptr(ea), _ptr(b), _ptr(rb), _ptr(eb), _ptr(y),
+            _ptr(am), _ptr(bm), nb, m, n, k, blk, p, int(stochastic), stream)
+    else:
+        # the block scale columns, transposed, rows rounded up to 128
+        i32 = dict(dtype=torch.int32, device=dev)
+        sa_t = torch.empty((nb, k // blk, -(-m // 128) * 128), **i32)
+        sb_t = torch.empty((nb, k // blk, -(-n // 128) * 128), **i32)
+        err = _lib_sm90().repro_qq_blk_sm90(
+            _ptr(a), _ptr(ra), _ptr(ea), _ptr(b), _ptr(rb), _ptr(eb), _ptr(y),
+            _ptr(am), _ptr(bm), _ptr(sa_t), _ptr(sb_t), nb, m, n, k, blk, p,
+            int(stochastic), QQ_BLK_VARIANTS.index(variant), stream)
+    _raise_on(err, f"fused_qq_blk ({variant})")
     fused_qq_blk.launches += 1
-    return y, am, bm
+    qq_blk_variants[variant].launches += 1
+    return (y, am, bm) if emit_residuals else (y, None, None)
 
 
 def fused_gemm_epi(a: torch.Tensor, ra: Optional[torch.Tensor],

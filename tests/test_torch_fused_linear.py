@@ -180,6 +180,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "qi_wgmma": 0, "qi_stream": 0,
                                     "qi_dp4a": 0, "ii_wgmma": 0,
                                     "ii_stream": 0, "ii_dp4a": 0,
+                                    "qq_blk_wgmma": 0, "qq_blk_wgmma64": 0,
+                                    "qq_blk_dp4a": 0,
                                     "int8_matmul_wgmma": 0,
                                     "int8_matmul_stream": 0,
                                     "int8_matmul_wmma": 0}

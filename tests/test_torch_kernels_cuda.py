@@ -90,6 +90,7 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want.update({f"{kind}_{v}": 0 for kind in ("qq", "qi", "ii")
                  for v in kfl.QGEMM_VARIANTS})
     want.update({f"int8_matmul_{v}": 0 for v in kim.INT8_MATMUL_VARIANTS})
+    want.update({f"qq_blk_{v}": 0 for v in kfl.QQ_BLK_VARIANTS})
     want[f"qq_{kfl.qq_variant(m, k)}"] = 2
     want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
     assert kd.kernel_launches() == want
@@ -190,20 +191,27 @@ def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
 
 # (B, M, K, N, blk): the qwen2-0.5b per-block training shapes (the gate's
 # forward, the LM head's forward and its dX over 1187 blocks of the
-# vocabulary, the batched PV of attention) and odd ones: 40 blocks of 32
-# with odd M and N and a batch, an odd dW-like shape, and a block that is
-# not a multiple of 4 (the unvectorised load).
+# vocabulary, the batched PV of attention, w_down's forward, a layer's and
+# the LM head's dW) and odd ones: 40 blocks of 32 with odd M and N and a
+# batch, an odd dW-like shape, a block that is not a multiple of 4 (the
+# unvectorised load), blocks of 64 and 256, K of 96 (three blocks of 32 in
+# one 128-byte stage), M <= 16 and K % 16 != 0 (__dp4a).
 QQ_BLK_SHAPES = [(1, 512, 896, 4864, 128), (1, 512, 896, 151936, 128),
                  (1, 512, 151936, 896, 128), (8, 896, 128, 64, 128),
+                 (1, 512, 4864, 896, 128), (1, 4864, 512, 896, 128),
+                 (1, 896, 512, 151936, 128),
                  (2, 37, 1280, 29, 32), (1, 65, 512, 131, 128),
-                 (1, 19, 42, 23, 6)]
+                 (1, 19, 42, 23, 6), (1, 65, 512, 131, 64),
+                 (1, 200, 1024, 300, 256), (1, 130, 96, 70, 32),
+                 (1, 16, 256, 64, 128), (1, 37, 168, 29, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("shape", QQ_BLK_SHAPES)
 def test_qq_blk_kernel_equal_plain(cuda, shape, stochastic):
-    """y and both mantissa arrays ==, with and without residuals; the
+    """y and both mantissa arrays ==, with and without residuals, on the
+    variant ``qq_blk_variant`` names (its counter moved, no other); the
     first block of row 0 of both operands is tiny, so its scale
     2^(sa + sb) falls below 2^-126 and flushes to 0."""
     nb, m, k, n, blk = shape
@@ -227,6 +235,73 @@ def test_qq_blk_kernel_equal_plain(cuda, shape, stochastic):
     y_only = kfl.fused_qq_blk(a, ra, ea, b, rb, eb, emit_residuals=False, **kw)
     assert torch.equal(y_only[0], want[0]) and y_only[1:] == (None, None)
     assert kd.kernel_launches()["qq_blk"] == 2
+    variant = kfl.qq_blk_variant(m, n, k, blk, True, nb)
+    assert _variant_launches("qq_blk", kfl.QQ_BLK_VARIANTS) == {f"qq_blk_{variant}": 2}
+
+
+def _qq_blk_tiles(a, ra, ea, b, rb, eb, blk, variant):
+    """The Hopper route of qq_blk on ``variant``'s tiling, whatever the
+    shape rule would pick: (y, am, bm)."""
+    import ctypes
+    nb, m, k = a.shape
+    n = b.shape[1]
+    dev = a.device
+    y = torch.empty((nb, m, n), dtype=torch.float32, device=dev)
+    am = torch.empty((nb, m, k), dtype=torch.int8, device=dev)
+    bm = torch.empty((nb, n, k), dtype=torch.int8, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sa = torch.empty((nb, k // blk, -(-m // 128) * 128), **i32)
+    sb = torch.empty((nb, k // blk, -(-n // 128) * 128), **i32)
+    ra, rb = (kfl.as_u32(ra), kfl.as_u32(rb)) if ra is not None else (None, None)
+    p = kfl._ptr
+    err = kfl._lib_sm90().repro_qq_blk_sm90(
+        p(a), p(ra), p(ea), p(b), p(rb), p(eb), p(y), p(am), p(bm), p(sa), p(sb),
+        nb, m, n, k, blk, 7, int(ra is not None), kfl.QQ_BLK_VARIANTS.index(variant),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    kfl._raise_on(err, f"qq_blk ({variant})")
+    return y, am, bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "wgmma64"])
+@pytest.mark.parametrize("shape", [(1, 512, 896, 4864, 128), (8, 896, 128, 64, 128),
+                                   (2, 37, 1280, 29, 32), (1, 130, 96, 70, 32),
+                                   (1, 200, 1024, 300, 256)])
+def test_qq_blk_both_tilings_equal_plain(cuda, shape, variant):
+    """Each tiling of the Hopper route (128 x 128, two warpgroups; 64 x
+    64, one, double-buffered at blocks of 128) == the plain version at
+    shapes the rule gives the other one too: the block order of the sum
+    does not depend on the tile."""
+    nb, m, k, n, blk = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn((nb, m, k), generator=g, device=cuda)
+    b = torch.randn((nb, n, k), generator=g, device=cuda)
+    a[:, 0, :blk] *= 2.0 ** -70
+    ra = prng.bits(prng.key(8), a.shape, cuda)
+    rb = prng.bits(prng.key(9), b.shape, cuda)
+    ea = ref.max_biased_exp_blocks_ref(a, blk)
+    eb = ref.max_biased_exp_blocks_ref(b, blk)
+    got = _qq_blk_tiles(a, ra, ea, b, rb, eb, blk, variant)
+    want = kfl.fused_qq_blk_plain(a, ra, ea, b, rb, eb, p=7, blk=blk, stochastic=True)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("y", "am", "bm"), got, want):
+        assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_qq_blk_unaligned_view_takes_dp4a(cuda):
+    """An operand off 16-byte alignment (TMA's rule) runs on __dp4a, ==."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn((37 * 256 + 4,), generator=g, device=cuda)[1:1 + 37 * 256].view(1, 37, 256)
+    b = torch.randn((1, 29, 256), generator=g, device=cuda)
+    ea = ref.max_biased_exp_blocks_ref(a, 32)
+    eb = ref.max_biased_exp_blocks_ref(b, 32)
+    kd.reset_kernel_launches()
+    got = kfl.fused_qq_blk(a, None, ea, b, None, eb, blk=32, stochastic=False)
+    want = kfl.fused_qq_blk_plain(a, None, ea, b, None, eb, blk=32, stochastic=False)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert _variant_launches("qq_blk", kfl.QQ_BLK_VARIANTS) == {"qq_blk_dp4a": 1}
 
 
 @pytest.mark.cuda
@@ -425,10 +500,14 @@ def test_norm_gemm_kernel_equal_plain(cuda, shape, stochastic):
 
 
 # (B, d, n_ff, hq, hkv, dh, T, pos, window): minicpm-2b's decode layer (4
-# streams, a 160-row cache, the last position) and an odd one: GQA groups
-# of 4, a sliding window, a cache of 40 rows, pos mid-cache.
+# streams and one, a 160-row cache, the last position, mid-cache, the
+# first, a window) and an odd one: GQA groups of 4, a sliding window, a
+# cache of 40 rows, pos mid-cache.
 DECODE_BLOCK_SHAPES = [(4, 2304, 5760, 36, 36, 64, 160, 159, 0),
                        (4, 2304, 5760, 36, 36, 64, 160, 128, 0),
+                       (4, 2304, 5760, 36, 36, 64, 160, 0, 0),
+                       (1, 2304, 5760, 36, 36, 64, 160, 159, 0),
+                       (1, 2304, 5760, 36, 36, 64, 160, 7, 64),
                        (3, 256, 320, 8, 2, 32, 40, 37, 8)]
 
 

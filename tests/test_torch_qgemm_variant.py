@@ -1,5 +1,6 @@
-"""The shape rules that pick the qq / qi / ii and int8_matmul kernel
-variants (CPU, no card).
+"""The shape rules that pick the qq / qi / ii, qq_blk and int8_matmul
+kernel variants, and the decode block kernel's shape rule and layout (CPU,
+no card).
 
 ``kernels.fused_linear.qgemm_variant`` (qi, ii) and ``qq_variant`` (qq)
 choose, from the shapes alone and before any launch, between the
@@ -7,13 +8,16 @@ tensor-core kernel (``wgmma``, M > 16), the weight-streaming kernel
 (``stream``, M <= 16) and the ``__dp4a`` kernel (K not a multiple of 16,
 or an operand not 16-byte aligned); ``kernels.int8_matmul
 .int8_matmul_variant`` between the same two Hopper kernels and the wmma
-kernel in ``__dp4a``'s place.
+kernel in ``__dp4a``'s place; ``qq_blk_variant`` between the two tilings
+of the Hopper per-block route and the ``__dp4a`` kernel.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import dispatch as kd
+from repro_torch.kernels import fused_attention as kfa
+from repro_torch.kernels import fused_chain as kfc
 from repro_torch.kernels import fused_linear as kfl
 from repro_torch.kernels import int8_matmul as kim
 
@@ -103,3 +107,119 @@ def test_every_variant_has_a_counter():
                     else kfl.QGEMM_VARIANTS)
         assert fallback in variants
         assert {f"{kind}_{v}" for v in variants} <= names
+
+
+# qq_blk: (B, M, K, N) of every per-block contraction of a qwen2-0.5b
+# int8_block step at 4 x 128 tokens (blk 128), calls a step, and the
+# variant: the 128 x 128 tiles where they fill the card's 132 SMs, the
+# 64 x 64 ones elsewhere (the LM head's dX among them: N 896).
+INT8_BLOCK_STEP = [((1, 512, 896, 896), 96, "wgmma64"),
+                   ((1, 512, 896, 128), 48, "wgmma64"),
+                   ((1, 512, 128, 896), 48, "wgmma64"),
+                   ((1, 512, 896, 4864), 72, "wgmma"),
+                   ((1, 512, 4864, 896), 72, "wgmma64"),
+                   ((1, 896, 512, 896), 48, "wgmma64"),
+                   ((1, 896, 512, 128), 48, "wgmma64"),
+                   ((1, 896, 512, 4864), 48, "wgmma"),
+                   ((1, 4864, 512, 896), 24, "wgmma"),
+                   ((8, 896, 128, 64), 48, "wgmma64"),
+                   ((8, 128, 896, 64), 24, "wgmma64"),
+                   ((8, 64, 896, 128), 24, "wgmma64"),
+                   ((1, 512, 896, 151936), 1, "wgmma"),
+                   ((1, 512, 151936, 896), 1, "wgmma64"),
+                   ((1, 896, 512, 151936), 1, "wgmma")]
+
+
+@pytest.mark.parametrize("shape,calls,want", INT8_BLOCK_STEP)
+def test_qq_blk_int8_block_step_variants(shape, calls, want):
+    nb, m, k, n = shape
+    assert kfl.qq_blk_variant(m, n, k, 128, True, nb) == want
+
+
+def test_qq_blk_int8_block_step_counts():
+    """603 calls a step: 146 on the 128 x 128 tiles, 457 on the 64 x 64
+    ones (chip_smoke.py phase 6 holds the card to the same split)."""
+    by = {}
+    for (nb, m, k, n), calls, _ in INT8_BLOCK_STEP:
+        v = kfl.qq_blk_variant(m, n, k, 128, True, nb)
+        by[v] = by.get(v, 0) + calls
+    assert by == {"wgmma": 146, "wgmma64": 457}
+
+
+@pytest.mark.parametrize("m,k,blk,aligned,want", [
+    (512, 896, 128, True, "hopper"), (512, 1280, 32, True, "hopper"),
+    (512, 512, 64, True, "hopper"), (512, 1024, 256, True, "hopper"),
+    (512, 1536, 384, True, "hopper"), (130, 96, 32, True, "hopper"),
+    (512, 896, 8, True, "dp4a"),      # blk % 32
+    (512, 960, 96, True, "dp4a"),     # 96 neither divides 128 nor is a multiple
+    (512, 168, 8, True, "dp4a"),      # K % 16
+    (512, 896, 128, False, "dp4a"),   # an unaligned operand
+    (16, 896, 128, True, "dp4a"),     # M <= 16
+    (17, 896, 128, True, "hopper")])
+def test_qq_blk_rule(m, k, blk, aligned, want):
+    v = kfl.qq_blk_variant(m, 4864, k, blk, aligned)
+    assert (v == "dp4a") == (want == "dp4a")
+    assert v in kfl.QQ_BLK_VARIANTS
+
+
+@pytest.mark.parametrize("nb,m,n,want", [(1, 512, 4864, "wgmma"), (1, 512, 896, "wgmma64"),
+                                         (1, 4096, 4096, "wgmma"), (8, 896, 64, "wgmma64"),
+                                         (33, 512, 128, "wgmma"), (32, 512, 128, "wgmma64")])
+def test_qq_blk_tile_choice(nb, m, n, want):
+    """128 x 128 tiles at 132 of them or more (a batch counts), else 64 x 64."""
+    assert kfl.qq_blk_variant(m, n, 896, 128, True, nb) == want
+
+
+def test_qq_blk_variants_have_counters():
+    names = set(kd.kernel_launches())
+    assert {f"qq_blk_{v}" for v in kfl.QQ_BLK_VARIANTS} <= names
+
+
+# decode_block: the minicpm-2b layer (B 1-8, a 160-row cache) and the
+# smoke widths fit the kernel with a ring of several stages; the layout
+# the wrapper asks for is what the source computes.
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_decode_block_minicpm_fits_a_deep_ring(b):
+    shape = (b, 2304, 5760, 36, 36, 64, 160)
+    assert kfc.decode_block_unsupported(*shape) == ""
+    assert kfc.decode_block_stages(*shape) >= 6
+    assert kfc.decode_block_smem_bytes(*shape) <= kfa.SMEM_LIMIT
+
+
+def test_decode_block_layout_sums():
+    """rest + stages x (8 padded rows of the longest chunk + mbarriers and
+    tag), the rows padded to 16 bytes past a multiple of 32."""
+    shape = (4, 2304, 5760, 36, 36, 64, 160)
+    rest, stage = kfc._dec_layout(*shape)
+    assert stage == 8 * (2304 + 16) + 24
+    assert kfc.decode_block_smem_bytes(*shape) == rest + kfc.decode_block_stages(*shape) * stage
+    # K 5760 in three chunks of 1920; 2304 in one
+    assert kfc._dec_chunk(5760) == 1920 and kfc._dec_chunk(2304) == 2304
+    assert kfc._dec_chunk(2320) == 1184      # two chunks, rounded up to 32
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("t", [16, 160, 1024])
+def test_decode_block_takes_minicpm_at_every_cache(b, t):
+    """minicpm-2b, the repo's model that reaches the kernel, at batch 1-8
+    and a cache of up to 1024 rows: a ring of 2304-byte chunks, 7 stages
+    or more."""
+    kch, nst, _, _ = kfc._dec_ring(b, 2304, 5760, 36, 36, 64, t)
+    assert (kch, nst >= 7) == (2304, True)
+
+
+def test_decode_block_ring_shortens_its_chunk_to_fit():
+    """Near the shared-memory limit the stage's chunk of K shortens so that
+    two stages fit (8 rows of starcoder2-7b widths at batch 8)."""
+    shape = (8, 4608, 18432, 36, 4, 128, 16)
+    kch, nst, rest, stage = kfc._dec_ring(*shape)
+    assert kch < 2304 and nst >= 2
+    assert rest + nst * stage == kfc.decode_block_smem_bytes(*shape) <= kfa.SMEM_LIMIT
+    assert kfc.decode_block_unsupported(*shape) == ""
+
+
+def test_decode_block_rejects_past_its_limits():
+    assert "batch" in kfc.decode_block_unsupported(9, 256, 320, 8, 2, 32, 40)
+    assert "multiples of 16" in kfc.decode_block_unsupported(2, 250, 320, 8, 2, 32, 40)
+    assert "cache length" in kfc.decode_block_unsupported(2, 256, 320, 8, 2, 32, 1025)
+    assert "shared memory" in kfc.decode_block_unsupported(8, 8192, 28672, 64, 8, 128, 1024)
