@@ -179,6 +179,10 @@ GELU_PER_STEP = {"norm_gemm": 0, "gemm_epi": GELU_TRAIN_LAYERS,
                  "qq": 5 * GELU_TRAIN_LAYERS + 1,
                  "qi": 6 * GELU_TRAIN_LAYERS + 1,
                  "ii": 6 * GELU_TRAIN_LAYERS + 1}
+# Phases 7 and 8 also run at the reference's chain plans (its 12 MiB VMEM
+# budget keeps the per-op seams at full width): phase 7 for the prefill
+# and this many decode steps, phase 8 for its one step.
+SEAM_DECODE_STEPS = 4
 
 
 def _fail(msg: str) -> int:
@@ -641,12 +645,15 @@ def _dp4a_qq_ms(torch, kfl, a, ra32, b, rb32, ea, eb, y_want):
 
 
 def _check_variants(label, launches):
-    """Every qq, qi, ii, qq_blk and int8_matmul launch of a main-path phase
-    is one of a variant, and each on the variant the shape rule names for
-    it: every main-path K is a multiple of 16, every block 128 and every
-    operand aligned, so none on the fallback (``__dp4a``, wmma); every
-    int8_matmul launch (M > 16 throughout phase 9) on wgmma (phase 6 also
-    holds the qq_blk split between the two tilings to its count)."""
+    """Every qq, qi, ii, qq_blk, int8_matmul, gemm_epi and norm_gemm launch
+    of a main-path phase is one of a variant, and each on the variant the
+    shape rule names for it: every main-path K is a multiple of 16, every
+    block 128 and every operand aligned, so none on the fallback
+    (``__dp4a``, wmma); every int8_matmul launch (M > 16 throughout phase
+    9) on wgmma, every gemm_epi and norm_gemm launch (phases 8 and 10) on
+    wgmma (phase 6 also holds the qq_blk split between the two tilings to
+    its count)."""
+    from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import int8_matmul as kim
     for kind, variants, allowed in (
@@ -654,7 +661,9 @@ def _check_variants(label, launches):
             ("qi", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
             ("ii", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
             ("qq_blk", kfl.QQ_BLK_VARIANTS, ("wgmma", "wgmma64")),
-            ("int8_matmul", kim.INT8_MATMUL_VARIANTS, ("wgmma",))):
+            ("int8_matmul", kim.INT8_MATMUL_VARIANTS, ("wgmma",)),
+            ("gemm_epi", kfl.GEMM_EPI_VARIANTS, ("wgmma",)),
+            ("norm_gemm", kfc.NORM_GEMM_VARIANTS, ("wgmma",))):
         per = {v: launches[f"{kind}_{v}"] for v in variants}
         if sum(per.values()) != launches[kind] or any(
                 c for v, c in per.items() if v not in allowed):
@@ -684,17 +693,55 @@ def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
     return row
 
 
+def _dp4a_ms(torch, lib_fn, args, want, what):
+    """Device ms of a ``__dp4a`` kernel launched through its C entry point
+    on the same operands (the shape rule sends the main path's shapes to
+    the tensor cores): the comparison behind the rule.  ``args`` builds
+    the call's arguments and its outputs; the first output must equal
+    ``want``."""
+    outs, call = args()
+
+    def run():
+        err = lib_fn(*call, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{what} (__dp4a, timed): cudaError {err}")
+    run()
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0], want):
+        raise AssertionError(f"{what} on __dp4a != plain")
+    return _device_ms(torch, run)
+
+
+def _epi_dp4a_call(torch, kfl, a, ra, b, rb, ea, eb, act):
+    """The outputs and C arguments of gemm_epi (kind qq, no out-quantize)
+    on fused_linear.cu's __dp4a kernel."""
+    m, k = a.shape
+    n = b.shape[0]
+    glu = act.endswith("_glu")
+    y = torch.empty((m, n // 2 if glu else n), dtype=torch.float32, device=a.device)
+    ylin = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    am = torch.empty((m, k), dtype=torch.int8, device=a.device)
+    bm = torch.empty((n, k), dtype=torch.int8, device=a.device)
+    p = kfl._ptr
+    return (y, ylin, am, bm), (
+        p(a), p(ra), p(b), p(rb), None, None, p(ea), p(eb), p(y), p(ylin), p(am),
+        p(bm), None, None, None, m, n, k, 7, 7, m, 0, kfl.EPI_ACTS.index(act), 0, 1)
+
+
 def check_chain(torch, dev, g, bits):
     """gemm_epi, norm_gemm and decode_block against their plain versions
     at the minicpm-2b shapes of phases 7 and 8, gemm_epi also at the
-    starcoder2-7b shape of phase 10, and at odd ones, ``==``; timed at the
-    minicpm-2b and starcoder2-7b shapes."""
+    starcoder2-7b shape of phase 10, and at odd ones, ``==``, each
+    gemm_epi and norm_gemm call on the variant its shape rule names; timed
+    at the minicpm-2b and starcoder2-7b shapes, beside the ``__dp4a``
+    kernels' times on the same operands.  gemm_epi's kinds qi and ii and
+    its out-quantize (with and without m_true) ``==`` at small shapes."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import ref
 
-    src_lin = "src/repro_torch/kernels/csrc/fused_linear.cu"
+    src_sm90 = "src/repro_torch/kernels/csrc/qgemm_sm90.cu"
     src_chain = "src/repro_torch/kernels/csrc/fused_chain.cu"
     tokens = TRAIN_BATCH * TRAIN_SEQ
     out = []
@@ -702,14 +749,15 @@ def check_chain(torch, dev, g, bits):
     # gemm_epi: the gate|up GEMM + GLU of training, minicpm-2b's SiLU
     # (512 x 2304 -> 2 x 5760) and starcoder2-7b's GELU (512 x 4608 -> 2 x
     # 18432), timed under the kernel's name; then odd shapes with a bias
-    # (an odd GLU half, relu, gelu), both roundings, the gelu one timed
-    # for the record only
+    # (an odd GLU half on both variants, relu, gelu), both roundings, the
+    # gelu one timed for the record only
     for label, (m, k, n, act, with_bias), row in (
             ("train", (tokens, 2304, 2 * 5760, "silu_glu", False), "gemm_epi"),
             ("train_gelu_glu", (tokens, 4608, 2 * 18432, "gelu_glu", False),
              "gemm_epi"),
             ("odd", (37, 67, 58, "silu_glu", True), None),
             ("odd_gelu_glu", (37, 67, 58, "gelu_glu", True), None),
+            ("odd_wgmma", (37, 96, 58, "silu_glu", True), None),
             ("odd_relu", (130, 96, 70, "relu", True), None),
             ("odd_gelu", (130, 96, 70, "gelu", True), "gemm_epi_gelu_odd")):
         a = torch.randn((m, k), generator=g, device=dev)
@@ -719,11 +767,14 @@ def check_chain(torch, dev, g, bits):
                 else None)
         ra, rb = bits(14, a.shape), bits(15, b.shape)
         ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+        variant = kfl.gemm_epi_variant(m, k, n, act)
         err = 0.0
         for sr in (True, False):
             r = (ra, rb) if sr else (None, None)
             kw = dict(stochastic=sr, act=act)
-            got = kfl.fused_gemm_epi(a, r[0], b, r[1], bias, None, ea, eb, **kw)
+            got = _expect_variant(
+                torch, "gemm_epi", kfl.GEMM_EPI_VARIANTS, variant, label,
+                lambda: kfl.fused_gemm_epi(a, r[0], b, r[1], bias, None, ea, eb, **kw))
             want = kfl.fused_gemm_epi_plain(a, r[0], b, r[1], bias, None, ea,
                                             eb, **kw)
             torch.cuda.synchronize()
@@ -741,7 +792,9 @@ def check_chain(torch, dev, g, bits):
         nbytes = (8 * m * k + 8 * n * k + 4 * n * with_bias + 4 * m * n_out
                   + 4 * m * n + m * k + n * k)
         out.append(_record_kernel(
-            torch, row, src_lin, "src/repro/kernels/fused_linear.py:556",
+            torch, row, src_sm90 if variant == "wgmma"
+            else "src/repro_torch/kernels/csrc/fused_linear.cu",
+            "src/repro/kernels/fused_linear.py:556",
             [m, k, n], err,
             lambda: kfl.fused_gemm_epi(a, a32, b, b32, bias, None, ea, eb, **kw),
             lambda: kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, None, ea, eb,
@@ -750,15 +803,75 @@ def check_chain(torch, dev, g, bits):
             f"no single PyTorch call quantizes, contracts and applies the "
             f"{act} epilogue; library_ms times torch._int_mm of the same "
             "mantissas"))
-        out[-1]["act"] = act
+        out[-1].update(act=act, variant=variant,
+                       line_as=["gemm_epi_wgmma"] if label == "train" else [])
+        if not with_bias:
+            out[-1]["dp4a_ms"] = _dp4a_ms(
+                torch, kfl._lib_linear().repro_gemm_epi,
+                lambda: _epi_dp4a_call(torch, kfl, a, a32, b, b32, ea, eb, act),
+                kfl.fused_gemm_epi_plain(a, ra, b, rb, None, None, ea, eb, **kw)[0],
+                f"gemm_epi {label}")
+            print(f"gemm_epi {label} on the __dp4a kernel: "
+                  f"{out[-1]['dp4a_ms']:.4f} ms device time (the rule's "
+                  f"{variant}: {out[-1]['ms']:.4f} ms; by kernel "
+                  f"{out[-1]['ms_by_kernel']})")
         del a, b, ra, rb, a32, b32, got, want
+        torch.cuda.empty_cache()
+
+    # gemm_epi's kinds qi and ii and its out-quantize: every kind, each act
+    # with a bias, the out-quantize over all rows and over the rows below
+    # m_true (the rest zero, so y there is act(bias)), both roundings, on
+    # both variants (K 96 and 67)
+    held = []
+    for kind in ("qq", "qi", "ii"):
+        for m, k, n, act in ((130, 96, 70, "silu_glu"), (130, 67, 58, "gelu_glu"),
+                             (131, 96, 71, "relu"), (64, 96, 70, "gelu"),
+                             (64, 96, 70, None)):
+            for out_q, m_true in ((False, None), (True, None), (True, 100)):
+                for sr in (True, False):
+                    a = torch.randn((m, k), generator=g, device=dev)
+                    b = torch.randn((n, k), generator=g, device=dev)
+                    ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+                    if kind == "ii":
+                        a = torch.randint(-127, 128, (m, k), generator=g,
+                                          device=dev, dtype=torch.int8)
+                        ea = torch.tensor(129, dtype=torch.int32, device=dev)
+                    if kind != "qq":
+                        b = torch.randint(-127, 128, (n, k), generator=g,
+                                          device=dev, dtype=torch.int8)
+                        eb = torch.tensor(127, dtype=torch.int32, device=dev)
+                    if m_true is not None:
+                        a[m_true:] = 0
+                    n_out = n // 2 if (act or "").endswith("_glu") else n
+                    ra = bits(18, (m, k)) if sr and kind != "ii" else None
+                    rb = bits(19, (n, k)) if sr and kind == "qq" else None
+                    rq = bits(20, (m, n_out)) if sr and out_q else None
+                    bias = torch.randn((1, n), generator=g, device=dev)
+                    kw = dict(kind=kind, stochastic=sr, act=act, out_q=out_q,
+                              m_true=m_true)
+                    variant = kfl.gemm_epi_variant(m, k, n, act)
+                    got = _expect_variant(
+                        torch, "gemm_epi", kfl.GEMM_EPI_VARIANTS, variant,
+                        f"{kind} {(m, k, n)}",
+                        lambda: kfl.fused_gemm_epi(a, ra, b, rb, bias, rq, ea, eb, **kw))
+                    want = kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, rq, ea, eb, **kw)
+                    if len(got) != len(want) or not all(
+                            torch.equal(x, y) for x, y in zip(got, want)):
+                        raise AssertionError(
+                            f"gemm_epi kind {kind} {(m, k, n)} act={act} out_q="
+                            f"{out_q} m_true={m_true} stochastic={sr} ({variant}):"
+                            " kernel != plain")
+            held.append(f"{kind} {(m, k, n)} {act} {variant}")
+    print(f"gemm_epi kinds qq / qi / ii, out_q with and without m_true, both "
+          f"roundings == plain ({len(held)} shapes): {held}")
 
     # norm_gemm: the QKV chain of training (512 x 2304 -> 6912), then odd
     # shapes: LayerNorm with a shift, rows off every strip, K off the
-    # slice, both roundings
+    # slice (__dp4a), a wide K on the tensor cores, both roundings
     for label, (m, k, n, center, with_beta) in (
             ("train", (tokens, 2304, 6912, False, False)),
             ("odd", (37, 100, 70, True, True)),
+            ("odd_wgmma", (37, 112, 70, True, True)),
             ("odd_wide", (130, 4000, 29, False, True))):
         x = torch.randn((m, k), generator=g, device=dev) * 3.0
         x[1] *= 2.0 ** -60
@@ -773,11 +886,14 @@ def check_chain(torch, dev, g, bits):
         se_g = torch.tensor(-15, dtype=torch.int32, device=dev)
         se_b = torch.tensor(-20, dtype=torch.int32, device=dev)
         rin, rout = bits(16, (m, k)), bits(17, (m, k))
+        variant = kfc.norm_gemm_variant(m, k)
         err = 0.0
         for sr in (True, False):
             r = (rin, rout) if sr else (None, None)
             args = (x, r[0], r[1], gm, se_g, bm, se_b, wm, se_w)
-            got = kfc.fused_norm_gemm(*args, n=k, center=center)
+            got = _expect_variant(
+                torch, "norm_gemm", kfc.NORM_GEMM_VARIANTS, variant, label,
+                lambda: kfc.fused_norm_gemm(*args, n=k, center=center))
             want = kfc.norm_gemm_plain(*args, n=k, center=center)
             torch.cuda.synchronize()
             err = max(err, (got[0] - want[0]).abs().max().item())
@@ -793,13 +909,33 @@ def check_chain(torch, dev, g, bits):
         # y, xq, c, meta out
         nbytes = 12 * m * k + 4 * k + n * k + 4 * n + 4 * m * n + 2 * m * k + 4 * m * 128
         out.append(_record_kernel(
-            torch, "norm_gemm", src_chain, "src/repro/kernels/fused_chain.py:299",
+            torch, "norm_gemm", src_sm90 if variant == "wgmma" else src_chain,
+            "src/repro/kernels/fused_chain.py:299",
             [m, k, n], err, lambda: kfc.fused_norm_gemm(*args32, n=k),
             lambda: kfc.norm_gemm_plain(*args, n=k), nbytes, 2.0 * m * n * k,
             _int_mm_ms(torch, want[1][None], wm[None]),
             "no single PyTorch call computes the integer norm and the "
             "per-row quantize; library_ms times torch._int_mm of xq and "
             "the weight"))
+        out[-1].update(variant=variant, line_as=["norm_gemm_wgmma"],
+                       source_norm_pass=src_chain)
+
+        def dp4a_args():
+            y = torch.empty((m, n), dtype=torch.float32, device=dev)
+            xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+            meta = torch.empty((m, 128), dtype=torch.int32, device=dev)
+            c = torch.empty((m, k), dtype=torch.int8, device=dev)
+            p = kfl._ptr
+            return (y, xq, meta, c), (
+                p(x), p(args32[1]), p(args32[2]), p(gm), p(se_g), None, None, p(wm),
+                p(se_w), p(y), p(xq), p(meta), p(c), m, n, k, 7, 1, -32, 0,
+                *kfc.div_n_consts(k), 64, 1)
+        out[-1]["dp4a_ms"] = _dp4a_ms(torch, kfc._lib().repro_norm_gemm, dp4a_args,
+                                      kfc.norm_gemm_plain(*args, n=k)[0],
+                                      "norm_gemm train")
+        print(f"norm_gemm train on the __dp4a kernel: {out[-1]['dp4a_ms']:.4f} "
+              f"ms device time (the rule's {variant}: {out[-1]['ms']:.4f} ms; "
+              f"by kernel {out[-1]['ms_by_kernel']})")
         del x, rin, rout, got, want
 
     # decode_block: one minicpm-2b layer for 4 streams at the last decode
@@ -1272,10 +1408,15 @@ def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):
 
 
 def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
-                      need=("qq", "qi", "attn_decode"), exact=None):
+                      need=("qq", "qi", "attn_decode"), exact=None,
+                      seam_steps=0):
     """Serve ``arch`` at full width with the launch counts read around the
     call (``need`` launched at all, ``exact`` counts met), then replay the
-    prompts and tokens through the plain versions."""
+    prompts and tokens through the plain versions.  ``seam_steps``: then
+    also prefill and decode that many steps of the same tokens with the
+    chains planned as the reference plans them (its 12 MiB VMEM budget:
+    the per-op decode path), on the kernels, and record how far their
+    logits lie from the chain's."""
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.kernels import dispatch
@@ -1349,7 +1490,46 @@ def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
         replay_call_s=replay_s, profile_call_s=time.perf_counter() - t0)
     print(f"plain-version replay: prefill and {GEN - 1} decode steps' "
           f"logits ==")
+    if seam_steps:
+        rec[f"{label}_seam"] = _decode_seam(
+            torch, dispatch, prefill, decode, params, prompts, key, dev_toks,
+            logits, seam_steps)
     return launches
+
+
+def _decode_seam(torch, dispatch, prefill, decode, params, prompts, key,
+                 dev_toks, logits, steps):
+    """Prefill and ``steps`` decode steps of the same prompts, tokens and
+    keys under the reference's chain plans (``chain_vmem_budget``: no
+    decode block fits 12 MiB), on the kernels: the largest |dlogit|
+    against the decode-block run's logits, prefill and decode apart, and
+    how many greedy tokens agree."""
+    from repro_torch.core import prng
+    t0 = time.perf_counter()
+    dev_pre, dev_dec, agree = 0.0, 0.0, 0
+    with torch.inference_mode(), dispatch.chain_vmem_budget(), \
+            dispatch.record_decisions() as log:
+        cache, lg = prefill(params, {"tokens": prompts}, prng.fold_in(key, 3))
+        dev_pre = (lg - logits[0]).abs().max().item()
+        for i in range(steps):
+            lg, cache = decode(params, cache, dev_toks[:, i], PROMPT + i,
+                               prng.fold_in(key, 10 + i))
+            dev_dec = max(dev_dec, (lg - logits[i + 1]).abs().max().item())
+            agree += int((lg.argmax(-1) == logits[i + 1].argmax(-1)).sum())
+    planned = {d.path for d in log if d.op == "qdecode_block"}
+    if planned != {dispatch.JNP}:
+        raise AssertionError(f"seam run planned the decode block {planned}")
+    res = dict(decode_steps=steps, prefill_max_abs_dlogit=dev_pre,
+               decode_max_abs_dlogit=dev_dec,
+               logit_max_abs=max(lg_.abs().max().item() for lg_ in logits[:steps + 1]),
+               greedy_tokens_equal=agree, greedy_tokens=steps * BATCH,
+               seam_call_s=time.perf_counter() - t0)
+    print(f"chain vs seam (decode_block vs the reference's per-op decode at "
+          f"its 12 MiB budget): max |dlogit| prefill {dev_pre}, decode "
+          f"{dev_dec} over {steps} steps (largest |logit| "
+          f"{res['logit_max_abs']}); greedy tokens equal {agree} of "
+          f"{steps * BATCH}")
+    return res
 
 
 def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
@@ -1493,14 +1673,18 @@ def _state_digest(state) -> dict:
 
 
 def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
-                           steps=1):
+                           steps=1, seam=False):
     """Train ``cfg`` under ``policy`` for ``steps`` steps through
     ``make_train_step`` from the trainer's initial state, keys and batches
     (``launch.train``), the launch counts and decisions read around the
     steps and handed to ``check(log, per_step)``; then replay the steps
     from the same state with the plain versions (losses and every state
-    leaf ``==``) and profile one more step.  Returns (launches, losses,
-    state)."""
+    leaf ``==``) and profile one more step.  ``seam``: then also run the
+    steps with the chains planned as the reference plans them at its 12
+    MiB VMEM budget (the per-op seams), on the kernels, and record |dloss|
+    and the leaves that differ (the kernel path's state is kept as digests
+    for that run and not returned: both states do not fit the card beside
+    the step's temporaries).  Returns (launches, losses, state)."""
     import warnings
 
     from repro_torch.core import prng
@@ -1575,6 +1759,13 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
                                          prng.fold_in(key, steps)),
                      1e3 * step_s, rec, f"{label}_step_profile")
         profile_s = time.perf_counter() - t0
+        if seam:
+            digest = _state_digest(state)
+            del state
+            state = None
+            torch.cuda.empty_cache()
+            rec[f"{label}_seam"] = _train_seam(torch, dispatch, run, losses,
+                                               digest)
     torch.use_deterministic_algorithms(False)
     nondet = sorted({str(w.message)[:200] for w in caught
                      if "deterministic" in str(w.message)})
@@ -1588,17 +1779,44 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
     return launches, losses, state
 
 
+def _train_seam(torch, dispatch, run, losses, digest):
+    """The same steps with the chains planned at the reference's 12 MiB
+    VMEM budget (``chain_vmem_budget``: minicpm-2b's QKV weight alone is
+    15.9 MB, so qnorm and qmatmul instead of norm_gemm), on the kernels:
+    |dloss| and the int16 leaves whose digest differs from the chain's."""
+    t0 = time.perf_counter()
+    with dispatch.chain_vmem_budget(), dispatch.record_decisions() as log:
+        losses_s, state_s, _ = run()
+    fused = {d.op for d in log if d.path == dispatch.FUSED
+             and d.op in ("qnorm_gemm", "qmatmul_epi")}
+    if fused:
+        raise AssertionError(f"seam run planned a chain: {sorted(fused)}")
+    digest_s = _state_digest(state_s)
+    del state_s
+    differ = sum(digest_s[k] != v for k, v in digest.items() if k != "step")
+    res = dict(losses=losses_s, max_abs_dloss=max(
+        abs(x - y) for x, y in zip(losses, losses_s)), leaves_differ=differ,
+        leaves=len(digest) - 1, seam_call_s=time.perf_counter() - t0)
+    print(f"chain vs seam (norm_gemm vs the reference's qnorm + qmatmul at "
+          f"its 12 MiB budget): losses {losses} vs {losses_s}, |dloss| "
+          f"{res['max_abs_dloss']}; {differ} of {res['leaves']} master / "
+          f"momentum leaves differ")
+    return res
+
+
 # Decision kind -> the kernel counter a FUSED plan of that kind launches.
 KIND_KERNEL = {"qq": "qq", "qi": "qi", "iq": "qi", "ii": "ii", "pp": "ii",
                "qq_epi": "gemm_epi", "norm_gemm": "norm_gemm"}
 
 
-def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want):
+def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want,
+                            seam=False):
     """Phases 8 and 10: full-width ``arch`` cut to ``n_layers`` layers, one
     step under ``PAPER_INT8`` with ``fused_proj`` (as the JAX package's own
     chain tests reach it; the trainer has no flag for it): ``want``
     launches per step, each also the count of the step's FUSED plans of
-    that kernel; no chain planned on a plain path."""
+    that kernel; no chain planned on a plain path; ``seam``: the step
+    against the reference's seams too (``train_step_and_compare``)."""
     import collections
     import dataclasses
 
@@ -1624,7 +1842,7 @@ def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want):
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     policy = dataclasses.replace(PAPER_INT8, fused_proj=True)
     return train_step_and_compare(torch, dev, rec, label, cfg, policy,
-                                  check)[0]
+                                  check, seam=seam)[0]
 
 
 def train_unfused_and_compare(torch, dev, rec):
@@ -1704,10 +1922,11 @@ def main() -> int:
               ("serve_minicpm", lambda: serve_and_compare(
                   torch, dev, rec, CHAIN_ARCH, "serve_minicpm",
                   need=("qq", "qi", "decode_block"),
-                  exact={"decode_block": 40 * (GEN - 1), "attn_decode": 0})),
+                  exact={"decode_block": 40 * (GEN - 1), "attn_decode": 0},
+                  seam_steps=SEAM_DECODE_STEPS)),
               ("train_fused_proj", lambda: train_chain_and_compare(
                   torch, dev, rec, "train_fused_proj", CHAIN_ARCH,
-                  CHAIN_TRAIN_LAYERS, CHAIN_PER_STEP)),
+                  CHAIN_TRAIN_LAYERS, CHAIN_PER_STEP, seam=True)),
               ("train_unfused", lambda: train_unfused_and_compare(
                   torch, dev, rec)),
               ("train_fused_proj_gelu", lambda: train_chain_and_compare(

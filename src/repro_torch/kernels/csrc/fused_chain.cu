@@ -15,19 +15,24 @@
 // centred row can reach 128 before its int8 store wraps, so the row is
 // kept as int16 and recomputed from there in each pass.
 //
-// norm_gemm.  Grid (row strips of BM = 16*TM rows, groups of column
-// tiles).  Each block normalises its strip (one warp per row) and keeps the
-// strip's xq mantissas in shared memory, packed four to a word; then it
-// walks its column tiles (BN = 64) of the (N, K) int8 weight in 32-wide K
-// slices with __dp4a, y = float(acc) * 2^(se_row + se_w[col]).  The blocks
-// of the first column group write xq, meta [se_row, e_c, r, e_r, 0...] and
-// c.  The TPU kernel keeps the whole weight resident in VMEM; here it
-// streams through shared memory from L2 once per strip.  The norm is
-// computed again by each column group of a strip (M*K elements per group)
-// so that the card is filled at M = 512.  Bounds on the H100: bytes, at
-// minicpm-2b's QKV (512 x 2304 -> 6912): x and its two bit streams
-// (14.2 MB), the weight (15.9 MB), y (14.2 MB), the residuals (2.6 MB),
-// against 2*M*N*K int8 operations (16.3 G, 8 us at 1979 TOP/s).
+// norm_gemm.  Two launches, one call (kernels/fused_chain.py
+// norm_gemm_variant "wgmma", every main-path shape): norm_rows_kernel
+// normalises each row once, one block of 8 warps a row (the row's int16
+// scratch in shared memory, 2 K bytes: K up to about 116000), reading x and
+// both bit streams once and writing xq, c and meta [se_row, e_c, r, e_r,
+// 0...], the backward's residuals; then qgemm_sm90.cu's wgmma GEMM
+// contracts xq against the weight in its row-column mode, y = float(acc) *
+// 2^(se_row + se_w[col]), the weight read once per 128-row tile from L2.
+// (The TPU kernel keeps the whole weight resident in VMEM.)  What bounds
+// it on the H100: bytes, at minicpm-2b's QKV (512 x 2304 -> 6912):
+// x and its two bit streams (14.2 MB), the weight (15.9 MB), y (14.2 MB),
+// the residuals (2.6 MB), against 2*M*N*K int8 operations (16.3 G, 8 us at
+// 1979 TOP/s); the norm pass's serial integer reductions are latency more
+// than bytes.  norm_gemm_kernel below (grid: row strips of BM = 16*TM rows
+// x groups of column tiles; each block normalises its strip, one warp a
+// row, keeps the strip's xq in shared memory and walks its 64-column tiles
+// of the weight in 32-wide K slices with __dp4a) is the fallback for a K
+// that is not a multiple of 16 or a weight off 16-byte alignment.
 //
 // decode_block.  One launch per layer, one block per SM, every block
 // resident (a cooperative launch), the stages separated by grid barriers
@@ -196,26 +201,6 @@ struct RowScales {
   int se_row, sc, r, e_r;
 };
 
-// The row's 7-bit input quantize into ci (int16 scratch of K), by one
-// warp: returns its largest effective exponent e (rin null: half up) and
-// the lane's partial sums of c and c^2 in s1, s2.
-__device__ __forceinline__ int norm_row_input(const float* x, const uint32_t* rin, int K,
-                                              int16_t* ci, int& s1, int& s2) {
-  const int lane = threadIdx.x & 31;
-  int e = 1;
-  for (int k = lane; k < K; k += 32) e = max(e, eff_exp(x[k]));
-  e = warp_max(e);
-  s1 = s2 = 0;
-  for (int k = lane; k < K; k += 32) {
-    const int c = quantize_one(x[k], rin != nullptr ? rin[k] : 0u, e, 7, rin != nullptr);
-    ci[k] = (int16_t)c;
-    s1 += c;
-    s2 += c * c;
-  }
-  __syncwarp();
-  return e;
-}
-
 // The warps of a row (nws of them, the part-th here) combine a value, a
 // sum or a maximum, through nws ints at red and named barrier id.
 template <bool MAX>
@@ -228,6 +213,28 @@ __device__ __forceinline__ int row_reduce(int v, int nws, int part, int* red, in
   for (int i = 1; i < nws; ++i) r = MAX ? max(r, red[i]) : (int)((unsigned)r + (unsigned)red[i]);
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(32 * nws) : "memory");
   return r;
+}
+
+// The row's 7-bit input quantize into ci (int16 scratch of K): returns its
+// largest effective exponent e (rin null: half up) and the lane's partial
+// sums of c and c^2 in s1, s2.  By nws warps as norm_row_tail (one by
+// default), each lane owning the elements it owns there.
+__device__ __forceinline__ int norm_row_input(const float* x, const uint32_t* rin, int K,
+                                              int16_t* ci, int& s1, int& s2, int part = 0,
+                                              int nws = 1, int* red = nullptr, int id = 0) {
+  const int k0 = part * 32 + (threadIdx.x & 31), dk = 32 * nws;
+  int e = 1;
+  for (int k = k0; k < K; k += dk) e = max(e, eff_exp(x[k]));
+  e = row_reduce<true>(e, nws, part, red, id);
+  s1 = s2 = 0;
+  for (int k = k0; k < K; k += dk) {
+    const int c = quantize_one(x[k], rin != nullptr ? rin[k] : 0u, e, 7, rin != nullptr);
+    ci[k] = (int16_t)c;
+    s1 += c;
+    s2 += c * c;
+  }
+  __syncwarp();
+  return e;
 }
 
 // The rest of the row from ci, its 7-bit mantissas against exponent e,
@@ -452,10 +459,50 @@ cudaError_t launch_norm_gemm(const NormGemmArgs& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The weight's 4-byte loads need K % 4 == 0 and a 4-byte aligned weight:
+// the variant rule sends an unaligned weight here, read byte by byte.
 template <int TM>
 cudaError_t dispatch_norm_gemm(const NormGemmArgs& g, cudaStream_t stream) {
-  return g.K % 4 == 0 ? launch_norm_gemm<TM, true>(g, stream)
-                      : launch_norm_gemm<TM, false>(g, stream);
+  return g.K % 4 == 0 && reinterpret_cast<uintptr_t>(g.w) % 4 == 0
+             ? launch_norm_gemm<TM, true>(g, stream)
+             : launch_norm_gemm<TM, false>(g, stream);
+}
+
+// ---------------------------------------------------------------------------
+// norm_rows: the norm pass of norm_gemm's wgmma variant
+// ---------------------------------------------------------------------------
+
+struct NormRowsArgs {
+  const float* x; const uint32_t* rin; const uint32_t* rout;
+  const int* gm; const int* se_g; const int* bm; const int* se_b;
+  int8_t* xq; int* meta; int8_t* c;
+  int M;
+  NormCfg nc;
+};
+
+// One row a block at a time, its 8 warps sharing it (norm_row_input and
+// norm_row_tail with nws = 8, named barrier 1): ci, the row's int16
+// scratch, in dynamic shared memory.
+__global__ void __launch_bounds__(THREADS) norm_rows_kernel(NormRowsArgs g) {
+  extern __shared__ int16_t ci[];
+  __shared__ int red[WARPS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31, K = g.nc.K;
+  const int se_g = *g.se_g, se_b = g.se_b != nullptr ? *g.se_b : 0;
+  for (int row = blockIdx.x; row < g.M; row += gridDim.x) {
+    const size_t off = (size_t)row * K;
+    int s1, s2;
+    const int e = norm_row_input(g.x + off, g.rin != nullptr ? g.rin + off : nullptr, K, ci,
+                                 s1, s2, warp, WARPS, red, 1);
+    const RowScales rs = norm_row_tail(
+        e, s1, s2, g.rout != nullptr ? g.rout + off : nullptr, g.gm, se_g, g.bm, se_b, g.nc,
+        ci, g.xq + off, nullptr, g.c + off, warp, WARPS, red, 1);
+    if (warp == 0) {
+      int* mrow = g.meta + (size_t)row * 128;
+      for (int i = lane; i < 128; i += 32)
+        mrow[i] = i == 0 ? rs.se_row : i == 1 ? rs.sc : i == 2 ? rs.r : i == 3 ? rs.e_r : 0;
+    }
+    __syncthreads();  // ci and red serve the next row
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1203,6 +1250,34 @@ int repro_norm_gemm(const void* x, const void* rin, const void* rout, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// norm_rows: the norm pass of norm_gemm (the arguments of repro_norm_gemm
+// without the weight and y): xq, meta and c, one row a block.
+int repro_norm_rows(const void* x, const void* rin, const void* rout, const void* gm,
+                    const void* se_g, const void* bm, const void* se_b, void* xq, void* meta,
+                    void* c, int M, int K, int p, int eps_m, int eps_e, int center, int j,
+                    int inv_q, int stochastic, void* stream) {
+  const NormRowsArgs g{static_cast<const float*>(x),
+                       stochastic ? static_cast<const uint32_t*>(rin) : nullptr,
+                       stochastic ? static_cast<const uint32_t*>(rout) : nullptr,
+                       static_cast<const int*>(gm), static_cast<const int*>(se_g),
+                       static_cast<const int*>(bm), static_cast<const int*>(se_b),
+                       static_cast<int8_t*>(xq), static_cast<int*>(meta),
+                       static_cast<int8_t*>(c), M,
+                       NormCfg{K, p, eps_m, eps_e, center, j, inv_q}};
+  if (K <= 0) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const int smem = 2 * K;
+  cudaError_t err = cudaFuncSetAttribute(
+      norm_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = M < 16 * sms ? M : 16 * sms;
+  norm_rows_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(g);
+  return (int)cudaGetLastError();
+}
+
 // decode_block: one decoder layer for one token: one block per SM, every
 // block resident (a cooperative launch), nst ring stages of chunks of at
 // most kch bytes of K, at most `inflight` of them in flight; bar (5 uint32, zero before the first launch
@@ -1235,8 +1310,16 @@ int repro_decode_block(const void* x, const void* wqkv, const void* se_qkv, cons
             NormCfg{d, p, eps_m, eps_e, 0, j, inv_q}};
   if (B > 8 || nst < 1 || inflight < 1 || kch < 32 || kch % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(wqkv) | reinterpret_cast<uintptr_t>(wo) |
-       reinterpret_cast<uintptr_t>(wgu) | reinterpret_cast<uintptr_t>(wd)) % 16 != 0)
+  // the alignment of each load (kernels/fused_chain.py
+  // decode_block_misaligned): 16 bytes for the weight rows' bulk copies, x
+  // as float4 and the V cache as uint4 (4 where dh % 16 != 0), 4 for the
+  // K cache's uint32 rows and the exponents' and rope row's words
+  const auto off = [](const void* q, uintptr_t a) {
+    return reinterpret_cast<uintptr_t>(q) % a != 0;
+  };
+  if (off(wqkv, 16) || off(wo, 16) || off(wgu, 16) || off(wd, 16) || off(x, 16) ||
+      off(vm, dh % 16 == 0 ? 16 : 4) || off(km, 4) || off(ke, 4) || off(ve, 4) ||
+      off(cossin, 4))
     return (int)cudaErrorInvalidValue;
   const int smem = dec_layout(B, d, n_ff, hq, hkv, dh, T, nst, kch).total;
   if (smem != smem_expect) return (int)cudaErrorInvalidValue;

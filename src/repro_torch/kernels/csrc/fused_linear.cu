@@ -11,11 +11,12 @@
 //                        on each output tile; see gemm_epi below)
 // Contraction-last layout: a (B, M, K) x b (B, N, K) -> y (B, M, N), with a
 // batch grid dimension (the JAX package maps the 2-D kernel over slices).
-// qq, qi and ii take qgemm_kernel, and qq_blk its kernel below, only where
-// K % 16 != 0 or an operand is not 16-byte aligned (qq_blk also for a block
-// that is not a multiple of 32 or M <= 16); every other shape runs on the
-// Hopper kernels of qgemm_sm90.cu (kernels/fused_linear.py qq_variant,
-// qgemm_variant, qq_blk_variant).  gemm_epi runs here at every shape.
+// qq, qi and ii take qgemm_kernel, qq_blk and gemm_epi their kernels
+// below, only where K % 16 != 0 or an operand is not 16-byte aligned
+// (qq_blk also for a block that is not a multiple of 32 or M <= 16); every
+// other shape runs on the Hopper kernels of qgemm_sm90.cu
+// (kernels/fused_linear.py qq_variant, qgemm_variant, qq_blk_variant,
+// gemm_epi_variant).
 // The shared exponents are per tensor (over the whole batched tensor) and
 // arrive as device scalars, so no host synchronisation is needed; rounding
 // bits are streamed in (uint32, one per element), none are drawn here.
@@ -395,7 +396,12 @@ cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// gemm_epi: the qq GEMM with its f32 epilogue (fused_gemm_epi_pallas).
+// gemm_epi: the GEMM with its f32 epilogue (fused_gemm_epi_pallas), kinds
+// qq (both operands f32, quantized in the tiles), qi (b int8 mantissas) and
+// ii (both int8).  The fallback of qgemm_sm90.cu's act mode: only a K that
+// is not a multiple of 16 or an operand off 16-byte alignment comes here
+// (kernels/fused_linear.py gemm_epi_variant); every main-path shape runs
+// on the tensor cores.
 //
 // The qgemm_kernel tiling (64 rows x 64 columns, K in 32-wide slices
 // quantized in registers, __dp4a), and in registers on each output tile:
@@ -406,19 +412,23 @@ cudaError_t launch_blk(const BlkArgs& g, cudaStream_t stream) {
 // accumulators j = 0, 1 (gate columns tx, tx + 16) pair with j = 2, 3 (the
 // same up columns): both halves of one output are in one thread.  It
 // writes y, the pre-activation ylin (the backward's residual), and the a
-// and b mantissas (the blocks of the first column tile write a's, those of
-// the first row tile b's).  Each
+// and b mantissas of the kinds that quantize them (the blocks of the first
+// column tile write a's, those of the first row tile b's).  Each
 // float step is one IEEE operation in the plain version's order, SiLU's
 // logistic the Cephes exp of fmath.cuh and GELU's tanh its xla_tanhf, so y
-// and ylin equal the plain version's bit for bit.
+// and ylin equal the plain version's bit for bit.  The out-quantize writes
+// y to f32 scratch and folds the largest effective exponent of its rows
+// below m_true into one word (atomicMax; qgemm_sm90.cu says why that is
+// eff_exp of the largest |y|), then epi_outq_kernel quantizes y against it.
 //
 // Bounds on the H100: the qq bytes (f32 + bits of a and b in, both
 // mantissas out) plus 4*M*N of ylin and 4*M*N_out of y; at the gate|up
 // GEMM of minicpm-2b's training (512 x 2304 -> 11520) the 212 MB of b and
 // its bits dominate (starcoder2-7b's, 512 x 4608 -> 36864: 1.36 of 1.66
 // GB), against 2*M*N*K int8 operations far below the bytes.  Each of the
-// M/64 row tiles quantizes its b tiles again (from L2); quantizing b once,
-// wgmma and TMA are later work.
+// M/64 row tiles quantizes its b tiles again (from L2): the reason the
+// main path's shapes run on qgemm_sm90.cu, which quantizes each operand
+// once.
 
 // The act codes are the indices of kernels/fused_linear.py EPI_ACTS.
 enum EpiAct {
@@ -429,14 +439,16 @@ __host__ __device__ constexpr bool epi_glu(int act) {
   return act == EPI_SILU_GLU || act == EPI_GELU_GLU;
 }
 
-template <int ACT, bool STOCH, bool VEC>
+template <int ACT, bool A_FLOAT, bool B_FLOAT, bool STOCH, bool VEC>
 __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
     const float* __restrict__ a, const uint32_t* __restrict__ ra,
-    const float* __restrict__ b, const uint32_t* __restrict__ rb,
+    const int8_t* __restrict__ ai, const float* __restrict__ b,
+    const uint32_t* __restrict__ rb, const int8_t* __restrict__ bi,
     const float* __restrict__ bias, const int* __restrict__ ea_ptr,
     const int* __restrict__ eb_ptr, float* __restrict__ y,
     float* __restrict__ ylin, int8_t* __restrict__ am_out,
-    int8_t* __restrict__ bm_out, int M, int N, int K, int p) {
+    int8_t* __restrict__ bm_out, int* __restrict__ emax, int m_true, int M,
+    int N, int K, int p) {
   constexpr int TM = 4, BM = 16 * TM, HALF = BN / 2;
   constexpr bool GLU = epi_glu(ACT);
   __shared__ int As[BM][LD];
@@ -457,14 +469,14 @@ __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile<BM, true, STOCH, VEC>(As, a, ra, nullptr, ea, p, m0, M, k0, K, am_w);
+    load_tile<BM, A_FLOAT, STOCH, VEC>(As, a, ra, ai, ea, p, m0, M, k0, K, am_w);
     if (GLU) {
-      load_tile<HALF, true, STOCH, VEC>(Bs, b, rb, nullptr, eb, p, n0, n_out, k0,
-                                        K, bm_w);
-      load_tile<HALF, true, STOCH, VEC>(Bs + HALF, b, rb, nullptr, eb, p,
-                                        n_out + n0, N, k0, K, bm_w);
+      load_tile<HALF, B_FLOAT, STOCH, VEC>(Bs, b, rb, bi, eb, p, n0, n_out, k0,
+                                           K, bm_w);
+      load_tile<HALF, B_FLOAT, STOCH, VEC>(Bs + HALF, b, rb, bi, eb, p,
+                                           n_out + n0, N, k0, K, bm_w);
     } else {
-      load_tile<BN, true, STOCH, VEC>(Bs, b, rb, nullptr, eb, p, n0, N, k0, K, bm_w);
+      load_tile<BN, B_FLOAT, STOCH, VEC>(Bs, b, rb, bi, eb, p, n0, N, k0, K, bm_w);
     }
     __syncthreads();
 #pragma unroll
@@ -482,10 +494,12 @@ __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
     __syncthreads();
   }
   const float scale = pow2f(scale_exp(ea, p) + scale_exp(eb, p));
+  int ef = 1;  // the out-quantize's largest effective exponent of this thread's y
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + 16 * i;
     if (gm >= M) continue;
+    const bool fold = emax != nullptr && gm < m_true;
     float lin[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -497,57 +511,90 @@ __global__ void __launch_bounds__(THREADS) gemm_epi_kernel(
       if (bias != nullptr && ok) lin[j] = __fadd_rn(lin[j], bias[gn]);
       if (!ok) continue;
       if (ylin != nullptr) ylin[(size_t)gm * N + gn] = lin[j];
-      if (ACT == EPI_NONE) y[(size_t)gm * N + gn] = lin[j];
-      if (ACT == EPI_RELU) {
-        const float v = lin[j];
-        y[(size_t)gm * N + gn] = v > 0.0f ? v : (v != v ? v : 0.0f);
-      }
-      if (ACT == EPI_GELU) y[(size_t)gm * N + gn] = repro::xla_geluf(lin[j]);
+      if (GLU) continue;
+      float v = lin[j];
+      if (ACT == EPI_RELU) v = v > 0.0f ? v : (v != v ? v : 0.0f);
+      if (ACT == EPI_GELU) v = repro::xla_geluf(v);
+      y[(size_t)gm * N + gn] = v;
+      if (fold) ef = max(ef, repro::eff_exp(v));
     }
     if (GLU) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int gc = n0 + tx + 16 * j;
-        if (gc < n_out)
-          y[(size_t)gm * n_out + gc] = ACT == EPI_GELU_GLU
-              ? repro::gelu_glu(lin[j], lin[j + 2])
-              : repro::silu_glu(lin[j], lin[j + 2]);
+        if (gc >= n_out) continue;
+        const float v = ACT == EPI_GELU_GLU ? repro::gelu_glu(lin[j], lin[j + 2])
+                                            : repro::silu_glu(lin[j], lin[j + 2]);
+        y[(size_t)gm * n_out + gc] = v;
+        if (fold) ef = max(ef, repro::eff_exp(v));
       }
     }
   }
+  if (emax != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) ef = max(ef, __shfl_xor_sync(0xffffffffu, ef, o));
+    if ((threadIdx.x & 31) == 0) atomicMax(emax, ef);
+  }
+}
+
+// The out-quantize of gemm_epi's y (n elements of f32 scratch) against the
+// folded exponent *ew, one element a thread and step; block 0 writes the
+// exponent to the 128 words of meta.
+template <bool STOCH>
+__global__ void __launch_bounds__(THREADS) epi_outq_kernel(
+    const float* __restrict__ ys, const uint32_t* __restrict__ rq,
+    const int* __restrict__ ew, int8_t* __restrict__ ym, int* __restrict__ meta,
+    size_t n, int qp) {
+  const int e = *ew;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    ym[i] = (int8_t)quantize_one(ys[i], STOCH ? rq[i] : 0u, e, qp, STOCH);
+  if (blockIdx.x == 0 && threadIdx.x < 128) meta[threadIdx.x] = e;
 }
 
 struct EpiArgs {
-  const float* a; const uint32_t* ra; const float* b; const uint32_t* rb;
+  const float* a; const uint32_t* ra; const int8_t* ai;
+  const float* b; const uint32_t* rb; const int8_t* bi;
   const float* bias; const int* ea; const int* eb;
-  float* y; float* ylin; int8_t* am; int8_t* bm;
-  int M, N, K, p;
+  float* y; float* ylin; int8_t* am; int8_t* bm; int* emax;
+  int m_true, M, N, K, p;
 };
 
-template <int ACT, bool STOCH>
+template <int ACT, bool A_FLOAT, bool B_FLOAT, bool STOCH>
 cudaError_t launch_epi(const EpiArgs& g, cudaStream_t stream) {
   const int cols = epi_glu(ACT) ? g.N / 2 : g.N;
   const int tile = epi_glu(ACT) ? BN / 2 : BN;
   const dim3 grid((cols + tile - 1) / tile, (g.M + 63) / 64, 1);
-  if (g.K % 4 == 0) {
-    gemm_epi_kernel<ACT, STOCH, true><<<grid, THREADS, 0, stream>>>(
-        g.a, g.ra, g.b, g.rb, g.bias, g.ea, g.eb, g.y, g.ylin, g.am, g.bm,
-        g.M, g.N, g.K, g.p);
+  if (g.K % 4 == 0 && aligned16(g.a) && aligned16(g.ra) && aligned16(g.ai) &&
+      aligned16(g.b) && aligned16(g.rb) && aligned16(g.bi)) {
+    gemm_epi_kernel<ACT, A_FLOAT, B_FLOAT, STOCH, true><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.ai, g.b, g.rb, g.bi, g.bias, g.ea, g.eb, g.y, g.ylin, g.am,
+        g.bm, g.emax, g.m_true, g.M, g.N, g.K, g.p);
   } else {
-    gemm_epi_kernel<ACT, STOCH, false><<<grid, THREADS, 0, stream>>>(
-        g.a, g.ra, g.b, g.rb, g.bias, g.ea, g.eb, g.y, g.ylin, g.am, g.bm,
-        g.M, g.N, g.K, g.p);
+    gemm_epi_kernel<ACT, A_FLOAT, B_FLOAT, STOCH, false><<<grid, THREADS, 0, stream>>>(
+        g.a, g.ra, g.ai, g.b, g.rb, g.bi, g.bias, g.ea, g.eb, g.y, g.ylin, g.am,
+        g.bm, g.emax, g.m_true, g.M, g.N, g.K, g.p);
   }
   return cudaGetLastError();
 }
 
-template <bool STOCH>
-cudaError_t dispatch_epi(const EpiArgs& g, int act, cudaStream_t stream) {
-  if (act == EPI_RELU) return launch_epi<EPI_RELU, STOCH>(g, stream);
-  if (act == EPI_SILU_GLU) return launch_epi<EPI_SILU_GLU, STOCH>(g, stream);
-  if (act == EPI_GELU) return launch_epi<EPI_GELU, STOCH>(g, stream);
-  if (act == EPI_GELU_GLU) return launch_epi<EPI_GELU_GLU, STOCH>(g, stream);
-  return launch_epi<EPI_NONE, STOCH>(g, stream);
+// kind 0 qq, 1 qi, 2 ii (no quantize: one rounding template).
+template <int ACT>
+cudaError_t dispatch_epi_kind(const EpiArgs& g, int kind, bool stoch, cudaStream_t stream) {
+  if (kind == 2) return launch_epi<ACT, false, false, false>(g, stream);
+  if (kind == 1)
+    return stoch ? launch_epi<ACT, true, false, true>(g, stream)
+                 : launch_epi<ACT, true, false, false>(g, stream);
+  return stoch ? launch_epi<ACT, true, true, true>(g, stream)
+               : launch_epi<ACT, true, true, false>(g, stream);
+}
+
+cudaError_t dispatch_epi(const EpiArgs& g, int act, int kind, bool stoch, cudaStream_t stream) {
+  if (act == EPI_RELU) return dispatch_epi_kind<EPI_RELU>(g, kind, stoch, stream);
+  if (act == EPI_SILU_GLU) return dispatch_epi_kind<EPI_SILU_GLU>(g, kind, stoch, stream);
+  if (act == EPI_GELU) return dispatch_epi_kind<EPI_GELU>(g, kind, stoch, stream);
+  if (act == EPI_GELU_GLU) return dispatch_epi_kind<EPI_GELU_GLU>(g, kind, stoch, stream);
+  return dispatch_epi_kind<EPI_NONE>(g, kind, stoch, stream);
 }
 
 }  // namespace
@@ -612,22 +659,53 @@ int repro_fused_qq_blk(const void* a, const void* ra, const void* ea,
   return (int)(stochastic ? launch_blk<true>(g, s) : launch_blk<false>(g, s));
 }
 
-// gemm_epi: a (M,K) f32 [+ ra], b (N,K) f32 [+ rb], bias (N) f32 or null ->
-// y (M, N or N/2) f32, ylin (M,N) f32 (null when act == 0), am, bm int8.
-// act: 0 none, 1 relu, 2 gelu, 3 silu_glu, 4 gelu_glu.
+// gemm_epi, the arguments of qgemm_sm90.cu's repro_gemm_epi_sm90: kind 0
+// qq (a (M,K), b (N,K) f32 [+ ra, rb]), 1 qi (b int8), 2 ii (a and b
+// int8); bias (N) f32 or null; act 0 none, 1 relu, 2 gelu, 3 silu_glu,
+// 4 gelu_glu -> ylin (M,N) f32 (null when act == 0), am, bm int8 (those the
+// kind quantizes) and y (M, n_out) f32, or with out_q ym (M, n_out) int8
+// against one exponent (rows below m_true) and meta (128) int32, through
+// the f32 scratch ys and the int32 word ew.
 int repro_gemm_epi(const void* a, const void* ra, const void* b, const void* rb,
-                   const void* bias, const void* ea, const void* eb, void* y,
-                   void* ylin, void* am, void* bm, int M, int N, int K, int p,
-                   int act, int stochastic, void* stream) {
-  const EpiArgs g{static_cast<const float*>(a), static_cast<const uint32_t*>(ra),
-                  static_cast<const float*>(b), static_cast<const uint32_t*>(rb),
-                  static_cast<const float*>(bias), static_cast<const int*>(ea),
-                  static_cast<const int*>(eb), static_cast<float*>(y),
-                  static_cast<float*>(ylin), static_cast<int8_t*>(am),
-                  static_cast<int8_t*>(bm), M, N, K, p};
+                   const void* bias, const void* rq, const void* ea, const void* eb,
+                   void* y, void* ylin, void* am, void* bm, void* ys, void* ew,
+                   void* meta, int M, int N, int K, int p, int qp, int m_true,
+                   int kind, int act, int out_q, int stochastic, void* stream) {
+  if (kind < 0 || kind > 2 || act < 0 || act > 4 || (epi_glu(act) && N % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  return (int)(stochastic ? dispatch_epi<true>(g, act, s)
-                          : dispatch_epi<false>(g, act, s));
+  const bool fa = kind != 2, fb = kind == 0;
+  int* ewi = static_cast<int*>(ew);
+  if (out_q) {
+    const cudaError_t e = cudaMemsetAsync(ewi, 0, sizeof(int), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const EpiArgs g{fa ? static_cast<const float*>(a) : nullptr,
+                  fa ? static_cast<const uint32_t*>(ra) : nullptr,
+                  fa ? nullptr : static_cast<const int8_t*>(a),
+                  fb ? static_cast<const float*>(b) : nullptr,
+                  fb ? static_cast<const uint32_t*>(rb) : nullptr,
+                  fb ? nullptr : static_cast<const int8_t*>(b),
+                  static_cast<const float*>(bias), static_cast<const int*>(ea),
+                  static_cast<const int*>(eb), static_cast<float*>(out_q ? ys : y),
+                  static_cast<float*>(ylin), fa ? static_cast<int8_t*>(am) : nullptr,
+                  fb ? static_cast<int8_t*>(bm) : nullptr, out_q ? ewi : nullptr,
+                  m_true, M, N, K, p};
+  cudaError_t e = dispatch_epi(g, act, kind, stochastic != 0, s);
+  if (e != cudaSuccess || !out_q) return (int)e;
+  const size_t n = (size_t)M * (epi_glu(act) ? N / 2 : N);
+  unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  if (blocks > 1024) blocks = 1024;
+  const float* yf = static_cast<const float*>(ys);
+  const uint32_t* rqi = static_cast<const uint32_t*>(rq);
+  int8_t* ym = static_cast<int8_t*>(y);
+  int* mt = static_cast<int*>(meta);
+  if (stochastic)
+    epi_outq_kernel<true><<<blocks, THREADS, 0, s>>>(yf, rqi, ewi, ym, mt, n, qp);
+  else
+    epi_outq_kernel<false><<<blocks, THREADS, 0, s>>>(yf, rqi, ewi, ym, mt, n, qp);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
-// The qq, qi, ii, qq_blk and int8_matmul GEMMs redesigned for Hopper
-// (sm_90a): int8 tensor cores fed by TMA through a ring of shared-memory
-// stages.
+// The qq, qi, ii, qq_blk, int8_matmul, gemm_epi and norm_gemm GEMMs
+// redesigned for Hopper (sm_90a): int8 tensor cores fed by TMA through a
+// ring of shared-memory stages.
 //
-// Replaces, beside the __dp4a kernels of fused_linear.cu and the wmma
-// kernel of int8_matmul.cu (which keep the shapes this file does not take),
-// the TPU kernels
+// Replaces, beside the __dp4a kernels of fused_linear.cu and fused_chain.cu
+// and the wmma kernel of int8_matmul.cu (which keep the shapes this file
+// does not take), the TPU kernels
 //   fused_qq_pt_pallas  (both operands f32, quantized: every forward
 //                        projection, QK^T and PV of training and prefill)
 //   fused_qi_pt_pallas  (a f32 quantized, b pre-quantized int8: every
@@ -12,9 +12,14 @@
 //   fused_ii_pt_pallas  (both operands int8 mantissas: the backward's dW)
 //   fused_qq_blk_pallas (both operands f32, one exponent per row and blk
 //                        elements of K: every int8_block contraction)
-// of src/repro/kernels/fused_linear.py, and int8_matmul_pallas of
+//   fused_gemm_epi_pallas (kinds qq / qi / ii with the bias, relu, GELU or
+//                        SiLU- / GELU-GLU epilogue and the per-tensor
+//                        out-quantize: the gate|up GEMM of fused_proj)
+// of src/repro/kernels/fused_linear.py, int8_matmul_pallas of
 // src/repro/kernels/int8_matmul.py (both operands int8, one f32 scale: the
-// unfused rung).
+// unfused rung), and the GEMM half of fused_norm_gemm_pallas of
+// src/repro/kernels/fused_chain.py (xq against the weight, one exponent per
+// row and one per column; fused_chain.cu's norm pass writes xq first).
 // Layout: a (B, M, K) x b (B, N, K), both contraction-last (K-major, the
 // only layout wgmma takes for 8-bit types) -> y (B, M, N) f32.  The shared
 // exponents are per tensor, device scalars; rounding bits come in as uint32.
@@ -31,10 +36,12 @@
 // for bit.
 //
 // Variants, chosen by the wrappers from the shapes alone
-// (kernels/fused_linear.py qgemm_variant / qq_variant / qq_blk_variant,
-// kernels/int8_matmul.py int8_matmul_variant): K % 16 == 0 (TMA's 16-byte
+// (kernels/fused_linear.py qgemm_variant / qq_variant / qq_blk_variant /
+// gemm_epi_variant, kernels/int8_matmul.py int8_matmul_variant,
+// kernels/fused_chain.py norm_gemm_variant): K % 16 == 0 (TMA's 16-byte
 // row stride) and 16-byte aligned operands, else the __dp4a kernel of
-// fused_linear.cu (qq, qi, ii, qq_blk) or the wmma kernel of int8_matmul.cu.
+// fused_linear.cu (qq, qi, ii, qq_blk, gemm_epi) or fused_chain.cu
+// (norm_gemm), or the wmma kernel of int8_matmul.cu.
 //
 // wgmma (M > 16).  A persistent grid, one block per SM, walks 128 x 128
 // output tiles, M fastest (the blocks at work at one time share b tiles in
@@ -86,10 +93,38 @@
 // past M zero in registers).  Only the first block of each batch slice
 // writes the a mantissas.  qq quantizes b in its own pass first.
 //
+// gemm_epi (the act mode of the wgmma kernel, a template parameter: bias,
+// relu, GELU, SiLU-GLU or GELU-GLU).  The kind's pass quantizes a and b
+// (qq, one launch), a (qi) or nothing (ii); the epilogue then computes, on
+// the fragment, ylin = float(acc) * 2^(sa + sb) + bias and the act, each
+// float step one IEEE operation in the plain version's order (fmath.cuh's
+// Cephes logistic and XLA's tanh), and writes ylin (the backward's
+// residual) and y through the padded shared tile.  For a GLU a 128-row b
+// stage holds the gate rows [j0, j0 + 64) and the matching up rows [N/2 +
+// j0, N/2 + j0 + 64): two TMA boxes through two tensor maps over b, one a
+// half, each N/2 rows long, so TMA zero-fills past each half (an odd N/2
+// never reads the other half's rows) and fragment column c (gate) pairs
+// with column c + 64 (up) in the same thread's registers.  The per-tensor
+// out-quantize (out_q, rows below m_true) takes two launches, as the
+// reference's two-phase grid: the epilogue writes y to f32 scratch and
+// folds the largest effective exponent of its rows below m_true into one
+// device word (atomicMax); a one-segment pass then quantizes y against
+// that word and writes the (1, 128) meta row.  The largest eff_exp of the
+// elements equals eff_exp of the largest |y|: eff_exp is the exponent field
+// of |y| clamped at 1, and the bit patterns of non-negative floats (inf and
+// NaN, at the top, included) order as their values.
+//
+// norm_gemm (the row-column mode): the same GEMM of xq against the weight,
+// y = float(acc) * 2^(se_row[i] + se_w[j]) (pow2f, clamped and flushed as
+// the plain version's pow2_f32), the row exponents read from the meta rows
+// fused_chain.cu's norm pass wrote; the weight is read once per M tile from
+// L2 instead of once per 64-row strip.
+//
 // Bounds on the H100 (bytes over 3.35 TB/s against 2*M*N*K int8 operations
 // at 1979 TOP/s): bytes for every shape of the main path; y's 4*M*N bytes
 // for the training dW (545 MB at the tied LM head), b's N*K for decode, the
-// f32 values and bits of b (8*N*K) for qq's and qq_blk's LM head.
+// f32 values and bits of b (8*N*K) for qq's and qq_blk's LM head and for
+// gemm_epi's gate|up (212 MB of b's 249 at minicpm-2b).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -98,11 +133,13 @@
 #include <mutex>
 
 #include "bfp.cuh"
+#include "fmath.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using repro::bulk_load;
+using repro::eff_exp;
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_fence_init;
@@ -251,20 +288,25 @@ __device__ __forceinline__ uint32_t quantize4(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 
 // One tensor of the pass: n4 groups of 4 elements of x (and bits r),
-// quantized against the exponent *e into m.
+// quantized against the exponent *e into m, then `tail` (< 4) more
+// elements one by one.
 struct QSeg {
   const float* x;
   const uint32_t* r;
   const int* e;
   int8_t* m;
   size_t n4;
+  int tail = 0;
 };
 
 // qi quantizes a (s1 empty); qq quantizes a and b in the same launch, the
 // groups of s0 first, then those of s1.  Four elements a thread and step,
 // as bfp_quantize: more threads in flight than wider steps would leave.
+// gemm_epi's out-quantize passes its y (s0, with a tail) and gets its
+// exponent written to the 128 words of meta.
 template <bool STOCH>
-__global__ void __launch_bounds__(256) quantize_pass_kernel(QSeg s0, QSeg s1, int p) {
+__global__ void __launch_bounds__(256) quantize_pass_kernel(QSeg s0, QSeg s1, int p,
+                                                            int* meta) {
   const int e0 = *s0.e, e1 = s1.n4 ? *s1.e : 0;
   const size_t total = s0.n4 + s1.n4;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -274,6 +316,13 @@ __global__ void __launch_bounds__(256) quantize_pass_kernel(QSeg s0, QSeg s1, in
     const uint32_t w = quantize4<STOCH>(first ? s0.x : s1.x, first ? s0.r : s1.r,
                                         j * 4, first ? e0 : e1, p);
     reinterpret_cast<uint32_t*>(first ? s0.m : s1.m)[j] = w;
+  }
+  if (blockIdx.x == 0) {
+    if ((int)threadIdx.x < s0.tail) {
+      const size_t k = s0.n4 * 4 + threadIdx.x;
+      s0.m[k] = (int8_t)quantize_one(s0.x[k], STOCH ? s0.r[k] : 0u, e0, p, STOCH);
+    }
+    if (meta != nullptr && threadIdx.x < 128) meta[threadIdx.x] = e0;
   }
 }
 
@@ -330,17 +379,101 @@ __global__ void __launch_bounds__(256) quantize_blk_pass_kernel(QBlkSeg s0, QBlk
 // ---------------------------------------------------------------------------
 
 // What the epilogue scales by: the two shared exponents (qq, qi, ii), one
-// given scalar (int8_matmul), or a scale per row and block of K (qq_blk:
-// each block's exact int32 partial promoted into a float32 accumulator).
-constexpr int EPI_EXP = 0, EPI_SCALAR = 1, EPI_BLOCK = 2;
+// given scalar (int8_matmul), a scale per row and block of K (qq_blk: each
+// block's exact int32 partial promoted into a float32 accumulator), the
+// two shared exponents followed by bias and act (gemm_epi), or one
+// exponent per row and one per column (norm_gemm).
+constexpr int EPI_EXP = 0, EPI_SCALAR = 1, EPI_BLOCK = 2, EPI_ACT = 3, EPI_ROWCOL = 4;
+
+// gemm_epi's acts, the indices of kernels/fused_linear.py EPI_ACTS.
+constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU_GLU = 3, ACT_GELU_GLU = 4;
+
+__host__ __device__ constexpr bool act_glu(int act) {
+  return act == ACT_SILU_GLU || act == ACT_GELU_GLU;
+}
+
+// The epilogue's operands beyond y: gemm_epi's bias (N), ylin (M, N) and
+// out-quantize exponent word (rows below m_true folded in), or null;
+// norm_gemm's row exponents (row i at se_row[i * se_row_ld]) and column
+// exponents (N).
+struct EpiOut {
+  const float* bias = nullptr;
+  float* ylin = nullptr;
+  int* emax = nullptr;
+  int m_true = 0;
+  const int* se_row = nullptr;
+  int se_row_ld = 0;
+  const int* se_col = nullptr;
+};
 
 // The float32 scale of the per-tensor epilogues, read once per block.
 template <int EPI>
 __device__ __forceinline__ float epi_scale(const int* ea, const int* eb,
                                            const float* scale, int pa, int pb) {
   if (EPI == EPI_SCALAR) return *scale;
-  if (EPI == EPI_BLOCK) return 0.0f;
+  if (EPI == EPI_BLOCK || EPI == EPI_ROWCOL) return 0.0f;
   return pow2f(scale_exp(*ea, pa) + scale_exp(*eb, pb));
+}
+
+__device__ __forceinline__ int warp_max_i(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A warpgroup's 64 x W fragment values (v[4 j + 2 h + e] at row r0 + 8 h,
+// column 8 j + c0 + e) into its padded shared tile.
+template <int W, int LD, int NF>
+__device__ __forceinline__ void stage_tile(float* tile, const float (&v)[NF], int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * LD + j * 8 + c0) =
+          make_float2(v[i], v[i + 1]);
+    }
+}
+
+// The staged 64 rows of W columns into dst (row stride ld), 16 bytes a
+// store where vec (ld and every first column multiples of 4), else 4.
+// Tile column c is logical column q0 + c, stored at that global column
+// when below lim; with `split` (a GLU's ylin) the tile's right half is the
+// up half, logical column q0 + c - W/2 at global column half + that.  fold
+// (gemm_epi's out-quantize): the largest effective exponent of the stored
+// values of rows below m_true goes into *fold.
+template <int W, int LD>
+__device__ __forceinline__ void store_tile(const float* tile, float* dst, size_t ld, int m_base,
+                                           int M, int q0, int lim, int half, bool split,
+                                           bool vec, int* fold, int m_true) {
+  const int tid = threadIdx.x % 128, hw = split ? W / 2 : W;
+  int e = 1;
+  if (vec) {
+    for (int i = tid; i < 64 * (W / 4); i += 128) {
+      const int row = i / (W / 4), c4 = (i % (W / 4)) * 4;
+      const int gm = m_base + row, q = q0 + (c4 < hw ? c4 : c4 - hw);
+      if (gm < M && q < lim) {
+        const float4 x = *reinterpret_cast<const float4*>(tile + row * LD + c4);
+        *reinterpret_cast<float4*>(dst + (size_t)gm * ld + (c4 < hw ? q : half + q)) = x;
+        if (gm < m_true)
+          e = max(e, max(max(eff_exp(x.x), eff_exp(x.y)), max(eff_exp(x.z), eff_exp(x.w))));
+      }
+    }
+  } else {
+    for (int i = tid; i < 64 * W; i += 128) {
+      const int row = i / W, c = i % W;
+      const int gm = m_base + row, q = q0 + (c < hw ? c : c - hw);
+      if (gm < M && q < lim) {
+        const float x = tile[row * LD + c];
+        dst[(size_t)gm * ld + (c < hw ? q : half + q)] = x;
+        if (gm < m_true) e = max(e, eff_exp(x));
+      }
+    }
+  }
+  if (fold != nullptr) {
+    e = warp_max_i(e);
+    if ((threadIdx.x & 31) == 0) atomicMax(fold, e);
+  }
 }
 
 // Tiles of WGS * 64 rows of a and BN rows of b, 128 bytes of K a stage; in
@@ -440,21 +573,28 @@ __device__ __forceinline__ void blk_step(int kc, int kc_n, int (&cur)[BN / 2],
   }
 }
 
-template <int EPI, int WGS, int BN>
+// ACT: gemm_epi's act (EPI_ACT); with a GLU, b's tiles come from two maps,
+// tb over its gate half and tb2 over its up half, BN / 2 rows a box each.
+template <int EPI, int WGS, int BN, int ACT = ACT_NONE>
 __global__ void __launch_bounds__(Tc<EPI, WGS, BN>::THREADS, 1) tc_gemm_kernel(
     const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-    const int* __restrict__ ea_ptr, const int* __restrict__ eb_ptr,
-    const float* __restrict__ scale_ptr, const int* __restrict__ sa_t,
-    const int* __restrict__ sb_t, float* __restrict__ y, int M, int N, int K, int B,
-    int pa, int pb, int blk, int lda_t, int ldb_t) {
+    const __grid_constant__ CUtensorMap tb2, const int* __restrict__ ea_ptr,
+    const int* __restrict__ eb_ptr, const float* __restrict__ scale_ptr,
+    const int* __restrict__ sa_t, const int* __restrict__ sb_t, float* __restrict__ y,
+    int M, int N, int K, int B, int pa, int pb, int blk, int lda_t, int ldb_t,
+    const EpiOut eo) {
   using T = Tc<EPI, WGS, BN>;
   constexpr int BM = T::BM, BK = T::BK, STAGES = T::STAGES, NF = BN / 2;
+  constexpr bool GLU = EPI == EPI_ACT && act_glu(ACT);
+  // b rows a tile step over, and the rows they step in (a GLU: one half)
+  constexpr int BNT = GLU ? BN / 2 : BN;
+  const int nrows = GLU ? N / 2 : N;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   float* out = reinterpret_cast<float*>(ring + STAGES * T::STAGE);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * T::STAGE + WGS * T::OUT);
   uint64_t* empty = full + STAGES;
-  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (nrows + BNT - 1) / BNT;
   const int total = m_tiles * n_tiles * B, kc_n = (K + BK - 1) / BK;
   // block mode: blocks of K, k32 steps a block, blocks a stage (blk < 128)
   const bool block_mode = EPI == EPI_BLOCK;
@@ -488,7 +628,9 @@ __global__ void __launch_bounds__(Tc<EPI, WGS, BN>::THREADS, 1) tc_gemm_kernel(
           mbar_expect_tx(&full[stage], T::TILE_A + T::TILE_B + nbk * T::EXP_SLOT);
           uint8_t* st = ring + stage * T::STAGE;
           tma_load_3d(st, &ta, &full[stage], kc * BK, mt * BM, z);
-          tma_load_3d(st + T::TILE_A, &tb, &full[stage], kc * BK, nt * BN, z);
+          tma_load_3d(st + T::TILE_A, &tb, &full[stage], kc * BK, nt * BNT, z);
+          if (GLU)  // the up rows of the same columns (1024-byte aligned)
+            tma_load_3d(st + T::TILE_A + BNT * BK, &tb2, &full[stage], kc * BK, nt * BNT, z);
           for (int j = 0; j < nbk; ++j) {
             const size_t col = (size_t)z * nb + b0 + j;
             uint8_t* ex = st + T::TILE_A + T::TILE_B + j * T::EXP_SLOT;
@@ -508,9 +650,8 @@ __global__ void __launch_bounds__(Tc<EPI, WGS, BN>::THREADS, 1) tc_gemm_kernel(
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of each tile
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const float scale = epi_scale<EPI>(ea_ptr, eb_ptr, scale_ptr, pa, pb);
-  float* my_out = out + wg * 64 * T::OUT_LD;
   const int r0 = (warp % 4) * 16 + lane / 4, c0 = (lane % 4) * 2;
-  const bool vec = N % 4 == 0, small = blk <= 256;
+  const bool small = blk <= 256;
   const int steps = K / 32;  // block mode: K is a multiple of blk, so of 32
   int stage = 0;
   uint32_t phase = 0;
@@ -604,36 +745,64 @@ __global__ void __launch_bounds__(Tc<EPI, WGS, BN>::THREADS, 1) tc_gemm_kernel(
       if (tid == 0) mbar_arrive(&empty[prev]);
     }
     // epilogue: fragment -> padded shared tile -> coalesced rows of y
-    named_sync(1 + wg, 128);  // the previous tile's readers are done
+    const int m_base = mt * BM + wg * 64;
+    float* my_out = out + wg * 64 * T::OUT_LD;
+    float v[NF];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * j + 2 * h;
-        const float2 v =
-            EPI == EPI_BLOCK ? make_float2(acc[i], acc[i + 1])
-                             : make_float2(__fmul_rn(__int2float_rn(d[i]), scale),
-                                           __fmul_rn(__int2float_rn(d[i + 1]), scale));
-        *reinterpret_cast<float2*>(my_out + (r0 + 8 * h) * T::OUT_LD + j * 8 + c0) = v;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e, c = j * 8 + c0 + e;
+          if (EPI == EPI_BLOCK) {
+            v[i] = acc[i];
+          } else if (EPI == EPI_ROWCOL) {
+            const int gm = m_base + r0 + 8 * h, gn = nt * BN + c;
+            v[i] = gm < M && gn < N
+                       ? __fmul_rn(__int2float_rn(d[i]),
+                                   pow2f(eo.se_row[(size_t)gm * eo.se_row_ld] + eo.se_col[gn]))
+                       : 0.0f;
+          } else {
+            v[i] = __fmul_rn(__int2float_rn(d[i]), scale);
+            if (EPI == EPI_ACT && eo.bias != nullptr) {
+              // the b row (ylin column) of fragment column c
+              const int q = nt * BNT + (GLU ? c % BNT : c);
+              if (q < nrows) v[i] = __fadd_rn(v[i], eo.bias[GLU && c >= BNT ? nrows + q : q]);
+            }
+          }
+        }
+    // y's columns: a GLU's are the gate half's
+    int ny = N, q0 = nt * BN;
+    if constexpr (EPI == EPI_ACT) {
+      if (eo.ylin != nullptr) {  // the pre-activation, the backward's residual
+        named_sync(1 + wg, 128);  // the previous readers of the tile are done
+        stage_tile<BN, T::OUT_LD>(my_out, v, r0, c0);
+        named_sync(1 + wg, 128);
+        store_tile<BN, T::OUT_LD>(my_out, eo.ylin, N, m_base, M, nt * BNT, nrows, nrows, GLU,
+                                  nrows % 4 == 0, nullptr, 0);
       }
-    named_sync(1 + wg, 128);
-    const int m_base = mt * BM + wg * 64, n_base = nt * BN;
-    float* yz = y + (size_t)z * M * N;
-    if (vec) {
-      for (int i = tid; i < 64 * (BN / 4); i += 128) {
-        const int row = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
-        const int gm = m_base + row, gn = n_base + c4;
-        if (gm < M && gn < N)
-          *reinterpret_cast<float4*>(yz + (size_t)gm * N + gn) =
-              *reinterpret_cast<const float4*>(my_out + row * T::OUT_LD + c4);
+#pragma unroll
+      for (int i = 0; i < NF; ++i) {
+        if (ACT == ACT_RELU) v[i] = v[i] > 0.0f ? v[i] : (v[i] != v[i] ? v[i] : 0.0f);
+        if (ACT == ACT_GELU) v[i] = repro::xla_geluf(v[i]);
       }
-    } else {
-      for (int i = tid; i < 64 * BN; i += 128) {
-        const int row = i / BN, c = i % BN;
-        const int gm = m_base + row, gn = n_base + c;
-        if (gm < M && gn < N) yz[(size_t)gm * N + gn] = my_out[row * T::OUT_LD + c];
+      if (GLU) {
+        // gate column c (j < BN / 16) pairs with up column c + BN / 2
+#pragma unroll
+        for (int i = 0; i < NF / 2; ++i)
+          v[i] = ACT == ACT_GELU_GLU ? repro::gelu_glu(v[i], v[i + NF / 2])
+                                     : repro::silu_glu(v[i], v[i + NF / 2]);
+        ny = nrows;
+        q0 = nt * BNT;
       }
     }
+    constexpr int WY = GLU ? BN / 2 : BN;
+    named_sync(1 + wg, 128);  // the previous readers of the tile are done
+    stage_tile<WY, T::OUT_LD>(my_out, v, r0, c0);
+    named_sync(1 + wg, 128);
+    store_tile<WY, T::OUT_LD>(my_out, y + (size_t)z * M * ny, ny, m_base, M, q0, ny, 0, false,
+                              ny % 4 == 0, eo.emax, eo.emax != nullptr ? eo.m_true : 0);
   }
 }
 
@@ -872,31 +1041,40 @@ bool aligned16(const void* p) {
 }
 
 // The GEMM on tiles of WGS * 64 x BN; the block mode (EPI_BLOCK) reads the
-// scale columns sa_t (B, K/blk, lda_t) and sb_t (B, K/blk, ldb_t).
-template <int EPI, int WGS = 2, int BN = 128>
+// scale columns sa_t (B, K/blk, lda_t) and sb_t (B, K/blk, ldb_t); the act
+// and row-column modes their operands in eo.  A GLU (B == 1) maps b's two
+// halves of N/2 rows each.
+template <int EPI, int WGS = 2, int BN = 128, int ACT = ACT_NONE>
 cudaError_t launch_tc(const int8_t* a, const int8_t* b, const int* ea, const int* eb,
                       const float* scale, float* y, int B, int M, int N, int K, int pa,
                       int pb, cudaStream_t stream, const int* sa_t = nullptr,
                       const int* sb_t = nullptr, int blk = 0, int lda_t = 0,
-                      int ldb_t = 0) {
+                      int ldb_t = 0, const EpiOut& eo = EpiOut{}) {
   using T = Tc<EPI, WGS, BN>;
+  constexpr bool GLU = EPI == EPI_ACT && act_glu(ACT);
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        tc_gemm_kernel<EPI, WGS, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc_gemm_kernel<EPI, WGS, BN, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         T::SMEM);
     if (e != cudaSuccess) return e;
     attr = true;
   }
-  CUtensorMap ta, tb;
+  const int nrows = GLU ? N / 2 : N, bnt = GLU ? BN / 2 : BN;
+  CUtensorMap ta, tb, tb2;
   cudaError_t e = int8_map(&ta, a, B, M, K, T::BM);
   if (e != cudaSuccess) return e;
-  e = int8_map(&tb, b, B, N, K, BN);
+  e = int8_map(&tb, b, B, nrows, K, bnt);
   if (e != cudaSuccess) return e;
-  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((N + BN - 1) / BN) * B;
+  tb2 = tb;
+  if (GLU) {
+    e = int8_map(&tb2, b + (size_t)nrows * K, B, nrows, K, bnt);
+    if (e != cudaSuccess) return e;
+  }
+  const long long tiles = (long long)((M + T::BM - 1) / T::BM) * ((nrows + bnt - 1) / bnt) * B;
   const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
-  tc_gemm_kernel<EPI, WGS, BN><<<grid, T::THREADS, T::SMEM, stream>>>(
-      ta, tb, ea, eb, scale, sa_t, sb_t, y, M, N, K, B, pa, pb, blk, lda_t, ldb_t);
+  tc_gemm_kernel<EPI, WGS, BN, ACT><<<grid, T::THREADS, T::SMEM, stream>>>(
+      ta, tb, tb2, ea, eb, scale, sa_t, sb_t, y, M, N, K, B, pa, pb, blk, lda_t, ldb_t, eo);
   return cudaGetLastError();
 }
 
@@ -941,15 +1119,41 @@ cudaError_t launch_stream_qa(const float* a, const uint32_t* ra, const int8_t* b
 }
 
 cudaError_t launch_quantize(QSeg s0, QSeg s1, int p, bool stochastic,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, int* meta = nullptr) {
   size_t blocks = (s0.n4 + s1.n4 + 255) / 256;
   const size_t cap = (size_t)sm_count() * 16;
   if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
   if (stochastic)
-    quantize_pass_kernel<true><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p);
+    quantize_pass_kernel<true><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p, meta);
   else
-    quantize_pass_kernel<false><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p);
+    quantize_pass_kernel<false><<<(unsigned)blocks, 256, 0, stream>>>(s0, s1, p, meta);
   return cudaGetLastError();
+}
+
+// gemm_epi's GEMM with its act chosen at run time.
+cudaError_t launch_epi(int act, const int8_t* a, const int8_t* b, const int* ea,
+                       const int* eb, float* y, int M, int N, int K, int p,
+                       const EpiOut& eo, cudaStream_t s) {
+  switch (act) {
+    case ACT_NONE:
+      return launch_tc<EPI_ACT, 2, 128, ACT_NONE>(a, b, ea, eb, nullptr, y, 1, M, N, K, p, p,
+                                                  s, nullptr, nullptr, 0, 0, 0, eo);
+    case ACT_RELU:
+      return launch_tc<EPI_ACT, 2, 128, ACT_RELU>(a, b, ea, eb, nullptr, y, 1, M, N, K, p, p,
+                                                  s, nullptr, nullptr, 0, 0, 0, eo);
+    case ACT_GELU:
+      return launch_tc<EPI_ACT, 2, 128, ACT_GELU>(a, b, ea, eb, nullptr, y, 1, M, N, K, p, p,
+                                                  s, nullptr, nullptr, 0, 0, 0, eo);
+    case ACT_SILU_GLU:
+      return launch_tc<EPI_ACT, 2, 128, ACT_SILU_GLU>(a, b, ea, eb, nullptr, y, 1, M, N, K, p,
+                                                      p, s, nullptr, nullptr, 0, 0, 0, eo);
+    case ACT_GELU_GLU:
+      return launch_tc<EPI_ACT, 2, 128, ACT_GELU_GLU>(a, b, ea, eb, nullptr, y, 1, M, N, K, p,
+                                                      p, s, nullptr, nullptr, 0, 0, 0, eo);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_quantize_blk(const QBlkSeg& s0, const QBlkSeg& s1, int K, int blk,
@@ -1110,6 +1314,85 @@ int repro_qq_blk_sm90(const void* a, const void* ra, const void* ea, const void*
                                             N, K, p, p, s, sat, sbt, blk, lda_t, ldb_t);
   return (int)launch_tc<EPI_BLOCK, 2, 128>(ami, bmi, nullptr, nullptr, nullptr, yf, B, M,
                                            N, K, p, p, s, sat, sbt, blk, lda_t, ldb_t);
+}
+
+// gemm_epi: kind 0 qq (a (M,K), b (N,K) f32 [+ ra, rb], both quantized by
+// one pass), 1 qi (a f32 [+ ra], b int8 mantissas), 2 ii (both int8);
+// bias (N) f32 or null; act 0 none, 1 relu, 2 gelu, 3 silu_glu, 4 gelu_glu
+// (N even) -> ylin (M,N) f32 (null when act == 0), am (M,K) / bm (N,K)
+// int8 (qq; am also qi) and either y (M, n_out) f32 or, with out_q, ym
+// (M, n_out) int8 against one exponent (the largest over rows below
+// m_true; rq (M, n_out) bits or null for half up) and meta (128) int32,
+// through the f32 scratch ys (M, n_out) and the int32 word ew.
+int repro_gemm_epi_sm90(const void* a, const void* ra, const void* b, const void* rb,
+                        const void* bias, const void* rq, const void* ea, const void* eb,
+                        void* y, void* ylin, void* am, void* bm, void* ys, void* ew,
+                        void* meta, int M, int N, int K, int p, int qp, int m_true,
+                        int kind, int act, int out_q, int stochastic, void* stream) {
+  if (K <= 0 || K % 16 != 0 || kind < 0 || kind > 2 || act < 0 || act > 4 ||
+      (act_glu(act) && N % 2 != 0) || !aligned16(a) || !aligned16(ra) || !aligned16(b) ||
+      !aligned16(rb) || !aligned16(rq) || !aligned16(y) || !aligned16(ylin) ||
+      !aligned16(am) || !aligned16(bm) || !aligned16(ys))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool sr = stochastic != 0;
+  const int* eap = static_cast<const int*>(ea);
+  const int* ebp = static_cast<const int*>(eb);
+  int8_t* ami = static_cast<int8_t*>(am);
+  int8_t* bmi = static_cast<int8_t*>(bm);
+  const QSeg none{nullptr, nullptr, nullptr, nullptr, 0};
+  cudaError_t e = cudaSuccess;
+  if (kind == 0) {
+    const QSeg sa{static_cast<const float*>(a), static_cast<const uint32_t*>(ra), eap, ami,
+                  (size_t)M * K / 4};
+    const QSeg sb{static_cast<const float*>(b), static_cast<const uint32_t*>(rb), ebp, bmi,
+                  (size_t)N * K / 4};
+    e = launch_quantize(sa, sb, p, sr, s);
+  } else if (kind == 1) {
+    const QSeg sa{static_cast<const float*>(a), static_cast<const uint32_t*>(ra), eap, ami,
+                  (size_t)M * K / 4};
+    e = launch_quantize(sa, none, p, sr, s);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int n_out = act_glu(act) ? N / 2 : N;
+  int* ewi = static_cast<int*>(ew);
+  EpiOut eo;
+  eo.bias = static_cast<const float*>(bias);
+  eo.ylin = static_cast<float*>(ylin);
+  if (out_q) {
+    e = cudaMemsetAsync(ewi, 0, sizeof(int), s);
+    if (e != cudaSuccess) return (int)e;
+    eo.emax = ewi;
+    eo.m_true = m_true;
+  }
+  const int8_t* ag = kind == 2 ? static_cast<const int8_t*>(a) : ami;
+  const int8_t* bg = kind == 0 ? bmi : static_cast<const int8_t*>(b);
+  float* yo = static_cast<float*>(out_q ? ys : y);
+  e = launch_epi(act, ag, bg, eap, ebp, yo, M, N, K, p, eo, s);
+  if (e != cudaSuccess || !out_q) return (int)e;
+  const size_t total = (size_t)M * n_out;
+  QSeg sy{yo, static_cast<const uint32_t*>(rq), ewi, static_cast<int8_t*>(y), total / 4};
+  sy.tail = (int)(total % 4);
+  return (int)launch_quantize(sy, none, qp, sr, s, static_cast<int*>(meta));
+}
+
+// norm_gemm's GEMM: xq (M,K) int8 (norm_rows' output) against w (N,K) int8
+// -> y (M,N) f32 = float(acc) * 2^(meta[128 i] + se_w[j]).
+int repro_rowcol_gemm_sm90(const void* xq, const void* w, const void* meta, const void* se_w,
+                           void* y, int M, int N, int K, void* stream) {
+  if (K <= 0 || K % 16 != 0 || !aligned16(xq) || !aligned16(w) || !aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  EpiOut eo;
+  eo.se_row = static_cast<const int*>(meta);
+  eo.se_row_ld = 128;
+  eo.se_col = static_cast<const int*>(se_w);
+  return (int)launch_tc<EPI_ROWCOL>(static_cast<const int8_t*>(xq),
+                                    static_cast<const int8_t*>(w), nullptr, nullptr, nullptr,
+                                    static_cast<float*>(y), 1, M, N, K, 0, 0,
+                                    static_cast<cudaStream_t>(stream), nullptr, nullptr, 0, 0,
+                                    0, eo);
 }
 
 }  // extern "C"

@@ -21,12 +21,16 @@ every integer contraction and ``models.attention`` asks
 The cross-op chains plan too: :func:`plan_norm_gemm` (``norm_gemm``),
 :func:`plan_epilogue` (``gemm_epi``) and :func:`plan_decode_block`
 (``decode_block``), run by :func:`run_norm_gemm`, :func:`contract_epi` and
-:func:`run_decode_block`.  The reference engages them only where a whole
-operand fits the TPU's VMEM budget; here they follow the CUDA kernels' own
-limits (shared memory, the decode kernel's batch and widths), and each
-``reason`` names the limit that applied.  JNP for a chain means the caller
-keeps the per-op seam.  Epilogue variants with no kernel (kinds other than
-qq, the out-quantize) plan jnp on the CPU and raise on the card.
+:func:`run_decode_block`.  By default they follow the CUDA kernels' own
+limits (the int32 accumulator, shared memory, the decode kernel's batch
+and widths), and each ``reason`` names the limit that applied.  The
+reference engages them only where a whole operand fits the TPU's VMEM
+budget (12 MiB), so at full width it keeps the seams the port's kernels
+replace: ``vmem_budget`` (or :func:`chain_vmem_budget` around a whole
+model call) applies the reference's residency predicates as well, and
+then a plan answers as the reference's does.  JNP for a chain means the
+caller keeps the per-op seam; ``norm_gemm`` and ``decode_block`` define
+their own norm numerics, so there the seam computes something else.
 
 Contraction kinds: ``qq`` (both operands quantized in the kernel), ``qi``
 (a fresh, b pre-quantized), ``iq`` (a pre-quantized, b fresh: the ``qi``
@@ -76,7 +80,8 @@ __all__ = ["FUSED", "UNFUSED", "JNP", "Decision", "plan_contract",
            "contract_ii", "attn_decode", "attn_fwd", "attn_bwd",
            "plan_norm_gemm", "run_norm_gemm", "plan_epilogue", "contract_epi",
            "plan_decode_block", "run_decode_block", "kernel_launches",
-           "reset_kernel_launches"]
+           "reset_kernel_launches", "REFERENCE_VMEM_BUDGET",
+           "chain_vmem_budget"]
 
 FUSED = "fused"
 UNFUSED = "unfused"
@@ -101,6 +106,7 @@ class Decision:
 
 _decision_log: Optional[List[Decision]] = None
 _plain_on_card = False
+_chain_budget: Optional[int] = None
 
 
 @contextlib.contextmanager
@@ -128,11 +134,29 @@ def plain_kernels():
         _plain_on_card = prev
 
 
+@contextlib.contextmanager
+def chain_vmem_budget(budget: Optional[int] = None):
+    """Plan the chains under the reference's residency predicates with
+    ``budget`` bytes (default the reference's 12 MiB) while the context is
+    open, wherever a plan is not given its own ``vmem_budget``: a model
+    call then takes the seams the reference takes."""
+    global _chain_budget
+    prev = _chain_budget
+    _chain_budget = REFERENCE_VMEM_BUDGET if budget is None else budget
+    try:
+        yield
+    finally:
+        _chain_budget = prev
+
+
 _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "ii": kfl.fused_ii_pt, "qq_blk": kfl.fused_qq_blk,
              "attn_decode": kfa.attn_decode,
              "attn_fwd": kfa.attn_fwd, "attn_bwd": kfa.attn_bwd,
              "gemm_epi": kfl.fused_gemm_epi, "norm_gemm": kfc.fused_norm_gemm,
+             **{f"gemm_epi_{v}": c for v, c in kfl.gemm_epi_variants.items()},
+             **{f"norm_gemm_{v}": c
+                for v, c in kfc.norm_gemm_variants.items()},
              "decode_block": kfc.fused_decode_block,
              "bfp_quantize": kbq.bfp_quantize,
              "int8_matmul": kim.int8_matmul,
@@ -148,8 +172,10 @@ def kernel_launches() -> dict:
     """Launch counts of the kernel wrappers, and of the ``qq`` / ``qi`` /
     ``ii`` variants (``qq_wgmma``, ``qq_stream``, ``qq_dp4a``, ``qi_...``,
     ``ii_...``), the ``qq_blk`` ones (``qq_blk_wgmma``,
-    ``qq_blk_wgmma64``, ``qq_blk_dp4a``) and the ``int8_matmul`` ones
-    (``int8_matmul_wgmma``, ``_stream``, ``_wmma``)."""
+    ``qq_blk_wgmma64``, ``qq_blk_dp4a``), the ``int8_matmul`` ones
+    (``int8_matmul_wgmma``, ``_stream``, ``_wmma``) and those of
+    ``gemm_epi`` and ``norm_gemm`` (``gemm_epi_wgmma``, ``_dp4a``,
+    ``norm_gemm_wgmma``, ``_dp4a``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
@@ -489,12 +515,82 @@ def _jnp_block_matmul(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
 # cross-op chains
 # ---------------------------------------------------------------------------
 
+# The reference's residency budget of one chain instance (12 MiB of a
+# TPU's VMEM), its last-dim tile, and its row-strip candidates
+# (``repro.kernels.dispatch.DEFAULT_VMEM_BUDGET``, ``_LANE``,
+# ``repro.kernels.autotune.BM_CANDIDATES``).
+REFERENCE_VMEM_BUDGET = 12 * 1024 * 1024
+_LANE = 128
+_BM_CANDIDATES = (32, 64, 128, 256, 512)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _vmem_bytes(kind: str, bm: int, k: int, n: int) -> int:
+    """The reference's residency estimate of one per-tensor fused GEMM
+    instance of kind qq, qi or ii (``repro.kernels.dispatch._vmem_bytes``):
+    a double-buffered row strip and the resident b side."""
+    y = 4 * bm * n
+    a_strip = (1 if kind == "ii" else 4 + 4 + 1) * bm * k + y
+    b_res = (4 + 4 + 1 if kind == "qq" else 1) * n * k
+    return 2 * a_strip + b_res
+
+
+def _norm_gemm_vmem_bytes(bm: int, kp: int, n: int, stochastic: bool,
+                          emit_residuals: bool) -> int:
+    """The reference's ``_norm_gemm_vmem_bytes``: the f32 x strip and its
+    two bit strips (double-buffered), the resident weight and its column
+    exponents, the output and residual strips."""
+    r8 = 4 if stochastic else 0
+    strip = (4 + 2 * r8) * bm * kp + 4 * bm * n
+    if emit_residuals:
+        strip += 2 * bm * kp + 4 * bm * _LANE
+    resident = 1 * n * kp + 4 * n + 2 * 4 * kp
+    return 2 * strip + resident
+
+
+def _epi_vmem_bytes(kind: str, bm: int, kp: int, np_: int, n_out: int,
+                    stochastic: bool, bias: bool, act: bool,
+                    out_q: bool) -> int:
+    """The reference's ``_epi_vmem_bytes``: the base GEMM kind's footprint
+    plus the bias row, the out-quantize's bit strip and the pre-activation
+    strip."""
+    r8 = 4 if stochastic else 0
+    extra = (4 * np_ if bias else 0)
+    if out_q:
+        extra += 2 * r8 * bm * n_out
+    if act:
+        extra += 2 * 4 * bm * np_
+    return _vmem_bytes(kind, bm, kp, np_) + extra
+
+
+def _decode_block_vmem_bytes(b: int, d: int, n_ff: int, t: int, hq: int,
+                             hkv: int, dh: int) -> int:
+    """The reference's ``_decode_block_vmem_bytes``: every weight mantissa,
+    the cache band and the f32 working tiles of one whole-layer instance."""
+    w_i8 = d * (hq + 2 * hkv) * dh + hq * dh * d + 2 * d * n_ff + n_ff * d
+    w_exp = 4 * ((hq + 2 * hkv) * dh + d + 2 * n_ff + d + 2 * d)
+    cache = b * hkv * t * (2 * 1 * dh + 2 * 4)
+    widest = max((hq + 2 * hkv) * dh, 2 * n_ff, d)
+    work = 6 * 4 * b * widest + 4 * b * hq * t
+    return w_i8 + w_exp + cache + work
+
+
+def _budget(vmem_budget: Optional[int]) -> Optional[int]:
+    return vmem_budget if vmem_budget is not None else _chain_budget
+
+
 def plan_norm_gemm(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
-                   kernel_mode: str = "auto", device: str = "cpu") -> Decision:
+                   kernel_mode: str = "auto", device: str = "cpu",
+                   vmem_budget: Optional[int] = None) -> Decision:
     """Choose the path for one norm -> quantize -> GEMM chain (``m`` rows
     of width ``k`` projected to ``n``).  FUSED runs ``fused_norm_gemm``;
     JNP keeps the per-op seam (qnorm, then qmatmul), whose numerics differ:
-    the chain has its own per-row norm."""
+    the chain has its own per-row norm.  ``vmem_budget``: also the
+    reference's residency predicate (some row strip of the weight-resident
+    kernel fits the budget)."""
 
     def decide(path, reason):
         return _record(Decision(op, path, reason, m, k, n, "norm_gemm",
@@ -509,12 +605,21 @@ def plan_norm_gemm(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
         return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
     if kernel_mode == "auto" and device != "cuda":
         return decide(JNP, f"auto keeps the per-op seam on device={device}")
+    budget = _budget(vmem_budget)
+    if budget is not None and not any(
+            _norm_gemm_vmem_bytes(bm, _round_up(k, _LANE), _round_up(n, _LANE),
+                                  cfg.stochastic, True) <= budget
+            for bm in _BM_CANDIDATES):
+        return decide(JNP, f"no bm candidate fits vmem_budget={budget}")
+    if k * 127 * 127 >= (1 << 31):
+        return decide(JNP, f"K={k} overflows the int32 accumulator")
+    variant = kfc.norm_gemm_variant(m, k)
     need = kfc.norm_gemm_smem_bytes(16, k)
-    if need > kfa.SMEM_LIMIT:
-        return decide(JNP, f"K={k}: a strip of 16 rows needs {need} B of "
-                           f"shared memory > {kfa.SMEM_LIMIT}")
-    return decide(FUSED, f"norm_gemm kernel: a strip of rows of K={k} fits "
-                         "its shared memory")
+    if variant == "dp4a" and need > kfa.SMEM_LIMIT:
+        return decide(JNP, f"K={k}: the __dp4a kernel's strip of 16 rows "
+                           f"needs {need} B of shared memory > "
+                           f"{kfa.SMEM_LIMIT}")
+    return decide(FUSED, f"norm_gemm kernel ({variant})")
 
 
 def run_norm_gemm(x, rand_in, rand_out, gm, se_g, beta_m, se_b, w_m, se_w,
@@ -539,18 +644,22 @@ def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
                   kind: str = "qq", cfg2: Optional[QuantConfig] = None,
                   act: Optional[str] = None, bias: bool = False,
                   out_q: bool = False, kernel_mode: str = "auto",
-                  accum_chunk: int = 65536,
-                  device: str = "cpu") -> Decision:
-    """Choose the path for one GEMM + bias / activation epilogue.  JNP
-    keeps the per-op composition, which the chain equals bit for bit, so
-    this plan moves cost only.  A variant with no kernel raises on the
-    card and plans JNP elsewhere."""
+                  accum_chunk: int = 65536, device: str = "cpu",
+                  vmem_budget: Optional[int] = None) -> Decision:
+    """Choose the path for one GEMM + bias / activation (+ out-quantize)
+    epilogue of kind qq, qi, ii or pp.  JNP keeps the per-op composition,
+    which the chain equals bit for bit, so this plan moves cost only.
+    ``vmem_budget``: also the reference's predicates (GLU halves on whole
+    256-column tiles, some row strip of its b-resident kernel fits the
+    budget)."""
 
     def decide(path, reason):
         return _record(Decision(op, path, reason, m, k, n, f"{kind}_epi",
                                 device))
 
     _check_mode(kernel_mode)
+    if kind not in ("qq", "qi", "ii", "pp"):
+        raise ValueError(f"unknown epilogue kind {kind!r}")
     if kernel_mode == "jnp":
         return decide(JNP, "kernel_mode=jnp")
     if kernel_mode == "unfused":
@@ -569,45 +678,83 @@ def plan_epilogue(op: str, m: int, k: int, n: int, cfg: QuantConfig, *,
                            "(flush emulation stays on the plain path)")
     if k * 127 * 127 >= (1 << 31):
         return decide(JNP, f"K={k} overflows the int32 accumulator")
-    if (act or "").endswith("_glu") and n % 2:
+    glu = (act or "").endswith("_glu")
+    if glu and n % 2:
         return decide(JNP, f"a GLU needs an even N, got {n}")
-    if kind != "qq" or out_q:
-        why = (f"gemm_epi has a kernel for kind qq with no out-quantize, "
-               f"not kind={kind} out_q={out_q} (ROADMAP queue 2 item 1)")
-        _no_kernel(op, why, device)
-        return decide(JNP, why)
-    return decide(FUSED, f"gemm_epi kernel (act={act}, bias={bias})")
+    budget = _budget(vmem_budget)
+    if budget is not None:
+        if glu and n % (2 * _LANE):
+            return decide(JNP, "glu halves must be lane-aligned")
+        kp, np_ = _round_up(k, _LANE), _round_up(n, _LANE)
+        base = {"qq": "qq", "qi": "qi"}.get(kind, "ii")
+        if not any(_epi_vmem_bytes(base, bm, kp, np_, n // 2 if glu else np_,
+                                   cfg.stochastic, bias, act is not None,
+                                   out_q) <= budget
+                   for bm in _BM_CANDIDATES):
+            return decide(JNP, f"no bm candidate fits vmem_budget={budget}")
+    extra = "" if kind == "qq" and not out_q else f", {kind}, out_q={out_q}"
+    return decide(FUSED, f"gemm_epi kernel (act={act}, bias={bias}{extra})")
 
 
-def contract_epi(a: torch.Tensor, b: torch.Tensor, dec: Decision, *,
-                 cfg: QuantConfig, ka: prng.Key, kb: prng.Key,
+def contract_epi(a, b, dec: Decision, *, cfg: Optional[QuantConfig] = None,
+                 ka: Optional[prng.Key] = None, kb: Optional[prng.Key] = None,
                  bias: Optional[torch.Tensor] = None,
-                 act: Optional[str] = None):
-    """Run a FUSED ``qq_epi`` plan: a (M, K), b (N, K) f32 quantized in the
-    kernel under ``cfg`` with keys ``ka``/``kb``, bias (1, N) or None ->
-    (y (M, N or N/2), aq, bq, ylin (M, N) or None): the residuals of the
-    backward, as the reference's ``contract_epi``."""
-    assert dec.path == FUSED and dec.kind == "qq_epi"
-    sr = cfg.stochastic
-    ra = rounding_bits(ka, a.shape, cfg.rng, a.device) if sr else None
-    rb = rounding_bits(kb, b.shape, cfg.rng, b.device) if sr else None
-    ea = ref.max_biased_exp_ref(a)
-    eb = ref.max_biased_exp_ref(b)
+                 act: Optional[str] = None,
+                 qcfg: Optional[QuantConfig] = None,
+                 kq: Optional[prng.Key] = None):
+    """Run a FUSED epilogue plan, operands by ``dec.kind`` (the reference's
+    ``contract_epi``): ``qq_epi`` a (M, K), b (N, K) f32 quantized in the
+    kernel under ``cfg`` with keys ``ka`` / ``kb``; ``qi_epi`` a f32 and b
+    a :class:`BFP`; ``ii_epi`` / ``pp_epi`` both :class:`BFP`.  bias (1, N)
+    or None; ``qcfg`` / ``kq`` (per tensor) switch on the out-quantize.
+    Returns (out, aq, bq, ylin): out f32 (M, N or N/2), or a :class:`BFP`
+    with ``qcfg``; aq / bq the operands quantized here (else None); ylin
+    the pre-activation (None without an act)."""
+    assert dec.path == FUSED
+    kind = dec.kind.split("_")[0]
+    out_q = qcfg is not None
+    if kind in ("ii", "pp"):
+        a_arr, ea, p = a.m, a.e.to(torch.int32), a.cfg.p
+    else:
+        a_arr, ea, p = a.contiguous(), ref.max_biased_exp_ref(a), cfg.p
+    if kind == "qq":
+        b_arr, eb = b.contiguous(), ref.max_biased_exp_ref(b)
+    else:
+        b_arr, eb = b.m, b.e.to(torch.int32)
+        assert b.cfg.p == p, "the kernel takes one mantissa width"
+    # one stochastic flag drives the in-op and the out-op quantize
+    if cfg is not None and out_q:
+        assert qcfg.stochastic == cfg.stochastic, (cfg, qcfg)
+    sr = cfg.stochastic if cfg is not None else (out_q and qcfg.stochastic)
+    m, n = a_arr.shape[-2], b_arr.shape[-2]
+    n_out = n // 2 if (act or "").endswith("_glu") else n
+    ra = (rounding_bits(ka, a_arr.shape, cfg.rng, a_arr.device)
+          if kind in ("qq", "qi") and sr else None)
+    rb = (rounding_bits(kb, b_arr.shape, cfg.rng, b_arr.device)
+          if kind == "qq" and sr else None)
+    rq = (rounding_bits(kq, (m, n_out), qcfg.rng, a_arr.device)
+          if out_q and qcfg.stochastic else None)
     run = kfl.fused_gemm_epi_plain if _plain_on_card else kfl.fused_gemm_epi
-    outs = run(a.contiguous(), ra, b.contiguous(), rb,
-               None if bias is None else bias.contiguous(), None, ea, eb,
-               kind="qq", p=cfg.p, stochastic=sr, act=act)
-    y, am, bm = outs[:3]
-    ylin = outs[3] if act is not None else None
-    return y, BFP(am, ea, cfg), BFP(bm, eb, cfg), ylin
+    outs = iter(run(a_arr.contiguous(), ra, b_arr.contiguous(), rb,
+                    None if bias is None else bias.contiguous(), rq, ea, eb,
+                    kind="ii" if kind == "pp" else kind, p=p, stochastic=sr,
+                    act=act, out_q=out_q, qp=qcfg.p if out_q else 7))
+    y = next(outs)
+    out = BFP(y, next(outs)[0, 0], qcfg) if out_q else y
+    aq = BFP(next(outs), ea, cfg) if kind in ("qq", "qi") else None
+    bq = BFP(next(outs), eb, cfg) if kind == "qq" else None
+    ylin = next(outs) if act is not None else None
+    return out, aq, bq, ylin
 
 
 def plan_decode_block(op: str, b: int, d: int, n_ff: int, t: int, hq: int,
                       hkv: int, dh: int, cfg: QuantConfig, *,
-                      kernel_mode: str = "auto",
-                      device: str = "cpu") -> Decision:
+                      kernel_mode: str = "auto", device: str = "cpu",
+                      vmem_budget: Optional[int] = None) -> Decision:
     """Choose the path for one whole-layer decode block; JNP keeps the
-    per-op decode path (whose norm numerics differ)."""
+    per-op decode path (whose norm numerics differ).  ``vmem_budget``:
+    also the reference's residency predicate (the whole layer, its weights
+    and cache band resident in the budget)."""
 
     def decide(path, reason):
         return _record(Decision(op, path, reason, b, d, n_ff,
@@ -622,6 +769,10 @@ def plan_decode_block(op: str, b: int, d: int, n_ff: int, t: int, hq: int,
         return decide(JNP, f"bits={cfg.bits} (kernels are int8-only)")
     if kernel_mode == "auto" and device != "cuda":
         return decide(JNP, f"auto keeps the per-op path on device={device}")
+    budget = _budget(vmem_budget)
+    if budget is not None and _decode_block_vmem_bytes(
+            b, d, n_ff, t, hq, hkv, dh) > budget:
+        return decide(JNP, f"no residency fits vmem_budget={budget}")
     why = kfc.decode_block_unsupported(b, d, n_ff, hq, hkv, dh, t)
     if why:
         return decide(JNP, f"decode_block kernel: {why}")
@@ -629,13 +780,24 @@ def plan_decode_block(op: str, b: int, d: int, n_ff: int, t: int, hq: int,
                          "and cache fit its limits")
 
 
+def _aligned_to(t: torch.Tensor, align: int) -> torch.Tensor:
+    """``t``, or a copy of it (the same values) where its address is off
+    ``align`` bytes."""
+    return t if t.data_ptr() % align == 0 else t.clone()
+
+
 def run_decode_block(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m, se_d,
                      g1m, g2m, km, ke, vm, ve, cossin, pos: int,
                      dec: Decision, **kw):
     """Run a FUSED decode block (arguments of ``fused_decode_block``):
     (x_out, k_new, ek_new, v_new, ev_new), the fresh rows for the caller
-    to append."""
+    to append.  An activation, cache or rope operand off the alignment the
+    kernel's loads need is copied first."""
     assert dec.path == FUSED
+    x = x.contiguous()
+    if x.is_cuda and not _plain_on_card:
+        x, vm, cossin = (_aligned_to(t, 16) for t in (x, vm, cossin))
+        km, ke, ve = (_aligned_to(t, 4) for t in (km, ke, ve))
     run = kfc.decode_block_plain if _plain_on_card else kfc.fused_decode_block
-    return run(x.contiguous(), wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
+    return run(x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m,
                se_d, g1m, g2m, km, ke, vm, ve, cossin, pos, **kw)

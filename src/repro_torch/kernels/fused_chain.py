@@ -19,8 +19,14 @@ Ports of two TPU kernels of ``repro.kernels.fused_chain``:
                          with SiLU-GLU -> down GEMV + residual.  Every
                          rounding is deterministic (serving).
 
-The CUDA source is ``csrc/fused_chain.cu``; its note says what bounds each
-kernel and how it is laid out on the card.  Each wrapper runs its kernel
+The CUDA sources are ``csrc/fused_chain.cu`` and, for norm_gemm's GEMM,
+``csrc/qgemm_sm90.cu``; their notes say what bounds each kernel and how it
+is laid out on the card.  ``fused_norm_gemm`` takes one of two variants by
+``norm_gemm_variant``: ``wgmma`` (a norm pass that writes each row's xq,
+c and meta once, then the tensor-core GEMM of ``qgemm_sm90.cu``; every
+main-path shape) or ``dp4a`` (the one-launch ``__dp4a`` kernel, for a K
+that is not a multiple of 16 or an unaligned weight), each with its launch
+counter.  Each wrapper runs its kernel
 for CUDA tensors and its plain version (below, the reference's block cores
 restated in torch) for CPU tensors.  Integer steps run in int32 with the
 reference's wrap-around; float steps round as XLA's CPU build rounds them
@@ -39,14 +45,16 @@ from ..core import fmath
 from ..core.bfp import bit_length
 from . import build
 from . import fused_attention as kfa
-from .fused_linear import (_check, _ptr, _raise_on, _scalar_i32, as_u32,
-                           eff_exp, int8_dot, pow2_f32, quantize_tile,
-                           scale_exp)
+from .fused_linear import (_Launches, _aligned, _check, _lib_sm90, _ptr,
+                           _raise_on, _scalar_i32, as_u32, eff_exp, int8_dot,
+                           pow2_f32, quantize_tile, scale_exp)
 
 __all__ = ["div_n_consts", "eps_consts", "norm_gemm_plain",
            "fused_norm_gemm", "decode_block_plain", "fused_decode_block",
-           "norm_gemm_smem_bytes", "decode_block_smem_bytes",
-           "decode_block_stages", "decode_block_unsupported",
+           "norm_gemm_smem_bytes", "norm_pass_smem_bytes",
+           "NORM_GEMM_VARIANTS", "norm_gemm_variant", "norm_gemm_variants",
+           "decode_block_smem_bytes", "decode_block_stages",
+           "decode_block_unsupported", "decode_block_misaligned",
            "DECODE_BLOCK_MAX_B", "DECODE_BLOCK_MAX_T", "DECODE_BLOCK_STAMPS"]
 
 _META_LANES = 128
@@ -222,10 +230,40 @@ def norm_gemm_plain(x, rand_in, rand_out, gm, se_g, beta_m, se_b, w_m, se_w,
 
 
 def norm_gemm_smem_bytes(bm: int, k: int) -> int:
-    """Shared memory of one norm_gemm block of ``bm`` rows: the strip's
-    packed xq words (whole 32-wide slices, an odd stride), one int16 row
-    of c per warp, the per-row scales, and the 64 x 9-word weight tile."""
+    """Shared memory of one block of the ``__dp4a`` norm_gemm kernel of
+    ``bm`` rows: the strip's packed xq words (whole 32-wide slices, an odd
+    stride), one int16 row of c per warp, the per-row scales, and the 64 x
+    9-word weight tile."""
     return 4 * bm * (-(-k // 32) * 8 + 1) + 2 * 8 * k + 4 * bm + 4 * 64 * 9
+
+
+def norm_pass_smem_bytes(k: int) -> int:
+    """Shared memory of one block of the norm pass (``wgmma`` variant): the
+    row's int16 scratch and 8 words of reductions."""
+    return 2 * k + 4 * 8
+
+
+# The variants of norm_gemm, in the order of their launches' routes: the
+# norm pass then ``qgemm_sm90.cu``'s GEMM, or the one ``__dp4a`` kernel.
+NORM_GEMM_VARIANTS = ("wgmma", "dp4a")
+
+
+def norm_gemm_variant(m: int, k: int, aligned: bool = True) -> str:
+    """The variant of norm_gemm for (M, K) rows against an (N, K) weight,
+    from the shapes alone: the norm pass and the tensor-core GEMM where TMA
+    can read the weight (K % 16 == 0, ``aligned``: a 16-byte aligned
+    weight) and the pass's row fits shared memory; else the ``__dp4a``
+    kernel (which has its own limit, ``norm_gemm_smem_bytes``)."""
+    del m   # every M: the GEMM's 128-row tiles mask the rows past M
+    if (k <= 0 or k % 16 or not aligned
+            or norm_pass_smem_bytes(k) > kfa.SMEM_LIMIT):
+        return "dp4a"
+    return "wgmma"
+
+
+# Launches of each norm_gemm variant (the wgmma one is two launches, the
+# norm pass and the GEMM, counted once).
+norm_gemm_variants = {v: _Launches() for v in NORM_GEMM_VARIANTS}
 
 
 def _lib() -> ctypes.CDLL:
@@ -234,6 +272,8 @@ def _lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_norm_gemm.argtypes = [vp] * 13 + [i] * 11 + [vp]
         lib.repro_norm_gemm.restype = i
+        lib.repro_norm_rows.argtypes = [vp] * 10 + [i] * 9 + [vp]
+        lib.repro_norm_rows.restype = i
         lib.repro_decode_block.argtypes = [vp] * 27 + [i] * 20 + [vp]
         lib.repro_decode_block.restype = i
         lib._typed = True
@@ -247,9 +287,10 @@ def fused_norm_gemm(x: torch.Tensor, rand_in: Optional[torch.Tensor],
                     p: int = 7, eps_m: int = 1, eps_e: int = -32,
                     center: bool = False):
     """The fused norm -> GEMM (arguments and results of
-    ``norm_gemm_plain``): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  The kernel takes x at its true width (K ==
-    ``n``) and se_g / se_b as int32 device scalars."""
+    ``norm_gemm_plain``): the CUDA kernels for CUDA tensors, on the variant
+    ``norm_gemm_variant`` names, the plain version for CPU tensors.  The
+    kernels take x at its true width (K == ``n``) and se_g / se_b as int32
+    device scalars."""
     if not x.is_cuda:
         return norm_gemm_plain(x, rand_in, rand_out, gm, se_g, beta_m, se_b,
                                w_m, se_w, n=n, p=p, eps_m=eps_m, eps_e=eps_e,
@@ -260,9 +301,10 @@ def fused_norm_gemm(x: torch.Tensor, rand_in: Optional[torch.Tensor],
     if k != n:
         raise ValueError(f"norm_gemm kernel takes x at its true width, got "
                          f"K={k} for n={n}")
+    variant = norm_gemm_variant(m, k, _aligned(w_m))
     bm = next((b for b in (64, 32, 16)
                if norm_gemm_smem_bytes(b, k) <= kfa.SMEM_LIMIT), 0)
-    if not bm:
+    if variant == "dp4a" and not bm:
         raise ValueError(f"norm_gemm kernel: K={k} needs more shared memory "
                          f"than {kfa.SMEM_LIMIT} B")
     stochastic = rand_out is not None
@@ -283,15 +325,26 @@ def fused_norm_gemm(x: torch.Tensor, rand_in: Optional[torch.Tensor],
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     meta = torch.empty((m, _META_LANES), dtype=torch.int32, device=dev)
     c = torch.empty((m, k), dtype=torch.int8, device=dev)
-    err = _lib().repro_norm_gemm(
-        _ptr(x), _ptr(rand_in if stochastic else None),
-        _ptr(rand_out if stochastic else None), _ptr(gm), _ptr(se_g),
-        _ptr(beta_m), _ptr(se_b if beta_m is not None else None), _ptr(w_m),
-        _ptr(se_w), _ptr(y), _ptr(xq), _ptr(meta), _ptr(c), m, nn, k, p,
-        eps_m, eps_e, int(center), j, inv_q, bm, int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "norm_gemm")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    norm_args = (_ptr(x), _ptr(rand_in if stochastic else None),
+                 _ptr(rand_out if stochastic else None), _ptr(gm), _ptr(se_g),
+                 _ptr(beta_m), _ptr(se_b if beta_m is not None else None))
+    if variant == "dp4a":
+        err = _lib().repro_norm_gemm(
+            *norm_args, _ptr(w_m), _ptr(se_w), _ptr(y), _ptr(xq), _ptr(meta),
+            _ptr(c), m, nn, k, p, eps_m, eps_e, int(center), j, inv_q, bm,
+            int(stochastic), stream)
+    else:
+        err = _lib().repro_norm_rows(
+            *norm_args, _ptr(xq), _ptr(meta), _ptr(c), m, k, p, eps_m, eps_e,
+            int(center), j, inv_q, int(stochastic), stream)
+        _raise_on(err, "norm_gemm (norm pass)")
+        err = _lib_sm90().repro_rowcol_gemm_sm90(
+            _ptr(xq), _ptr(w_m), _ptr(meta), _ptr(se_w), _ptr(y), m, nn, k,
+            stream)
+    _raise_on(err, f"norm_gemm ({variant})")
     fused_norm_gemm.launches += 1
+    norm_gemm_variants[variant].launches += 1
     return y, xq, meta, c
 
 
@@ -495,7 +548,7 @@ def _launch_decode_block(args, pos: int, *, n_d, n_ff, hq, hkv, dh, p,
                          stamps: Optional[torch.Tensor] = None):
     """The kernel launch of ``fused_decode_block``; ``stamps``, an int64
     (SMs, ``DECODE_BLOCK_STAMPS``) tensor or None, gets each block's clock
-    at the stage boundaries (``tools/torch_decode_block_probe.py``)."""
+    at the stage boundaries (``tools/torch_kernel_probe.py``)."""
     (x, wqkv_m, se_qkv, wo_m, se_o, wgu_m, se_gu, wd_m, se_d, g1m, g2m, km,
      ke, vm, ve, cossin) = args
     b, d = x.shape
@@ -524,11 +577,13 @@ def _launch_decode_block(args, pos: int, *, n_d, n_ff, hq, hkv, dh, p,
             ("ve", ve, torch.int32, (b, hkv, t, 1)),
             ("cossin", cossin, torch.float32, (1, 2 * dh))):
         _check(name, a, dt, shape, dev)
-    for name, w in (("wqkv_m", wqkv_m), ("wo_m", wo_m), ("wgu_m", wgu_m),
-                    ("wd_m", wd_m)):
-        if w.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel copies 16-byte aligned "
-                             "weight rows")
+    why = decode_block_misaligned(
+        {name: a.data_ptr() for name, a in (
+            ("x", x), ("wqkv_m", wqkv_m), ("wo_m", wo_m), ("wgu_m", wgu_m),
+            ("wd_m", wd_m), ("km", km), ("ke", ke), ("vm", vm), ("ve", ve),
+            ("cossin", cossin))}, dh)
+    if why:
+        raise ValueError(f"decode_block kernel: {why}")
     rows = b * hkv
     f32 = dict(dtype=torch.float32, device=dev)
     x_out = torch.empty((b, d), **f32)
@@ -554,6 +609,24 @@ def _launch_decode_block(args, pos: int, *, n_d, n_ff, hq, hkv, dh, p,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, "decode_block")
     return x_out, k_new, ek_new, v_new, ev_new
+
+
+def decode_block_misaligned(ptrs: dict, dh: int) -> str:
+    """Which operand of the decode block kernel sits off the alignment its
+    loads need ('' when none): ``ptrs`` maps the operand names (``x``, the
+    four weights, ``km``, ``ke``, ``vm``, ``ve``, ``cossin``) to their
+    addresses.  16 bytes for the weight rows' bulk copies, x's float4 and
+    the V cache's uint4 rows (4 where dh % 16 != 0: 4-byte rows then); 4 for
+    the K cache's uint32 rows and the exponents' and rope row's words."""
+    need = {"x": 16, "wqkv_m": 16, "wo_m": 16, "wgu_m": 16, "wd_m": 16,
+            "vm": 16 if dh % 16 == 0 else 4, "km": 4, "ke": 4, "ve": 4,
+            "cossin": 4}
+    for name, align in need.items():
+        ptr = ptrs.get(name)
+        if ptr is not None and ptr % align:
+            return (f"{name} at address {ptr:#x} is not {align}-byte "
+                    f"aligned (its loads need it)")
+    return ""
 
 
 def decode_block_unsupported(b: int, d: int, n_ff: int, hq: int, hkv: int,

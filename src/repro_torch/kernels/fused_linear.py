@@ -18,13 +18,14 @@ Ports of four TPU kernels of ``repro.kernels.fused_linear``:
                    K/blk)); each block's exact int32 partial times
                    2^(sa + sb) is added to a float32 accumulator in block
                    order; also returns both mantissas.
-  ``fused_gemm_epi`` <- ``fused_gemm_epi_pallas``: the qq GEMM with its f32
-                   epilogue (bias, then relu, GELU, or the SiLU- or
-                   GELU-GLU that gates the left half of the columns against
-                   the right half) applied to each output tile; also
-                   returns both mantissas and the pre-activation ``ylin``.  Its plain version also covers
-                   the variants with no kernel (kinds qi / ii, the
-                   per-tensor out-quantize), which run on the CPU only.
+  ``fused_gemm_epi`` <- ``fused_gemm_epi_pallas``: the GEMM of kind qq
+                   (both operands f32), qi (b int8 mantissas) or ii (both
+                   int8) with its f32 epilogue (bias, then relu, GELU, or
+                   the SiLU- or GELU-GLU that gates the left half of the
+                   columns against the right half) and, optionally, the
+                   per-tensor out-quantize of y (one exponent, the largest
+                   over the rows below ``m_true``); also returns the
+                   mantissas it quantized and the pre-activation ``ylin``.
 
 Layout is contraction-last with a leading batch: a (B, M, K), b (B, N, K)
 -> y (B, M, N).  The CUDA sources are ``csrc/fused_linear.cu`` and
@@ -39,8 +40,12 @@ takes a K that is not a multiple of 16 or an operand not 16-byte aligned.
 then ``wgmma`` promoting each block's int32 partial in block order, on 128 x
 128 or 64 x 64 tiles; its ``__dp4a`` kernel takes the rest (M <= 16, a
 block not a multiple of 32, K % 16 != 0, an unaligned operand).  Each
-variant has its own launch counter.  ``gemm_epi`` runs on
-``fused_linear.cu`` at every shape.
+variant has its own launch counter.  ``gemm_epi`` runs there too by
+``gemm_epi_variant``: the kind's quantize pass, then ``wgmma`` with the
+epilogue as a template (a GLU's gate and up rows as two TMA boxes of one
+b stage), the out-quantize as a fold of y's exponent and one more pass;
+its ``__dp4a`` kernel takes a K that is not a multiple of 16 or an
+unaligned operand.
 Each wrapper runs the kernel for CUDA tensors and the plain version (same
 file, below) for CPU tensors, and nothing else: a CUDA tensor never
 reaches the plain version through a wrapper.
@@ -63,7 +68,8 @@ __all__ = ["eff_exp", "quantize_tile", "int8_dot", "pow2_f32", "scale_exp",
            "fused_qq_pt", "fused_qi_pt", "fused_ii_pt", "fused_qq_blk",
            "QGEMM_VARIANTS", "qgemm_variant", "qq_variant", "qq_variants",
            "qi_variants", "ii_variants", "QQ_BLK_VARIANTS", "qq_blk_variant",
-           "qq_blk_variants",
+           "qq_blk_variants", "GEMM_EPI_VARIANTS", "gemm_epi_variant",
+           "gemm_epi_variants",
            "fused_qq_pt_plain", "fused_qi_pt_plain", "fused_ii_pt_plain",
            "fused_qq_blk_plain", "blk_combine", "as_u32", "EPI_ACTS",
            "epi_apply", "epi_pullback", "fused_gemm_epi",
@@ -366,6 +372,30 @@ def qq_blk_variant(m: int, n: int, k: int, blk: int, aligned: bool = True,
     return "wgmma" if tiles >= _QQ_BLK_TILES else "wgmma64"
 
 
+# The variants of gemm_epi: the kind's quantize pass then the wgmma GEMM
+# with the epilogue (``csrc/qgemm_sm90.cu``), or the __dp4a kernel of
+# ``fused_linear.cu``.
+GEMM_EPI_VARIANTS = ("wgmma", "dp4a")
+
+
+def gemm_epi_variant(m: int, k: int, n: int, act: Optional[str] = None,
+                     aligned: bool = True) -> str:
+    """The variant of gemm_epi for an (M, K) x (N, K) contraction with
+    ``act``, from the shapes alone: the tensor cores wherever TMA can read
+    the operands (K % 16 == 0, ``aligned``: every operand and bit stream
+    16-byte aligned), at every M (a 128-row tile masks the rows past M) and
+    for a GLU with any half (each half its own tensor map, zero-filled past
+    its N/2 rows); else the ``__dp4a`` kernel.  A GLU needs an even N."""
+    del m
+    if act not in EPI_ACTS:
+        raise ValueError(f"unknown epilogue act {act!r}")
+    if (act or "").endswith("_glu") and n % 2:
+        raise ValueError(f"{act} needs an even N, got {n}")
+    if k <= 0 or k % 16 or not aligned:
+        return "dp4a"
+    return "wgmma"
+
+
 def _aligned(*ts: Optional[torch.Tensor]) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
@@ -388,6 +418,10 @@ ii_variants = {v: _Launches() for v in QGEMM_VARIANTS}
 # Launches of each qq_blk variant (on the Hopper route a call is two
 # launches, the per-block quantize pass and the GEMM, counted once).
 qq_blk_variants = {v: _Launches() for v in QQ_BLK_VARIANTS}
+# Launches of each gemm_epi variant (on the tensor cores a call is the
+# quantize pass, the GEMM and with out_q the out-quantize pass, counted
+# once).
+gemm_epi_variants = {v: _Launches() for v in GEMM_EPI_VARIANTS}
 
 
 def _lib_sm90() -> ctypes.CDLL:
@@ -404,6 +438,10 @@ def _lib_sm90() -> ctypes.CDLL:
         lib.repro_ii_sm90.restype = i
         lib.repro_qq_blk_sm90.argtypes = [vp] * 11 + [i] * 8 + [vp]
         lib.repro_qq_blk_sm90.restype = i
+        lib.repro_gemm_epi_sm90.argtypes = [vp] * 15 + [i] * 10 + [vp]
+        lib.repro_gemm_epi_sm90.restype = i
+        lib.repro_rowcol_gemm_sm90.argtypes = [vp] * 5 + [i] * 3 + [vp]
+        lib.repro_rowcol_gemm_sm90.restype = i
         lib._typed = True
     return lib
 
@@ -420,7 +458,7 @@ def _lib_linear() -> ctypes.CDLL:
         lib.repro_fused_ii.restype = i
         lib.repro_fused_qq_blk.argtypes = [vp] * 9 + [i] * 7 + [vp]
         lib.repro_fused_qq_blk.restype = i
-        lib.repro_gemm_epi.argtypes = [vp] * 11 + [i] * 6 + [vp]
+        lib.repro_gemm_epi.argtypes = [vp] * 15 + [i] * 10 + [vp]
         lib.repro_gemm_epi.restype = i
         lib._typed = True
     return lib
@@ -604,50 +642,67 @@ def fused_gemm_epi(a: torch.Tensor, ra: Optional[torch.Tensor],
                    act: Optional[str] = None, out_q: bool = False,
                    qp: int = 7, m_true: Optional[int] = None):
     """GEMM with its fused epilogue (arguments and results of
-    ``fused_gemm_epi_plain``).  On the card kind qq with any act and no
-    out-quantize has a kernel: a (M, K) f32, b (N, K) f32 with their bits,
-    bias (1, N) f32 or None -> (y, am, bm[, ylin]); the out-quantize and
-    kinds qi / ii raise there (ROADMAP queue 2 item 1)."""
+    ``fused_gemm_epi_plain``), on the variant ``gemm_epi_variant`` names:
+    a (M, K) f32 (int8 for kind ii), b (N, K) f32 (int8 for qi and ii) with
+    the bits of what is quantized, bias (1, N) f32 or None, rq (M, n_out)
+    the out-quantize's bits -> (y | (ym, emeta)) [+ am][+ bm][+ ylin]."""
     if not a.is_cuda:
         return fused_gemm_epi_plain(
             a, ra, b, rb, bias, rq, ea, eb, kind=kind, p=p,
             stochastic=stochastic, act=act, out_q=out_q, qp=qp,
             m_true=m_true)
-    if kind != "qq" or out_q:
-        raise NotImplementedError(
-            f"gemm_epi has a kernel for kind qq with no out-quantize, not "
-            f"kind={kind} out_q={out_q}: that variant's plain version runs "
-            "only on the CPU (ROADMAP queue 2 item 1)")
+    if kind not in ("qq", "qi", "ii"):
+        raise ValueError(f"unknown gemm_epi kind {kind!r}")
     m, k = a.shape
     n = b.shape[0]
     glu = (act or "").endswith("_glu")
     if glu and n % 2:
         raise ValueError(f"{act} needs an even N, got {n}")
+    n_out = n // 2 if glu else n
     dev = a.device
-    _check("a", a, torch.float32, (m, k), dev)
-    _check("b", b, torch.float32, (n, k), dev)
+    i8, f32 = torch.int8, torch.float32
+    _check("a", a, i8 if kind == "ii" else f32, (m, k), dev)
+    _check("b", b, f32 if kind == "qq" else i8, (n, k), dev)
     if bias is not None:
-        _check("bias", bias, torch.float32, (1, n), dev)
-    if stochastic:
-        ra, rb = as_u32(ra), as_u32(rb)
-        _check("ra", ra, torch.int32, (m, k), dev)
-        _check("rb", rb, torch.int32, (n, k), dev)
+        _check("bias", bias, f32, (1, n), dev)
+    if not stochastic:
+        ra = rb = rq = None
+    else:
+        ra = as_u32(ra) if kind != "ii" else None
+        rb = as_u32(rb) if kind == "qq" else None
+        rq = as_u32(rq) if out_q else None
+        for name, r, shape in (("ra", ra, (m, k)), ("rb", rb, (n, k)),
+                               ("rq", rq, (m, n_out))):
+            if r is not None:
+                _check(name, r, torch.int32, shape, dev)
     ea, eb = _scalar_i32("ea", ea, dev), _scalar_i32("eb", eb, dev)
-    y = torch.empty((m, n // 2 if glu else n), dtype=torch.float32,
-                    device=dev)
-    am = torch.empty((m, k), dtype=torch.int8, device=dev)
-    bm = torch.empty((n, k), dtype=torch.int8, device=dev)
-    ylin = (torch.empty((m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n_out), dtype=i8 if out_q else f32, device=dev)
+    am = torch.empty((m, k), dtype=i8, device=dev) if kind != "ii" else None
+    bm = torch.empty((n, k), dtype=i8, device=dev) if kind == "qq" else None
+    ylin = (torch.empty((m, n), dtype=f32, device=dev)
             if act is not None else None)
-    err = _lib_linear().repro_gemm_epi(
-        _ptr(a), _ptr(ra if stochastic else None), _ptr(b),
-        _ptr(rb if stochastic else None), _ptr(bias), _ptr(ea), _ptr(eb),
-        _ptr(y), _ptr(ylin), _ptr(am), _ptr(bm), m, n, k, p,
-        EPI_ACTS.index(act), int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "gemm_epi")
+    ys = ew = meta = None
+    if out_q:
+        ys = torch.empty((m, n_out), dtype=f32, device=dev)
+        ew = torch.empty((1,), dtype=torch.int32, device=dev)
+        meta = torch.empty((1, _EPI_META_LANES), dtype=torch.int32,
+                           device=dev)
+    variant = gemm_epi_variant(m, k, n, act, _aligned(a, ra, b, rb, rq))
+    lib = _lib_sm90().repro_gemm_epi_sm90 if variant == "wgmma" \
+        else _lib_linear().repro_gemm_epi
+    m_rows = m if m_true is None else max(0, min(m_true, m))
+    err = lib(_ptr(a), _ptr(ra), _ptr(b), _ptr(rb), _ptr(bias), _ptr(rq),
+              _ptr(ea), _ptr(eb), _ptr(y), _ptr(ylin), _ptr(am), _ptr(bm),
+              _ptr(ys), _ptr(ew), _ptr(meta), m, n, k, p, qp, m_rows,
+              ("qq", "qi", "ii").index(kind), EPI_ACTS.index(act),
+              int(out_q), int(stochastic),
+              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, f"gemm_epi ({variant})")
     fused_gemm_epi.launches += 1
-    return (y, am, bm) + ((ylin,) if act is not None else ())
+    gemm_epi_variants[variant].launches += 1
+    out = [y, meta] if out_q else [y]
+    out += [t for t in (am, bm, ylin) if t is not None]
+    return tuple(out)
 
 
 # Launches of each kernel since the count was last set to 0.

@@ -170,6 +170,11 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                        kbq.bfp_quantize_plain(a[0], r[0], e.expand(5)))
     assert torch.equal(kim.int8_matmul(am_i8, am_i8, torch.tensor(0.5)),
                        kim.int8_matmul_plain(am_i8, am_i8, torch.tensor(0.5)))
+    for x, y in zip(kfl.fused_gemm_epi(a[0], r[0], am_i8[0], None, None, None,
+                                       e, e, kind="qi", act="relu"),
+                    kfl.fused_gemm_epi_plain(a[0], r[0], am_i8[0], None, None,
+                                             None, e, e, kind="qi", act="relu")):
+        assert torch.equal(x, y)
     assert kd.kernel_launches() == {"qq": 0, "qi": 0, "ii": 0, "qq_blk": 0,
                                     "attn_decode": 0, "attn_fwd": 0,
                                     "attn_bwd": 0, "gemm_epi": 0,
@@ -184,7 +189,10 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "qq_blk_dp4a": 0,
                                     "int8_matmul_wgmma": 0,
                                     "int8_matmul_stream": 0,
-                                    "int8_matmul_wmma": 0}
+                                    "int8_matmul_wmma": 0,
+                                    "gemm_epi_wgmma": 0, "gemm_epi_dp4a": 0,
+                                    "norm_gemm_wgmma": 0,
+                                    "norm_gemm_dp4a": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

@@ -91,6 +91,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
                  for v in kfl.QGEMM_VARIANTS})
     want.update({f"int8_matmul_{v}": 0 for v in kim.INT8_MATMUL_VARIANTS})
     want.update({f"qq_blk_{v}": 0 for v in kfl.QQ_BLK_VARIANTS})
+    want.update({f"gemm_epi_{v}": 0 for v in kfl.GEMM_EPI_VARIANTS})
+    want.update({f"norm_gemm_{v}": 0 for v in kfc.NORM_GEMM_VARIANTS})
     want[f"qq_{kfl.qq_variant(m, k)}"] = 2
     want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
     assert kd.kernel_launches() == want
@@ -408,8 +410,8 @@ def test_wrappers_reject_wrong_operands(cuda):
 
 # (M, K, N, act, bias): the gate|up training GEMMs of minicpm-2b (512
 # tokens, 2304 -> 2 x 5760) and starcoder2-7b (4608 -> 2 x 18432), and odd
-# shapes: rows off the 64-row tile, K not a multiple of 32 nor of 4, N off
-# the column tile (an odd GLU half), every epilogue.
+# shapes: rows off the 64-row tile, K not a multiple of 32 nor of 4 (the
+# __dp4a variant), N off the column tile (an odd GLU half), every epilogue.
 EPI_SHAPES = [(512, 2304, 11520, "silu_glu", False),
               (512, 4608, 36864, "gelu_glu", False),
               (37, 67, 58, "silu_glu", True), (37, 67, 58, "gelu_glu", True),
@@ -417,12 +419,17 @@ EPI_SHAPES = [(512, 2304, 11520, "silu_glu", False),
               (65, 40, 29, "gelu", False), (65, 40, 29, None, False)]
 
 
+def _epi_variant_launches():
+    return _variant_launches("gemm_epi", kfl.GEMM_EPI_VARIANTS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("shape", EPI_SHAPES)
 def test_gemm_epi_kernel_equal_plain(cuda, shape, stochastic):
     """y, both mantissas and ylin ==; a row of gate inputs so large that
-    the logistic is sub-normal (flushed in both) and the tanh saturates."""
+    the logistic is sub-normal (flushed in both) and the tanh saturates;
+    the call moves the counter of the variant ``gemm_epi_variant`` names."""
     m, k, n, act, with_bias = shape
     g = torch.Generator(device=cuda).manual_seed(11)
     a = torch.randn((m, k), generator=g, device=cuda)
@@ -442,40 +449,132 @@ def test_gemm_epi_kernel_equal_plain(cuda, shape, stochastic):
     for name, x, y in zip(("y", "am", "bm", "ylin"), got, want):
         assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
     assert kd.kernel_launches()["gemm_epi"] == 1
+    assert _epi_variant_launches() == {
+        f"gemm_epi_{kfl.gemm_epi_variant(m, k, n, act)}": 1}
+
+
+def _epi_operands(g, dev, kind, m, k, n, stochastic, m_true=None):
+    """gemm_epi's operands of ``kind``: f32 values (a row of them large) or
+    int8 mantissas with exponents that put y well above the bias; the rows
+    from ``m_true`` on are zero (the reference's padding rows)."""
+    a = torch.randn((m, k), generator=g, device=dev)
+    b = torch.randn((n, k), generator=g, device=dev)
+    a[1] *= 300.0
+    ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+    if kind == "ii":
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        ea = torch.tensor(129, dtype=torch.int32, device=dev)
+    if kind != "qq":
+        b = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        eb = torch.tensor(127, dtype=torch.int32, device=dev)
+    if m_true is not None:
+        a[m_true:] = 0
+    ra = (prng.bits(prng.key(14), (m, k), dev)
+          if stochastic and kind != "ii" else None)
+    rb = prng.bits(prng.key(15), (n, k), dev) if stochastic and kind == "qq" else None
+    return a, ra, b, rb, ea, eb
 
 
 @pytest.mark.cuda
-def test_gemm_epi_variants_without_a_kernel_raise(cuda):
-    a = torch.randn((8, 32), device=cuda)
-    e = ref.max_biased_exp_ref(a)
-    m8 = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
-    for kw in (dict(kind="qi"), dict(out_q=True)):
-        args = (a, None, m8 if kw.get("kind") else a, None, None, None, e, e)
-        with pytest.raises(NotImplementedError):
-            kfl.fused_gemm_epi(*args, stochastic=False, **kw)
-    with pytest.raises(NotImplementedError):
-        kd.plan_epilogue("e", 8, 32, 64, qops.QuantConfig(), kind="ii",
-                         kernel_mode="fused", device="cuda")
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("act", kfl.EPI_ACTS)
+@pytest.mark.parametrize("kind", ["qq", "qi", "ii"])
+def test_gemm_epi_kinds_equal_plain(cuda, kind, act, with_bias):
+    """Every kind with every act, with and without a bias, on the tensor
+    cores (K 96, an odd GLU half of 35 columns) and on __dp4a (K 67),
+    stochastic: y, the mantissas the kind quantizes and ylin ==."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for m, k, n in ((130, 96, 70), (37, 67, 58)):
+        a, ra, b, rb, ea, eb = _epi_operands(g, cuda, kind, m, k, n, True)
+        bias = (torch.randn((1, n), generator=g, device=cuda) if with_bias
+                else None)
+        kw = dict(kind=kind, p=7, stochastic=True, act=act)
+        kd.reset_kernel_launches()
+        got = kfl.fused_gemm_epi(a, ra, b, rb, bias, None, ea, eb, **kw)
+        want = kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, None, ea, eb, **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (m, k, n, (x.float() - y.float()).abs().max().item())
+        assert _epi_variant_launches() == {
+            f"gemm_epi_{kfl.gemm_epi_variant(m, k, n, act)}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("m_true", [None, 100])
+@pytest.mark.parametrize("kind", ["qq", "qi", "ii"])
+def test_gemm_epi_out_q_equal_plain(cuda, kind, m_true, stochastic):
+    """The per-tensor out-quantize (ym, the meta row, the residuals) ==,
+    its exponent over every row or only the rows below m_true (the rest
+    zero-padded, so y there is act(bias)): the SiLU-GLU on the tensor
+    cores (an odd half), the GELU-GLU on __dp4a, a bias-free relu with M *
+    N % 4 != 0 (the pass's tail)."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for m, k, n, act in ((130, 96, 70, "silu_glu"), (130, 67, 58, "gelu_glu"),
+                         (131, 96, 71, "relu")):
+        a, ra, b, rb, ea, eb = _epi_operands(g, cuda, kind, m, k, n, stochastic,
+                                             m_true)
+        n_out = n // 2 if act.endswith("_glu") else n
+        bias = (torch.randn((1, n), generator=g, device=cuda)
+                if act != "relu" else None)
+        rq = prng.bits(prng.key(16), (m, n_out), cuda) if stochastic else None
+        kw = dict(kind=kind, p=7, stochastic=stochastic, act=act, out_q=True,
+                  m_true=m_true)
+        kd.reset_kernel_launches()
+        got = kfl.fused_gemm_epi(a, ra, b, rb, bias, rq, ea, eb, **kw)
+        want = kfl.fused_gemm_epi_plain(a, ra, b, rb, bias, rq, ea, eb, **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) and got[0].dtype == torch.int8
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (m, k, n, (x.float() - y.float()).abs().max().item())
+        assert _epi_variant_launches() == {
+            f"gemm_epi_{kfl.gemm_epi_variant(m, k, n, act)}": 1}
+
+
+@pytest.mark.cuda
+def test_gemm_epi_unaligned_view_takes_dp4a(cuda):
+    """An operand one element into its storage (K % 16 == 0, yet off
+    16-byte alignment) runs on __dp4a, ==."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    m, k, n = 37, 64, 58
+    a = torch.randn((m * k + 4,), generator=g, device=cuda)[1:1 + m * k].view(m, k)
+    b = torch.randn((n, k), generator=g, device=cuda)
+    ea, eb = ref.max_biased_exp_ref(a), ref.max_biased_exp_ref(b)
+    ra, rb = prng.bits(prng.key(3), a.shape, cuda), prng.bits(prng.key(4), b.shape, cuda)
+    assert kfl.gemm_epi_variant(m, k, n, "silu_glu", kfl._aligned(a)) == "dp4a"
+    kd.reset_kernel_launches()
+    got = kfl.fused_gemm_epi(a, ra, b, rb, None, None, ea, eb, act="silu_glu")
+    want = kfl.fused_gemm_epi_plain(a, ra, b, rb, None, None, ea, eb, act="silu_glu")
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert _epi_variant_launches() == {"gemm_epi_dp4a": 1}
 
 
 # (M, K, N, center, beta): minicpm-2b's QKV training chain (512 tokens,
-# 2304 -> 6912) and odd ones: rows off every strip, K off the 32-wide
-# slice and of 4, N off the 64-column tile, LayerNorm with and without
-# the shift.
+# 2304 -> 6912) and odd ones: rows off every strip and tile, K off the
+# 32-wide slice and of 4 (the __dp4a variant), N off the 64-column tile,
+# LayerNorm with and without the shift, a K of 40000 (the norm pass's
+# 80 KB row), one row.
 NORM_SHAPES = [(512, 2304, 6912, False, False), (37, 100, 70, True, True),
-               (130, 67, 29, False, True), (16, 4000, 130, True, False)]
+               (130, 67, 29, False, True), (16, 4000, 130, True, False),
+               (37, 112, 70, True, True), (130, 96, 29, False, True),
+               (9, 40000, 64, True, True), (1, 2304, 200, False, False)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("shape", NORM_SHAPES)
 def test_norm_gemm_kernel_equal_plain(cuda, shape, stochastic):
-    """y, xq, meta and c ==; a row of zeros and a tiny row."""
+    """y, xq, meta and c ==; a row of zeros and a tiny row; the call moves
+    the counter of the variant ``norm_gemm_variant`` names."""
     m, k, n, center, with_beta = shape
     g = torch.Generator(device=cuda).manual_seed(21)
     x = torch.randn((m, k), generator=g, device=cuda) * 3.0
     x[0] = 0.0
-    x[1] *= 2.0 ** -60
+    x[1 % m] *= 2.0 ** -60
     gm = torch.randint(1 << 13, 1 << 15, (1, k), generator=g, device=cuda,
                        dtype=torch.int32)
     bm = (torch.randint(-(1 << 14), 1 << 14, (1, k), generator=g,
@@ -497,6 +596,31 @@ def test_norm_gemm_kernel_equal_plain(cuda, shape, stochastic):
     for name, a, b in zip(("y", "xq", "meta", "c"), got, want):
         assert torch.equal(a, b), (name, (a.float() - b.float()).abs().max().item())
     assert kd.kernel_launches()["norm_gemm"] == 1
+    assert _variant_launches("norm_gemm", kfc.NORM_GEMM_VARIANTS) == {
+        f"norm_gemm_{kfc.norm_gemm_variant(m, k)}": 1}
+
+
+@pytest.mark.cuda
+def test_norm_gemm_unaligned_weight_takes_dp4a(cuda):
+    """A weight one byte into its storage (TMA's rule) runs on __dp4a, whose
+    4-byte weight loads then read it byte by byte, ==."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    m, k, n = 37, 128, 70
+    x = torch.randn((m, k), generator=g, device=cuda)
+    gm = torch.randint(1 << 13, 1 << 15, (1, k), generator=g, device=cuda,
+                       dtype=torch.int32)
+    wm = torch.randint(-127, 128, (n * k + 16,), generator=g, device=cuda,
+                       dtype=torch.int8)[1:1 + n * k].view(n, k)
+    se_w = torch.full((1, n), -9, dtype=torch.int32, device=cuda)
+    se_g = torch.tensor(-15, dtype=torch.int32, device=cuda)
+    assert kfc.norm_gemm_variant(m, k, kfl._aligned(wm)) == "dp4a"
+    args = (x, None, None, gm, se_g, None, None, wm, se_w)
+    kd.reset_kernel_launches()
+    got = kfc.fused_norm_gemm(*args, n=k)
+    want = kfc.norm_gemm_plain(*args, n=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert _variant_launches("norm_gemm", kfc.NORM_GEMM_VARIANTS) == {"norm_gemm_dp4a": 1}
 
 
 # (B, d, n_ff, hq, hkv, dh, T, pos, window): minicpm-2b's decode layer (4
@@ -511,6 +635,31 @@ DECODE_BLOCK_SHAPES = [(4, 2304, 5760, 36, 36, 64, 160, 159, 0),
                        (3, 256, 320, 8, 2, 32, 40, 37, 8)]
 
 
+def _decode_block_args(g, dev, b, d, n_ff, hq, hkv, dh, t, pos):
+    def i8(*shp):
+        return torch.randint(-127, 128, shp, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def se(n):
+        return torch.randint(-14, -9, (1, n), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    def rows(*shp):
+        return torch.randint(118, 126, shp, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    nqkv = (hq + 2 * hkv) * dh
+    ang = torch.rand(dh // 2, generator=g, device=dev) * 3
+    cossin = torch.cat([ang.cos(), ang.cos(), ang.sin(), ang.sin()])[None]
+    gains = [torch.randint(1 << 13, 1 << 15, (1, d), generator=g,
+                           device=dev, dtype=torch.int32) for _ in range(2)]
+    return (torch.randn((b, d), generator=g, device=dev), i8(nqkv, d),
+            se(nqkv), i8(d, hq * dh), se(d), i8(2 * n_ff, d), se(2 * n_ff),
+            i8(d, n_ff), se(d), *gains, i8(b, hkv, t, dh),
+            rows(b, hkv, t, 1), i8(b, hkv, t, dh), rows(b, hkv, t, 1),
+            cossin.contiguous(), pos)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", DECODE_BLOCK_SHAPES)
 def test_decode_block_kernel_equal_plain(cuda, shape):
@@ -518,29 +667,7 @@ def test_decode_block_kernel_equal_plain(cuda, shape):
     version's exp and its windowed softmax sum."""
     b, d, n_ff, hq, hkv, dh, t, pos, window = shape
     g = torch.Generator(device=cuda).manual_seed(31)
-
-    def i8(*shp):
-        return torch.randint(-127, 128, shp, generator=g, device=cuda,
-                             dtype=torch.int8)
-
-    def se(n):
-        return torch.randint(-14, -9, (1, n), generator=g, device=cuda,
-                             dtype=torch.int32)
-
-    def rows(*shp):
-        return torch.randint(118, 126, shp, generator=g, device=cuda,
-                             dtype=torch.int32)
-
-    nqkv = (hq + 2 * hkv) * dh
-    ang = torch.rand(dh // 2, generator=g, device=cuda) * 3
-    cossin = torch.cat([ang.cos(), ang.cos(), ang.sin(), ang.sin()])[None]
-    gains = [torch.randint(1 << 13, 1 << 15, (1, d), generator=g,
-                           device=cuda, dtype=torch.int32) for _ in range(2)]
-    args = (torch.randn((b, d), generator=g, device=cuda), i8(nqkv, d),
-            se(nqkv), i8(d, hq * dh), se(d), i8(2 * n_ff, d), se(2 * n_ff),
-            i8(d, n_ff), se(d), *gains, i8(b, hkv, t, dh),
-            rows(b, hkv, t, 1), i8(b, hkv, t, dh), rows(b, hkv, t, 1),
-            cossin.contiguous(), pos)
+    args = _decode_block_args(g, cuda, b, d, n_ff, hq, hkv, dh, t, pos)
     kw = dict(n_d=d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, p=7, window=window,
               se_g1=-14, se_g2=-14)
     kd.reset_kernel_launches()
@@ -551,6 +678,34 @@ def test_decode_block_kernel_equal_plain(cuda, shape):
                           got, want):
         assert torch.equal(x, y), (name, (x.float() - y.float()).abs().max().item())
     assert kd.kernel_launches()["decode_block"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "km", "vm"])
+def test_decode_block_offset_views_raise(cuda, operand):
+    """x, the K cache or the V cache as a contiguous view one element into
+    its storage: the launcher raises ValueError naming it instead of
+    faulting, the card stays usable (a call right after ==), and
+    ``run_decode_block`` copies the operand and runs."""
+    b, d, n_ff, hq, hkv, dh, t, pos = 2, 256, 320, 8, 2, 32, 40, 37
+    g = torch.Generator(device=cuda).manual_seed(33)
+    args = list(_decode_block_args(g, cuda, b, d, n_ff, hq, hkv, dh, t, pos))
+    i = {"x": 0, "km": 11, "vm": 13}[operand]
+    full = torch.empty(args[i].numel() + 16, dtype=args[i].dtype, device=cuda)
+    view = full[1:1 + args[i].numel()].view(args[i].shape)
+    view.copy_(args[i])
+    bad = list(args)
+    bad[i] = view
+    kw = dict(n_d=d, n_ff=n_ff, hq=hq, hkv=hkv, dh=dh, p=7, se_g1=-14, se_g2=-14)
+    with pytest.raises(ValueError, match=operand):
+        kfc.fused_decode_block(*bad, **kw)
+    torch.cuda.synchronize()
+    want = kfc.decode_block_plain(*args, **kw)
+    for x, y in zip(kfc.fused_decode_block(*args, **kw), want):
+        assert torch.equal(x, y)
+    dec = kd.Decision("b", kd.FUSED, "test", b, d, n_ff, "decode_block", "cuda", t)
+    for x, y in zip(kd.run_decode_block(*bad, dec, **kw), want):
+        assert torch.equal(x, y)
 
 
 def _edge_values(g, m, n, dev):

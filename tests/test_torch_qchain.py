@@ -155,8 +155,10 @@ def test_qmatmul_epi_values_and_grads_equal_jax(case):
 
 
 def test_chains_plan_the_per_op_seam_off_the_kernels():
-    """auto on the CPU keeps the per-op seams (None); a variant the epilogue
-    kernel lacks plans jnp here and raises on the card."""
+    """auto on the CPU keeps the per-op seams (None); every epilogue kind
+    and the out-quantize have a kernel, on the card too; norm_gemm's
+    tensor-core variant takes a K whose strip the __dp4a kernel could not
+    hold; the decode block kernel refuses a batch of 16."""
     x, w = torch.zeros(4, 32), torch.zeros(32, 64)
     auto = NumericPolicy()
     assert tqc.qmatmul_epi(x, w, prng.key(0), auto, act="silu_glu") is None
@@ -164,13 +166,13 @@ def test_chains_plan_the_per_op_seam_off_the_kernels():
                           auto) is None
     cfg = QuantConfig()
     d = kd.plan_epilogue("e", 4, 32, 64, cfg, kind="qi", kernel_mode="fused")
-    assert d.path == kd.JNP and "kernel for kind qq" in d.reason
-    with pytest.raises(NotImplementedError):
-        kd.plan_epilogue("e", 4, 32, 64, cfg, out_q=True,
+    assert d.path == kd.FUSED and "qi" in d.reason
+    d = kd.plan_epilogue("e", 4, 32, 64, cfg, out_q=True,
                          kernel_mode="fused", device="cuda")
+    assert d.path == kd.FUSED and "out_q=True" in d.reason
     d = kd.plan_norm_gemm("n", 4, 40000, 64, cfg, kernel_mode="fused",
                           device="cuda")
-    assert d.path == kd.JNP and "shared memory" in d.reason
+    assert d.path == kd.FUSED and "wgmma" in d.reason
     d = kd.plan_decode_block("b", 16, 64, 160, 16, 8, 8, 8, cfg,
                              kernel_mode="fused", device="cuda")
     assert d.path == kd.JNP and "batch 16" in d.reason

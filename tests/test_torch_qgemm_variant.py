@@ -9,12 +9,16 @@ tensor-core kernel (``wgmma``, M > 16), the weight-streaming kernel
 or an operand not 16-byte aligned); ``kernels.int8_matmul
 .int8_matmul_variant`` between the same two Hopper kernels and the wmma
 kernel in ``__dp4a``'s place; ``qq_blk_variant`` between the two tilings
-of the Hopper per-block route and the ``__dp4a`` kernel.
+of the Hopper per-block route and the ``__dp4a`` kernel;
+``gemm_epi_variant`` and ``kernels.fused_chain.norm_gemm_variant``
+between the tensor-core route (a quantize or norm pass, then ``wgmma``)
+and the ``__dp4a`` kernel.
 """
 
 import pytest
 import torch
 
+from repro_torch.core.bfp import QuantConfig
 from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_attention as kfa
 from repro_torch.kernels import fused_chain as kfc
@@ -107,6 +111,8 @@ def test_every_variant_has_a_counter():
                     else kfl.QGEMM_VARIANTS)
         assert fallback in variants
         assert {f"{kind}_{v}" for v in variants} <= names
+    assert {f"gemm_epi_{v}" for v in kfl.GEMM_EPI_VARIANTS} <= names
+    assert {f"norm_gemm_{v}" for v in kfc.NORM_GEMM_VARIANTS} <= names
 
 
 # qq_blk: (B, M, K, N) of every per-block contraction of a qwen2-0.5b
@@ -223,3 +229,75 @@ def test_decode_block_rejects_past_its_limits():
     assert "multiples of 16" in kfc.decode_block_unsupported(2, 250, 320, 8, 2, 32, 40)
     assert "cache length" in kfc.decode_block_unsupported(2, 256, 320, 8, 2, 32, 1025)
     assert "shared memory" in kfc.decode_block_unsupported(8, 8192, 28672, 64, 8, 128, 1024)
+
+
+# gemm_epi's main-path shapes (M, K, N, act): the gate|up GEMM with its GLU
+# of minicpm-2b (phase 8) and starcoder2-7b (phase 10) training at 4 x 128
+# tokens, and at one stream and four.
+EPI_MAIN = [(m, 2304, 11520, "silu_glu") for m in (512, 4, 1)] + \
+    [(m, 4608, 36864, "gelu_glu") for m in (512, 4, 1)]
+
+
+@pytest.mark.parametrize("m,k,n,act", EPI_MAIN)
+def test_gemm_epi_main_path_takes_wgmma(m, k, n, act):
+    assert kfl.gemm_epi_variant(m, k, n, act) == "wgmma"
+
+
+@pytest.mark.parametrize("act", kfl.EPI_ACTS)
+@pytest.mark.parametrize("k", [40, 67, 100, 2300])
+def test_gemm_epi_k_not_multiple_of_16_takes_dp4a(k, act):
+    assert kfl.gemm_epi_variant(130, k, 70, act) == "dp4a"
+
+
+@pytest.mark.parametrize("m,n", [(1, 58), (16, 70), (37, 2), (130, 74)])
+def test_gemm_epi_odd_glu_half_and_small_m_take_wgmma(m, n):
+    """A GLU half of 29, 35, 1 or 37 rows (each half its own tensor map,
+    zero-filled past it) and M down to 1 (a 128-row tile masks the rest)."""
+    for act in ("silu_glu", "gelu_glu"):
+        assert kfl.gemm_epi_variant(m, 96, n, act) == "wgmma"
+
+
+def test_gemm_epi_rule_rejects_odd_glu_and_unknown_act():
+    with pytest.raises(ValueError, match="even N"):
+        kfl.gemm_epi_variant(16, 96, 71, "silu_glu")
+    with pytest.raises(ValueError, match="act"):
+        kfl.gemm_epi_variant(16, 96, 70, "tanh")
+    assert kfl.gemm_epi_variant(16, 96, 71, "relu") == "wgmma"
+
+
+def test_gemm_epi_misaligned_operand_takes_dp4a():
+    base = torch.zeros(64 * 40, dtype=torch.float32)
+    view = base[1:1 + 64 * 37].view(37, 64)
+    assert kfl.gemm_epi_variant(37, 64, 58, "silu_glu", kfl._aligned(view)) == "dp4a"
+    assert kfl.gemm_epi_variant(37, 64, 58, "silu_glu", kfl._aligned(base)) == "wgmma"
+
+
+# norm_gemm's main-path shapes (M, K): minicpm-2b's QKV chain at 4 x 128
+# tokens, one stream and four; qwen2-0.5b's and starcoder2-7b's widths.
+@pytest.mark.parametrize("m,k", [(512, 2304), (4, 2304), (1, 2304),
+                                 (512, 896), (512, 4608)])
+def test_norm_gemm_main_path_takes_wgmma(m, k):
+    assert kfc.norm_gemm_variant(m, k) == "wgmma"
+
+
+@pytest.mark.parametrize("k", [67, 100, 4000 + 8, 40001])
+def test_norm_gemm_k_not_multiple_of_16_takes_dp4a(k):
+    assert kfc.norm_gemm_variant(37, k) == "dp4a"
+
+
+def test_norm_gemm_wide_rows_and_alignment():
+    """The norm pass holds a row of int16 in shared memory: K 40000 (past
+    the __dp4a strip's limit) takes the tensor cores, a K whose row does
+    not fit and an unaligned weight take __dp4a, which then has its own
+    limit (the plan says JNP past it)."""
+    assert kfc.norm_gemm_variant(9, 40000) == "wgmma"
+    assert kfc.norm_gemm_smem_bytes(16, 40000) > kfa.SMEM_LIMIT
+    big = (kfa.SMEM_LIMIT // 2 // 16 + 1) * 16
+    assert kfc.norm_pass_smem_bytes(big) > kfa.SMEM_LIMIT
+    assert kfc.norm_gemm_variant(9, big) == "dp4a"
+    base = torch.zeros(70 * 129, dtype=torch.int8)
+    w = base[1:1 + 70 * 128].view(70, 128)
+    assert kfc.norm_gemm_variant(37, 128, kfl._aligned(w)) == "dp4a"
+    d = kd.plan_norm_gemm("n", 9, big, 64, QuantConfig(), kernel_mode="fused",
+                          device="cuda")
+    assert d.path == kd.JNP and "shared memory" in d.reason
