@@ -16,9 +16,12 @@ Phases, any of which failing exits non-zero:
    ``ii`` (``fused_linear.qgemm_variant``) y and
    mantissas ``==`` at the main path's shapes, ragged, batched and odd-K
    ones, both roundings, and the ``iq`` and ``pp`` routes through
-   dispatch; each call moving its variant's counter; ``attn_decode`` y ``==``,
-   ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv) ``==``
-   at the qwen2 training slice and at an odd shape, ``qq_blk`` y and
+   dispatch; each call moving its variant's counter; ``attn_decode`` y ``==``
+   at qwen2-0.5b's decode slice for bands of 160, 4096 and 32768 positions
+   (each planned FUSED, on the cluster size ``decode_split`` names, its
+   counter moved), ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv)
+   ``==`` at the qwen2 training slice (``attn_bwd`` on the route
+   ``attn_bwd_variant`` names) and at an odd shape, ``qq_blk`` y and
    mantissas ``==`` on each variant (``fused_linear.qq_blk_variant``: the
    128 x 128 and 64 x 64 tilings of the Hopper route, ``__dp4a``) at the
    per-block training shapes and odd ones (blocks of 128, 32 and 8, more
@@ -94,9 +97,11 @@ each call moving its variant's counter.
 
 After each of phases 3-10 every ``qq``, ``qi`` and ``ii`` launch must be
 one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``), every
-``qq_blk`` launch one of ``wgmma`` or ``wgmma64`` and every
-``int8_matmul`` launch one of ``wgmma``: the variants the shape rules name
-for the main path's shapes; the counts by variant are printed.  Each step
+``qq_blk`` launch one of ``wgmma`` or ``wgmma64``, every ``int8_matmul``
+launch one of ``wgmma``, every ``attn_decode`` launch on the cluster size
+``decode_split`` names for the decode slice and every ``attn_bwd`` launch
+on ``wgmma``: the variants the shape rules name for the main path's
+shapes; the counts by variant are printed.  Each step
 profile also sums the device time of the port's own kernels by name.
 
 Kernel, plain and library times are device times from ``torch.profiler``
@@ -313,41 +318,79 @@ def check_kernels(torch, dev, rec):
           f"{rec['lm_head_dx_plain']['ms']:.3f} ms device time")
     del gq, wq
 
-    # attn_decode: the qwen2 decode slice, B*Hkv = 8, GS = 7, D = 64, T = 160.
-    bh, gs, d, t, pos = BATCH * 2, 7, 64, PROMPT + GEN, PROMPT + GEN - 1
-    qm = torch.randint(-127, 128, (bh, gs, d), generator=g, device=dev, dtype=torch.int8)
-    km = torch.randint(-127, 128, (bh, t, d), generator=g, device=dev, dtype=torch.int8)
-    vm = torch.randint(-127, 128, (bh, t, d), generator=g, device=dev, dtype=torch.int8)
-    ek = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev, dtype=torch.int32)
-    ev = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev, dtype=torch.int32)
-    rp = bits(4, (bh, gs, t))
-    eq = torch.tensor(122, dtype=torch.int32, device=dev)
-    kw = dict(p=7, s=1, causal=True, window=0, stochastic=True)
-    y = kfa.attn_decode(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
-    yp = kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
-    torch.cuda.synchronize()
-    err = (y - yp).abs().max().item()
-    if not torch.equal(y, yp):
-        raise AssertionError(f"attn_decode: kernel != plain (max |dy| {err})")
-    rp32 = kfl.as_u32(rp)
-    ms = _device_ms(torch, lambda: kfa.attn_decode(qm, km, vm, ek, ev, rp32, eq, pos, t, **kw))
-    call = _time_ms(torch, lambda: kfa.attn_decode(qm, km, vm, ek, ev, rp32, eq, pos, t, **kw))
-    pms = _device_ms(torch, lambda: kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw), iters=3)
-    nbytes = bh * (gs * d + 2 * t * d + 8 * t + 4 * gs * t + 4 * gs * d) + 4
-    bound, by = _bound_ms(nbytes, 2.0 * 2 * bh * gs * t * d)
-    out.append(dict(name="attn_decode", route="cuda",
-                    source="src/repro_torch/kernels/csrc/fused_attention.cu",
-                    replaces="src/repro/kernels/fused_attention.py:503",
-                    shape=[bh, gs, t, d], max_abs_err=err, ms=ms,
-                    call_ms=call, plain_ms=pms,
-                    bound_ms=bound, bound_by=by, library_ms=None,
-                    library_note="no single PyTorch call computes int8 "
-                                 "scores, softmax, the per-row p quantize "
-                                 "and int8 PV"))
+    out += check_decode(torch, dev, g, bits)
     out += check_attn_train(torch, dev, g, bits)
     out += check_qq_blk(torch, dev, g, bits)
     out += check_chain(torch, dev, g, bits)
     out += check_unfused(torch, dev, g, bits)
+    return out
+
+
+# attn_decode timed at qwen2-0.5b's decode slice (B*Hkv = 8, GS = 7, D =
+# 64): the serve phase's band (PROMPT + GEN), 4096 positions and the
+# model's published 32768-token context.
+DECODE_TIMED = [("attn_decode", PROMPT + GEN), ("attn_decode_t4096", 4096),
+                ("attn_decode_t32768", 32768)]
+
+
+def check_decode(torch, dev, g, bits):
+    """attn_decode against its plain version at ``DECODE_TIMED``: each band
+    planned FUSED by the planner, the kernel's shared memory per block the
+    planner's, y ``==``, the call on the cluster size ``decode_split``
+    names (its counter); timed beside its bytes bound."""
+    from repro_torch.core.bfp import QuantConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import fused_attention as kfa
+    from repro_torch.kernels import fused_linear as kfl
+
+    out = []
+    bh, gs, d = BATCH * 2, 7, 64
+    for name, t in DECODE_TIMED:
+        plan = dispatch.plan_attention("attn_decode", gs, t, d, QuantConfig(),
+                                       s=1, kind="qi", device="cuda")
+        if plan.path != dispatch.FUSED:
+            raise AssertionError(f"{name}: planned {plan.path} ({plan.reason})")
+        n = kfa.decode_split(gs, t, d)
+        smem = kfa._lib().repro_attn_decode_smem(gs, t, d, n)
+        if smem != kfa.decode_smem_bytes(gs, t, d):
+            raise AssertionError(f"{name}: the kernel's layout takes {smem} B, "
+                                 f"the planner's {kfa.decode_smem_bytes(gs, t, d)}")
+        pos = t - 1
+        qm = torch.randint(-127, 128, (bh, gs, d), generator=g, device=dev, dtype=torch.int8)
+        km = torch.randint(-127, 128, (bh, t, d), generator=g, device=dev, dtype=torch.int8)
+        vm = torch.randint(-127, 128, (bh, t, d), generator=g, device=dev, dtype=torch.int8)
+        ek = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev, dtype=torch.int32)
+        ev = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev, dtype=torch.int32)
+        rp = bits(4, (bh, gs, t))
+        eq = torch.tensor(122, dtype=torch.int32, device=dev)
+        kw = dict(p=7, s=1, causal=True, window=0, stochastic=True)
+        dispatch.reset_kernel_launches()
+        y = kfa.attn_decode(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
+        yp = kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
+        torch.cuda.synchronize()
+        err = (y - yp).abs().max().item()
+        if not torch.equal(y, yp):
+            raise AssertionError(f"{name}: kernel != plain (max |dy| {err})")
+        if dispatch.kernel_launches()[f"attn_decode_n{n}"] != 1:
+            raise AssertionError(f"{name}: not on its {n}-block cluster")
+        rp32 = kfl.as_u32(rp)
+        nbytes = bh * (gs * d + 2 * t * d + 8 * t + 4 * gs * t + 4 * gs * d) + 4
+        row = _record_kernel(
+            torch, name, "src/repro_torch/kernels/csrc/fused_attention.cu",
+            "src/repro/kernels/fused_attention.py:503", [bh, gs, t, d], err,
+            lambda: kfa.attn_decode(qm, km, vm, ek, ev, rp32, eq, pos, t, **kw),
+            lambda: kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw),
+            nbytes, 2.0 * 2 * bh * gs * t * d, None,
+            note="no single PyTorch call computes int8 scores, softmax, the "
+                 "per-row p quantize and int8 PV", plain_iters=2)
+        print(f"{name}: T={t} on {n}-block clusters, {smem} B of shared "
+              f"memory a block ({plan.reason})")
+        out.append(dict(row, variant=f"n{n}", split=n, smem=smem,
+                        plan=plan.reason,
+                        line_as=[f"attn_decode_n{n}"] if name == "attn_decode"
+                        else []))
+        del qm, km, vm, ek, ev, rp, rp32, y, yp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -652,7 +695,8 @@ def _check_variants(label, launches):
     (``__dp4a``, wmma); every int8_matmul launch (M > 16 throughout phase
     9) on wgmma, every gemm_epi and norm_gemm launch (phases 8 and 10) on
     wgmma (phase 6 also holds the qq_blk split between the two tilings to
-    its count)."""
+    its count); every attn_decode launch (phase 3) on the cluster size
+    decode_split names and every attn_bwd launch (phase 5) on wgmma."""
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import int8_matmul as kim
@@ -670,6 +714,24 @@ def _check_variants(label, launches):
             raise AssertionError(f"{label}: {launches[kind]} {kind} launches "
                                  f"as {per}, expected all on {allowed}")
         print(f"{label}: {kind} launches by variant {per}")
+    # every attn_decode launch (phase 3: the decode slice, GS 7, T PROMPT +
+    # GEN, D 64) on the cluster size decode_split names, every attn_bwd
+    # launch (phase 5) on wgmma
+    from repro_torch.kernels import fused_attention as kfa
+    n = kfa.decode_split(7, PROMPT + GEN, 64)
+    per = {k: launches[f"attn_decode_n{k}"] for k in kfa.DECODE_SPLITS
+           if launches[f"attn_decode_n{k}"]}
+    if sum(per.values()) != launches["attn_decode"] or set(per) - {n}:
+        raise AssertionError(f"{label}: {launches['attn_decode']} attn_decode "
+                             f"launches by cluster size {per}, expected all "
+                             f"on {n}")
+    per_b = {v: launches[f"attn_bwd_{v}"] for v in kfa.ATTN_BWD_VARIANTS}
+    if sum(per_b.values()) != launches["attn_bwd"] or per_b["dp4a"]:
+        raise AssertionError(f"{label}: {launches['attn_bwd']} attn_bwd "
+                             f"launches as {per_b}, expected all on wgmma")
+    if launches["attn_decode"] or launches["attn_bwd"]:
+        print(f"{label}: attn_decode launches by cluster size {per}, "
+              f"attn_bwd by route {per_b}")
 
 
 def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
@@ -1312,6 +1374,8 @@ def check_attn_train(torch, dev, g, bits):
         _, m, l = want
         delta = torch.randn((bh, gs, 1), generator=g, device=dev) * 1e-3
         bwd = (qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, 0, kv_len)
+        variant = kfa.attn_bwd_variant(gs, t, d, kw["bt"])
+        before = dispatch.kernel_launches()[f"attn_bwd_{variant}"]
         got = kfa.attn_bwd(*bwd, **kw)
         want = kfa.attn_bwd_plain(*bwd, **kw)
         torch.cuda.synchronize()
@@ -1319,10 +1383,13 @@ def check_attn_train(torch, dev, g, bits):
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"attn_bwd {label}: kernel != plain "
                                  f"(max |d| {err_b})")
+        if dispatch.kernel_launches()[f"attn_bwd_{variant}"] != before + 1:
+            raise AssertionError(f"attn_bwd {label}: not on {variant}")
+        print(f"attn_bwd {label}: on {variant}, kernel == plain")
         if label == "train":
             timed = dict(fwd=fwd, bwd=bwd, kw=kw, err_f=err_f, err_b=err_b,
                          shape=[bh, gs, t, d], kv_len=kv_len, s=s,
-                         causal=causal)
+                         causal=causal, variant=variant)
 
     bh, gs, t, d = timed["shape"]
     kw = timed["kw"]
@@ -1347,20 +1414,25 @@ def check_attn_train(torch, dev, g, bits):
              bh * (2 * gs * d + 2 * t * d + 12 * gs + 4 * gs * d + 8 * t * d)
              + 8 * pairs + 16,
              5 * 2 * d * pairs, timed["err_b"], 402)):
-        ms = _device_ms(torch, lambda: fn(*args[0], **kw))
+        split = {}
+        ms = _device_ms(torch, lambda: fn(*args[0], **kw), split=split)
         call = _time_ms(torch, lambda: fn(*args[0], **kw))
         pms = _device_ms(torch, lambda: plain(*args[1], **kw), iters=3)
         bound, by = _bound_ms(nbytes, ops)
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/attn_train.cu",
-                        replaces=f"src/repro/kernels/fused_attention.py:{line}",
-                        shape=[bh, gs, t, d], max_abs_err=err, ms=ms,
-                        call_ms=call, plain_ms=pms, bound_ms=bound,
-                        bound_by=by, bytes=nbytes, ops=ops,
-                        library_ms=None,
-                        library_note="no single PyTorch call computes int8 "
-                                     "scores, the online softmax and the "
-                                     "in-kernel quantizations"))
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/csrc/attn_train.cu",
+                   replaces=f"src/repro/kernels/fused_attention.py:{line}",
+                   shape=[bh, gs, t, d], max_abs_err=err, ms=ms,
+                   call_ms=call, plain_ms=pms, bound_ms=bound,
+                   bound_by=by, bytes=nbytes, ops=ops, ms_by_kernel=split,
+                   library_ms=None,
+                   library_note="no single PyTorch call computes int8 "
+                                "scores, the online softmax and the "
+                                "in-kernel quantizations")
+        if name == "attn_bwd":
+            row.update(variant=timed["variant"],
+                       line_as=[f"attn_bwd_{timed['variant']}"])
+        out.append(row)
         print(f"{name}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
               f"{by}; plain {pms:.3f} ms), kernel == plain at both shapes")
     return out

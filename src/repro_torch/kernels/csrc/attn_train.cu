@@ -39,7 +39,35 @@
 // resident in VMEM.  Here the (bt, D) key and value blocks stream through
 // shared memory, so the forward has no limit on T.  The backward's tile
 // exponent spans all GS rows of a block, more than one block's shared
-// memory at long sequence, so it runs in three launches:
+// memory at long sequence, so it needs a reduction across blocks before it
+// can quantize.  Two routes (kernels/fused_attention.py attn_bwd_variant):
+//
+// wgmma (D of 32, 64, 96 or 128, 16-byte aligned operands): two launches,
+// no memset, every product on wgmma.m64nNk32.s32.s8.s8 from swizzled
+// K-major tiles (16-byte asynchronous copies; the transposed ones by byte
+// permutes of 4 x 4 blocks in shared memory).  A block takes a row tile of
+// 128 query rows and one half, 64 positions, of every chunk of 128 KV
+// positions, so the qwen2 training slice runs 112 blocks of four
+// warpgroups (64 rows x 32 positions of S and dP each):
+//   A  grid (row tile x half, KV block, slice): S = Q^K^T and dP = G^V^T,
+//      pn and ds recomputed in the fragments, their largest effective
+//      exponents written to the block's own (slice, KV block, row tile,
+//      half) slot; a grid-stride share zeroes the int32 dk / dv sums and
+//      the per-slice completion counts;
+//   B  grid (row tile x half, slice), a cluster per row tile's two halves,
+//      launched to overlap A (programmatic dependent launch: its tiles
+//      load while A runs; it waits for A before reading A's output): the
+//      KV blocks in order, each in chunks: the KV block's exponents reduced
+//      over its slots, S and dP again, pn and ds quantized against the
+//      bits into dS^, P^T and dS^T; dV and dK over the tile's 128 rows,
+//      added to the slice's int32 sums by the bulk-copy engine
+//      (cp.reduce.async.bulk, element by element atomically: two
+//      operations a chunk instead of an atomic an element); dQ's int32
+//      sum over the block's half of the KV block, handed by the second
+//      half to the first through distributed shared memory, then rounded
+//      into dq in block order; the last block of a slice to finish (by its
+//      count) scales the slice's dk and dv.
+// __dp4a (every other shape, the older kernels, three launches):
 //   A  grid (strip, block, slice): recompute pn and ds, reduce their
 //      largest effective exponents with an integer atomicMax;
 //   B  grid (strip, slice): walk the blocks in index order, recompute,
@@ -47,8 +75,7 @@
 //      block order, and add the int32 partial sums of dk_j and dv_j with
 //      integer atomics (exact in any order);
 //   C  scale the int32 dk, dv sums by their powers of two.
-// Integer dots use __dp4a on words packed in shared memory; the tensor
-// cores (wgmma) and TMA are later work.
+// The forward's integer dots use __dp4a on words packed in shared memory.
 //
 // Bounds on the H100.  Forward: each slice reads GS*D + 2*T*D int8 and
 // 4 bytes of rounding bits per visible (row, position) pair, and writes
@@ -58,19 +85,44 @@
 // per visible pair in; 4*GS*D + 8*T*D bytes out; 10*D operations per
 // visible pair: bytes bound it too.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "bfp.cuh"
 #include "fmath.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using repro::cephes_expf;
 using repro::eff_exp;
 using repro::pow2f;
 using repro::quantize_one;
 using repro::scale_exp;
+using repro::align1024;
+using repro::bulk_add_s32;
+using repro::bulk_commit;
+using repro::bulk_wait_done;
+using repro::bulk_wait_read;
+using repro::cluster_arrive_relaxed;
+using repro::cluster_sync;
+using repro::cluster_wait;
+using repro::cp_async16;
+using repro::cp_async_wait_all;
+using repro::fence_operands;
+using repro::fence_proxy_async;
+using repro::gmma_desc;
+using repro::transpose4;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_s8_m64n32k32;
+using repro::wgmma_s8_m64n64k32;
+using repro::wgmma_wait0;
 
 constexpr float NEG = -1e30f;     // models.attention._NEG
 constexpr float L_FLOOR = 1e-30f; // jnp.maximum(l, 1e-30)
@@ -83,17 +135,15 @@ __device__ __forceinline__ bool visible(int kpos, int qpos, int kv_len,
   return m;
 }
 
-// Smallest and largest query position of rows [r0, r1) (r1 > r0).
+// Smallest and largest query position of rows [r0, r1) (r1 > r0): row r
+// sits at r % s + q_off, so the rows cover every residue, one run of
+// them, or a run that wraps past s - 1 (then 0 and s - 1 both occur).
 __device__ __forceinline__ void strip_positions(int r0, int r1, int s, int q_off,
                                                 int* qmin, int* qmax) {
-  int lo = 0x7fffffff, hi = -0x7fffffff;
-  for (int r = r0; r < r1; ++r) {
-    const int q = r % s + q_off;
-    lo = min(lo, q);
-    hi = max(hi, q);
-  }
-  *qmin = lo;
-  *qmax = hi;
+  const int a = r0 % s, b = (r1 - 1) % s;
+  const bool run = r1 - r0 < s && a <= b;
+  *qmin = (run ? a : 0) + q_off;
+  *qmax = (run ? b : s - 1) + q_off;
 }
 
 // KV blocks [lo, hi) that can hold a visible position for a query strip
@@ -354,7 +404,9 @@ __device__ __forceinline__ void recompute(int dqk, int dgv, bool vis, float sc_q
                                           float* pn, float* ds) {
   float sf = vis ? __fmul_rn(__int2float_rn(dqk), sc_qk) : NEG;
   const float pt = vis ? cephes_expf(__fsub_rn(sf, m)) : 0.0f;
-  const float pnv = __fdiv_rn(pt, fmaxf(l, L_FLOOR));
+  // 0 / max(l, 1e-30) is +0 for every l: the division only where pt != 0
+  float pnv = 0.0f;
+  if (pt != 0.0f) pnv = __fdiv_rn(pt, fmaxf(l, L_FLOOR));
   const float dp = __fmul_rn(__int2float_rn(dgv), sc_gv);
   *pn = pnv;
   *ds = __fmul_rn(pnv, __fsub_rn(dp, delta));
@@ -564,6 +616,530 @@ __global__ void attn_bwd_scale_kernel(BwdArgs a, int BH) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward on the tensor cores (wgmma): D % 32 == 0, D <= 128
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 512;  // four warpgroups
+constexpr int RT = 128;          // query rows of a row tile
+constexpr int CT = 128;          // KV positions a chunk of a block
+constexpr int HT = CT / 2;       // positions a block takes of each chunk
+constexpr int TILE = 128 * 128;  // bytes of a 128-row tile of 128-byte rows
+constexpr int HTILE = HT * 128;  // bytes of a 64-row one
+
+// The tiles of the two passes (kernels/fused_attention.py _tc_bwd_smem
+// mirrors pass B's total).  Every tile is K-major with 128-byte rows in the
+// 128-byte swizzle wgmma's descriptors read (gmma_desc): Q^ and G^ as 128
+// rows of D bytes; K^ and V^ as the block's 64 positions of D bytes; dS^ as
+// 128 rows of 64 positions; P^T and dS^T as 64 positions of 128 rows; Q^T
+// and G^T as D rows of 128; K^T as D rows of 64 positions.  xq: the dQ
+// partial a block's partner hands it, and before that each chunk's int32
+// dV and dK of the block's 64 positions on their way to the slice's sums
+// (512 D bytes: D / 4 ints a thread of 512, or D / 2 a thread of 256 where
+// D % 64 != 0; 2 x 64 x D ints).
+struct TcLayout {
+  size_t qs, gs, ks, vs, ds, pt, dst, qt, gt, kt, xq, misc, total;
+  __host__ __device__ TcLayout(int D, bool pass_b) {
+    qs = 0;
+    gs = qs + TILE;
+    ks = gs + TILE;
+    vs = ks + HTILE;
+    ds = pt = dst = qt = gt = kt = xq = misc = vs + HTILE;
+    if (pass_b) {
+      pt = ds + TILE;
+      dst = pt + HTILE;
+      qt = dst + HTILE;
+      gt = qt + (size_t)D * 128;
+      kt = gt + (size_t)D * 128;
+      xq = kt + (size_t)D * 128;
+      misc = xq + (size_t)TC_THREADS * D;
+    }
+    total = 1024 + misc + 128;  // 1024: the tiles' alignment
+  }
+};
+
+struct TcArgs {
+  const int8_t* qm; const int8_t* gm; const int8_t* km; const int8_t* vm;
+  const float* m; const float* l; const float* delta;
+  const uint32_t* rs; const uint32_t* rp2;
+  const int* eq; const int* ek; const int* ev; const int* eg;
+  int* e_tile;                 // (BH, NB, NS, 2): pass A's exponents of pn, ds
+  int* dk_acc; int* dv_acc;    // (BH, T, D) int32 sums
+  int* done;                   // (BH,) blocks of the slice finished
+  float* dq; float* dk; float* dv;
+  int GS, T, D, s, q_off, kv_len, causal, window, p, bt, NB, NS;  // NS = 2 x row tiles
+};
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Wait until the grid this one depends on (programmatic launch) is done
+// and its writes are visible; a no-op for a grid launched plainly.
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Byte k of row `row` of a swizzled K-major tile of 128-byte rows.
+__device__ __forceinline__ int sw128(int row, int k) {
+  return row * 128 + ((((k >> 4) ^ row) & 7) << 4) + (k & 15);
+}
+
+// Rows [0, rows) of a (rows_valid, D) int8 matrix into a K-major tile,
+// 16-byte asynchronous copies (complete after cp_async_wait_all); rows past
+// rows_valid zero (src is read only below rows_valid; the zero-filled
+// copies name `any`, a valid address, and read nothing).
+__device__ __forceinline__ void tile_rows(uint8_t* tile, const int8_t* __restrict__ src,
+                                          int rows, int rows_valid, int D, const int8_t* any) {
+  const int cpr = D / 16;
+  for (int x = threadIdx.x; x < rows * cpr; x += TC_THREADS) {
+    const int r = x / cpr, c = x % cpr;
+    const bool ok = r < rows_valid;
+    cp_async16(tile + sw128(r, 16 * c), ok ? src + (size_t)r * D + 16 * c : any, ok ? 16u : 0u);
+  }
+}
+
+// The transpose of `rows` rows of a K-major tile (D bytes each) into the
+// tile dst whose row d holds column d: a thread reads a word of four rows
+// and writes the four columns' words (byte permutes of the 4 x 4 block).
+__device__ __forceinline__ void tile_transpose(uint8_t* dst, const uint8_t* src, int rows,
+                                               int D) {
+  const int dw = D / 4;
+  for (int x = threadIdx.x; x < rows / 4 * dw; x += TC_THREADS) {
+    const int rg = x / dw, w = x % dw;
+    uint32_t in[4], out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      in[j] = *reinterpret_cast<const uint32_t*>(src + sw128(4 * rg + j, 4 * w));
+    transpose4(in, out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(dst + sw128(4 * w + i, 4 * rg)) = out[i];
+  }
+}
+
+// Every tile copy of this thread landed, and the block's tiles are visible
+// to the tensor cores.
+__device__ __forceinline__ void tiles_ready() {
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// S = Q^ K^^T and dP = G^ V^^T for a warpgroup's 64 rows and 32 positions
+// (a, b: shared addresses of the tiles' first rows).
+template <int D>
+__device__ __forceinline__ void score_tiles(int (&sacc)[16], int (&pacc)[16], uint32_t aq,
+                                            uint32_t ag, uint32_t bk, uint32_t bv) {
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < D / 32; ++s)
+    wgmma_s8_m64n32k32(sacc, gmma_desc(aq + 32 * s), gmma_desc(bk + 32 * s), s);
+#pragma unroll
+  for (int s = 0; s < D / 32; ++s)
+    wgmma_s8_m64n32k32(pacc, gmma_desc(ag + 32 * s), gmma_desc(bv + 32 * s), s);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_operands(sacc);
+  fence_operands(pacc);
+}
+
+// d (64 x N) (+)= a (64 x 32) * b (N x 32)^T at shared addresses a, b.
+template <int N>
+__device__ __forceinline__ void wgmma_nd(int (&d)[N / 2], uint32_t a, uint32_t b, int acc) {
+  if constexpr (N == 32) {
+    wgmma_s8_m64n32k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else if constexpr (N == 64) {
+    wgmma_s8_m64n64k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else {
+    static_assert(N == 96, "wgmma_nd takes N of 32, 64 or 96");
+    wgmma_s8_m64n64k32(*reinterpret_cast<int(*)[32]>(&d[0]), gmma_desc(a), gmma_desc(b), acc);
+    wgmma_s8_m64n32k32(*reinterpret_cast<int(*)[16]>(&d[32]), gmma_desc(a),
+                       gmma_desc(b + 64 * 128), acc);
+  }
+}
+
+// A block's share of the slice: row tile x / 2 (128 rows from r0), the half
+// x % 2 of each chunk (positions c0 + 64 ph, ...).  Warpgroup w takes rows
+// 64 rh (rh = w % 2) and 32 positions from 32 qh (qh = w / 2) of S and dP;
+// this thread's fragment rows rr and rr + 8 of them sit at query positions
+// qpos, with their stats.
+struct TcRows {
+  int r0, rows, ph, w, rh, qh, rr, c2;
+  int qpos[2];
+  float m[2], l[2], delta[2];
+  __device__ TcRows(const TcArgs& a, size_t bh, int x) {
+    const int tid = threadIdx.x, w4 = (tid / 32) % 4, lane = tid % 32;
+    r0 = x / 2 * RT;
+    ph = x % 2;
+    rows = min(RT, a.GS - r0);
+    w = tid / 128;
+    rh = w % 2;
+    qh = w / 2;
+    rr = 16 * w4 + lane / 4;
+    c2 = 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rh * 64 + rr + 8 * h;
+      const bool ok = row < rows;
+      const size_t gi = bh * a.GS + r0 + row;
+      qpos[h] = (r0 + row) % a.s + a.q_off;
+      m[h] = ok ? a.m[gi] : 0.0f;
+      l[h] = ok ? a.l[gi] : 0.0f;
+      delta[h] = ok ? a.delta[gi] : 0.0f;
+    }
+  }
+  __device__ bool ok(int h) const { return rh * 64 + rr + 8 * h < rows; }
+};
+
+// The KV blocks [lo, hi) that row tile rt can see.
+__device__ __forceinline__ void tile_range(const TcArgs& a, int rt, int* lo, int* hi) {
+  const int r0 = rt * RT, rows = min(RT, a.GS - r0);
+  int qmin, qmax;
+  strip_positions(r0, r0 + rows, a.s, a.q_off, &qmin, &qmax);
+  block_range(qmin, qmax, a.kv_len, a.bt, a.causal, a.window, lo, hi);
+}
+
+
+// Pass A, grid (row tile x 2 halves, KV block, slice): zero dk / dv's int32
+// sums and the completion counts (a grid-stride share), then the largest
+// effective exponents of pn and ds over this block's share of the (tile,
+// KV block) into its own slot.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1) attn_bwd_tc_exp_kernel(TcArgs a, int BH) {
+  extern __shared__ uint8_t smem_raw[];
+  launch_dependents();  // pass B's prologue may start
+  {
+    const size_t nblk = (size_t)gridDim.x * gridDim.y * gridDim.z;
+    const size_t id = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    const size_t n4 = (size_t)BH * a.T * D / 4;  // D % 32 == 0
+    const int4 z = make_int4(0, 0, 0, 0);
+    for (size_t i = id * TC_THREADS + threadIdx.x; i < n4; i += nblk * TC_THREADS) {
+      reinterpret_cast<int4*>(a.dk_acc)[i] = z;
+      reinterpret_cast<int4*>(a.dv_acc)[i] = z;
+    }
+    for (size_t i = id * TC_THREADS + threadIdx.x; i < (size_t)BH; i += nblk * TC_THREADS)
+      a.done[i] = 0;
+  }
+  uint8_t* base = align1024(smem_raw);
+  const TcLayout L(D, false);
+  int* red = reinterpret_cast<int*>(base + L.misc);
+  const size_t bh = blockIdx.z;
+  const int j = blockIdx.y;
+  int* slot = a.e_tile + 2 * (((size_t)bh * a.NB + j) * a.NS + blockIdx.x);
+  const TcRows R(a, bh, blockIdx.x);
+  int lo, hi;
+  tile_range(a, blockIdx.x / 2, &lo, &hi);
+  if (j < lo || j >= hi) {  // fully masked: every pn and ds is 0
+    if (threadIdx.x == 0) slot[0] = slot[1] = 1;
+    return;
+  }
+  const int GS = a.GS, T = a.T, p = a.p;
+  tile_rows(base + L.qs, a.qm + (bh * GS + R.r0) * (size_t)D, RT, R.rows, D, a.qm);
+  tile_rows(base + L.gs, a.gm + (bh * GS + R.r0) * (size_t)D, RT, R.rows, D, a.gm);
+  const float sc_qk = pow2f(scale_exp(*a.eq, p) + scale_exp(*a.ek, p));
+  const float sc_gv = pow2f(scale_exp(*a.eg, p) + scale_exp(*a.ev, p));
+  const uint32_t sb = repro::smem_u32(base);
+  const uint32_t aq = sb + (uint32_t)L.qs + R.rh * 64 * 128;
+  const uint32_t ag = sb + (uint32_t)L.gs + R.rh * 64 * 128;
+  int e_pn = 1, e_ds = 1;
+  for (int c0 = j * a.bt + HT * R.ph; c0 < min((j + 1) * a.bt, T); c0 += CT) {
+    if (c0 != j * a.bt + HT * R.ph) __syncthreads();  // the previous products are done
+    tile_rows(base + L.ks, a.km + (bh * T + c0) * (size_t)D, HT, T - c0, D, a.km);
+    tile_rows(base + L.vs, a.vm + (bh * T + c0) * (size_t)D, HT, T - c0, D, a.vm);
+    tiles_ready();
+    int sacc[16] = {}, pacc[16] = {};
+    score_tiles<D>(sacc, pacc, aq, ag, sb + (uint32_t)L.ks + R.qh * 32 * 128,
+                   sb + (uint32_t)L.vs + R.qh * 32 * 128);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int h = (i / 2) % 2;
+      const int t = c0 + 32 * R.qh + 8 * (i / 4) + R.c2 + i % 2;
+      const bool vis = R.ok(h) && visible(t, R.qpos[h], a.kv_len, a.causal, a.window);
+      float pn, ds;
+      recompute(sacc[i], pacc[i], vis, sc_qk, sc_gv, R.m[h], R.l[h], R.delta[h], &pn, &ds);
+      e_pn = max(e_pn, eff_exp(pn));
+      e_ds = max(e_ds, eff_exp(ds));
+    }
+  }
+  for (int o = 16; o > 0; o /= 2) {
+    e_pn = max(e_pn, __shfl_xor_sync(0xffffffffu, e_pn, o));
+    e_ds = max(e_ds, __shfl_xor_sync(0xffffffffu, e_ds, o));
+  }
+  constexpr int WARPS = TC_THREADS / 32;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    red[warp] = e_pn;
+    red[WARPS + warp] = e_ds;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < WARPS; ++w) {
+      e_pn = max(e_pn, red[w]);
+      e_ds = max(e_ds, red[WARPS + w]);
+    }
+    slot[0] = e_pn;
+    slot[1] = e_ds;
+  }
+}
+
+// The tile exponents of KV block j, reduced over its NS slots by every warp
+// (the slots loaded in parallel, lane by lane).
+__device__ __forceinline__ void block_exps(const TcArgs& a, size_t bh, int j, int* e_pn,
+                                           int* e_ds) {
+  const int* s = a.e_tile + 2 * ((size_t)bh * a.NB + j) * a.NS;
+  int x = 1, y = 1;
+  for (int t = threadIdx.x % 32; t < a.NS; t += 32) {
+    x = max(x, s[2 * t]);
+    y = max(y, s[2 * t + 1]);
+  }
+  for (int o = 16; o > 0; o /= 2) {
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+    y = max(y, __shfl_xor_sync(0xffffffffu, y, o));
+  }
+  *e_pn = x;
+  *e_ds = y;
+}
+
+// Pass B, grid (row tile x 2 halves, slice), clusters of the two halves of
+// a row tile; launched to overlap pass A, it copies its first tiles in,
+// then waits for pass A.  The KV blocks its rows see, in index order, each
+// in chunks of 128 positions of which a block takes its half's 64: S and dP
+// again, pn and ds quantized against the bits with the KV block's
+// exponents into dS^ (row-major), P^T and dS^T; dV = P^T G^ (two
+// warpgroups, a column half each where D % 64 == 0) and dK = dS^T Q^ (the
+// other two) over the tile's 128 rows; dQ's int32 sum over the block's half
+// of the KV block, dS^ K^ (rows by warpgroup, columns halved likewise),
+// which the second half hands to the first through distributed shared
+// memory, and the first rounds the sum into dq in block order.  The dV, dK
+// of the row tiles meet in the partial mode as plain stores, and the last
+// tile done with a half chunk (by its count) sums them (exact in any order)
+// and writes that half's dk, dv; in the sums' mode with one integer atomic
+// an element and tile, and the last block of a slice scales the sums.
+template <int D, bool STOCH>
+__global__ void __launch_bounds__(TC_THREADS, 1) attn_bwd_tc_kernel(TcArgs a) {
+  constexpr int NSPLIT = D % 64 == 0 ? 2 : 1;  // column halves of dV / dK / dQ
+  constexpr int DN = D / NSPLIT;               // columns a warpgroup takes
+  constexpr int DQT = 256 * NSPLIT;            // threads of the dQ warpgroups
+  extern __shared__ uint8_t smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  cluster_arrive_relaxed();  // no block reads its partner before both run
+  uint8_t* base = align1024(smem_raw);
+  const TcLayout L(D, true);
+  int* misc = reinterpret_cast<int*>(base + L.misc);
+  int* xq = reinterpret_cast<int*>(base + L.xq);
+  const size_t bh = blockIdx.y;
+  const int GS = a.GS, T = a.T, p = a.p;
+  const TcRows R(a, bh, blockIdx.x);
+  const int8_t* qg = a.qm + (bh * GS + R.r0) * (size_t)D;
+  const int8_t* gg = a.gm + (bh * GS + R.r0) * (size_t)D;
+  const int sq = scale_exp(*a.eq, p), sk = scale_exp(*a.ek, p);
+  const int sv = scale_exp(*a.ev, p), sg = scale_exp(*a.eg, p);
+  const float sc_qk = pow2f(sq + sk), sc_gv = pow2f(sg + sv);
+  const uint32_t sb = repro::smem_u32(base);
+  const uint32_t aq = sb + (uint32_t)L.qs + R.rh * 64 * 128;
+  const uint32_t ag = sb + (uint32_t)L.gs + R.rh * 64 * 128;
+  const uint32_t bk = sb + (uint32_t)L.ks + R.qh * 32 * 128;
+  const uint32_t bv = sb + (uint32_t)L.vs + R.qh * 32 * 128;
+  // dV / dK: warpgroup w takes product which (0 dV, 1 dK) and column half
+  // ch; dQ: rows rh, column half qh
+  const int which = NSPLIT == 2 ? R.w / 2 : R.w, ch = NSPLIT == 2 ? R.w % 2 : 0;
+  const bool kv_wg = R.w < 2 * NSPLIT, dq_wg = R.qh < NSPLIT;
+  const uint32_t akv = sb + (uint32_t)(which ? L.dst : L.pt);
+  const uint32_t bkv = sb + (uint32_t)(which ? L.qt : L.gt) + ch * DN * 128;
+  const uint32_t ads = sb + (uint32_t)L.ds + R.rh * 64 * 128;
+  const uint32_t bkt = sb + (uint32_t)L.kt + R.qh * DN * 128;
+  const bool t_even = T % 2 == 0;
+  int lo, hi;
+  tile_range(a, blockIdx.x / 2, &lo, &hi);
+
+  // a chunk's K^ and V^ tiles (asynchronous copies)
+  auto copy_chunk = [&](int c0) {
+    tile_rows(base + L.ks, a.km + (bh * T + c0) * (size_t)D, HT, T - c0, D, a.km);
+    tile_rows(base + L.vs, a.vm + (bh * T + c0) * (size_t)D, HT, T - c0, D, a.vm);
+  };
+  tile_rows(base + L.qs, qg, RT, R.rows, D, a.qm);
+  tile_rows(base + L.gs, gg, RT, R.rows, D, a.gm);
+  if (lo < hi) copy_chunk(lo * a.bt + HT * R.ph);
+  cp_async_wait_all();
+  __syncthreads();
+  tile_transpose(base + L.qt, base + L.qs, RT, D);  // Q^T, G^T from the tiles
+  tile_transpose(base + L.gt, base + L.gs, RT, D);
+  tile_transpose(base + L.kt, base + L.ks, HT, D);  // K^T of the first chunk
+  cluster_wait();  // both halves run
+  wait_primary();  // pass A's exponents and zeroed sums
+
+  for (int j = lo; j < hi; ++j) {
+    int e_pn, e_ds;
+    block_exps(a, bh, j, &e_pn, &e_ds);
+    int dqi[DN / 2];
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) dqi[i] = 0;
+    // both halves walk the same chunks (a half past T is all zeros, masked)
+    const int c_first = j * a.bt + HT * R.ph;
+    for (int cc = j * a.bt; cc < j * a.bt + min(a.bt, T - j * a.bt); cc += CT) {
+      const int c0 = cc + HT * R.ph;
+      if (j != lo || cc != j * a.bt) {
+        __syncthreads();  // the previous chunk's products are done
+        copy_chunk(c0);
+        cp_async_wait_all();
+        __syncthreads();
+        tile_transpose(base + L.kt, base + L.ks, HT, D);  // K^T of the chunk
+      }
+      fence_proxy_async();
+      __syncthreads();
+      int sacc[16] = {}, pacc[16] = {};
+      score_tiles<D>(sacc, pacc, aq, ag, bk, bv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int jj = k / 2, h = k % 2;
+        const int row = R.rh * 64 + R.rr + 8 * h;
+        const int cp = 32 * R.qh + 8 * jj + R.c2;  // position in the block's 64
+        const int t = c0 + cp;
+        // the pair's rounding bits (positions t, t + 1 of row `row`)
+        uint2 bpn = make_uint2(0u, 0u), bds = bpn;
+        if (STOCH && R.ok(h) && t < T) {
+          const size_t gi = (bh * GS + R.r0 + row) * (size_t)T + t;
+          if (t_even) {
+            bpn = *reinterpret_cast<const uint2*>(a.rp2 + gi);
+            bds = *reinterpret_cast<const uint2*>(a.rs + gi);
+          } else {
+            bpn.x = a.rp2[gi];
+            bds.x = a.rs[gi];
+            if (t + 1 < T) {
+              bpn.y = a.rp2[gi + 1];
+              bds.y = a.rs[gi + 1];
+            }
+          }
+        }
+        int qpn[2], qds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * h + e;
+          const bool vis = R.ok(h) && visible(t + e, R.qpos[h], a.kv_len, a.causal, a.window);
+          float pn, ds;
+          recompute(sacc[i], pacc[i], vis, sc_qk, sc_gv, R.m[h], R.l[h], R.delta[h], &pn, &ds);
+          qpn[e] = quantize_one(pn, e ? bpn.y : bpn.x, e_pn, p, STOCH);
+          qds[e] = quantize_one(ds, e ? bds.y : bds.x, e_ds, p, STOCH);
+        }
+        *reinterpret_cast<uint16_t*>(base + L.ds + sw128(row, cp)) =
+            (uint16_t)((qds[0] & 0xFF) | ((qds[1] & 0xFF) << 8));
+        base[L.pt + sw128(cp, row)] = (uint8_t)qpn[0];
+        base[L.pt + sw128(cp + 1, row)] = (uint8_t)qpn[1];
+        base[L.dst + sw128(cp, row)] = (uint8_t)qds[0];
+        base[L.dst + sw128(cp + 1, row)] = (uint8_t)qds[1];
+      }
+      fence_proxy_async();
+      __syncthreads();
+      // dV or dK of the 64 positions over the tile's rows, DN columns, and
+      // dQ's int32 sum over the block, dS^ K^, in one commit group
+      int acc[DN / 2];
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) acc[i] = 0;
+      wgmma_fence();
+      if (kv_wg)
+#pragma unroll
+        for (int s = 0; s < RT / 32; ++s) wgmma_nd<DN>(acc, akv + 32 * s, bkv + 32 * s, s);
+      if (dq_wg)
+#pragma unroll
+        for (int s = 0; s < HT / 32; ++s)
+          wgmma_nd<DN>(dqi, ads + 32 * s, bkt + 32 * s, c0 == c_first && s == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_operands(acc);
+      fence_operands(dqi);
+      // the tile's dV, dK added to the slice's sums by the bulk-copy engine
+      // (element by element atomically, exact in any order), staged as rows
+      // of D ints in the dS^, P^T, dS^T tiles (free once the products are
+      // done): both at once where they fit, else dV, then dK
+      int* stg = reinterpret_cast<int*>(base + L.ds);
+      constexpr int PER = 2 * HT * D * 4 <= TILE + 2 * HTILE ? 2 : 1;
+      __syncthreads();  // every warpgroup's products are done
+#pragma unroll
+      for (int w0 = 0; w0 < 2; w0 += PER) {
+        if (kv_wg && which >= w0 && which < w0 + PER) {
+          int* dst = stg + (which - w0) * HT * D;
+#pragma unroll
+          for (int i = 0; i < DN / 2; i += 2) {
+            const int pos = R.rr + 8 * ((i / 2) % 2);
+            const int d = ch * DN + 8 * (i / 4) + R.c2;
+            *reinterpret_cast<int2*>(dst + pos * D + d) = make_int2(acc[i], acc[i + 1]);
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+        if (threadIdx.x == 0 && c0 < T) {
+          const uint32_t bytes = (uint32_t)min(HT, T - c0) * D * 4;
+          for (int w = w0; w < w0 + PER; ++w)
+            bulk_add_s32((w ? a.dk_acc : a.dv_acc) + (bh * T + c0) * (size_t)D,
+                         stg + (w - w0) * HT * D, bytes);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        __syncthreads();  // the staging is read
+      }
+    }
+    // the second half's dQ sum into the first's; the first rounds
+    // float(dS^ K^) * 2^(e_ds + sk) into dq, in block order
+    if (R.ph == 1 && dq_wg) {
+      int* dst = cl.map_shared_rank(xq, 0);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) dst[i * DQT + threadIdx.x] = dqi[i];
+    }
+    cluster_sync();
+    if (R.ph == 0 && dq_wg) {
+      const float sc_dq = pow2f(scale_exp(e_ds, p) + sk);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) {
+        const int h = (i / 2) % 2;
+        if (!R.ok(h)) continue;
+        float* q = a.dq + (bh * GS + R.r0 + R.rh * 64 + R.rr + 8 * h) * (size_t)D +
+                   R.qh * DN + 8 * (i / 4) + R.c2 + i % 2;
+        const float v = __fmul_rn(__int2float_rn(dqi[i] + xq[i * DQT + threadIdx.x]), sc_dq);
+        *q = j == lo ? __fadd_rn(0.0f, v) : __fadd_rn(*q, v);
+      }
+    }
+    cluster_sync();  // the hand-over is read
+  }
+  if (lo >= hi && R.ph == 0)  // no visible block: dq stays 0
+    for (int x = threadIdx.x; x < R.rows * D; x += TC_THREADS)
+      a.dq[(bh * GS + R.r0) * (size_t)D + x] = 0.0f;
+
+  // the last block of the slice to finish scales its dk and dv
+  if (threadIdx.x == 0) bulk_wait_done();
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) misc[0] = atomicAdd(&a.done[bh], 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!misc[0]) return;
+  __threadfence();
+  int* eb = reinterpret_cast<int*>(base + L.ds);  // the products are done
+  for (int j = threadIdx.x / 32; j < a.NB; j += TC_THREADS / 32) {
+    int x, y;
+    block_exps(a, bh, j, &x, &y);
+    if (threadIdx.x % 32 == 0) {
+      eb[2 * j] = x;
+      eb[2 * j + 1] = y;
+    }
+  }
+  __syncthreads();
+  const size_t off = bh * (size_t)T * D;
+  const int4* k4 = reinterpret_cast<const int4*>(a.dk_acc + off);
+  const int4* v4 = reinterpret_cast<const int4*>(a.dv_acc + off);
+#pragma unroll 4
+  for (int x = threadIdx.x; x < T * D / 4; x += TC_THREADS) {
+    const int j = 4 * x / D / a.bt;
+    const float fk = pow2f(scale_exp(eb[2 * j + 1], p) + sq);
+    const float fv = pow2f(scale_exp(eb[2 * j], p) + sg);
+    const int4 k = __ldcg(k4 + x), v = __ldcg(v4 + x);
+    reinterpret_cast<float4*>(a.dk + off)[x] =
+        make_float4(__fmul_rn(__int2float_rn(k.x), fk), __fmul_rn(__int2float_rn(k.y), fk),
+                    __fmul_rn(__int2float_rn(k.z), fk), __fmul_rn(__int2float_rn(k.w), fk));
+    reinterpret_cast<float4*>(a.dv + off)[x] =
+        make_float4(__fmul_rn(__int2float_rn(v.x), fv), __fmul_rn(__int2float_rn(v.y), fv),
+                    __fmul_rn(__int2float_rn(v.z), fv), __fmul_rn(__int2float_rn(v.w), fv));
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -646,6 +1222,92 @@ int repro_attn_bwd(const void* qm, const void* gm, const void* km, const void* v
   kern<<<dim3(strips, BH), BWD_THREADS, smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   attn_bwd_scale_kernel<<<264, 256, 0, st>>>(a, BH);
+  return (int)cudaGetLastError();
+}
+
+// The backward on the tensor cores (D of 32, 64, 96 or 128): the same
+// operands as repro_attn_bwd; scratch: e (BH, NB, 2 ceil(GS / 128), 2),
+// acc (2, BH, T, D) and done (BH,) int32, none of them zeroed by the caller
+// (pass A writes every slot and zeroes acc and done).  Pass B is launched
+// on clusters of two blocks and may start before pass A ends (programmatic
+// dependent launch: it waits for pass A before reading what pass A
+// writes).  qm, gm, km, vm, rs, rp2, acc 16-byte aligned, the stats and
+// exponents 4-byte, else cudaErrorInvalidValue.
+int repro_attn_bwd_tc(const void* qm, const void* gm, const void* km, const void* vm,
+                      const void* m, const void* l, const void* delta, const void* rs,
+                      const void* rp2, const void* eq, const void* ek, const void* ev,
+                      const void* eg, void* e_scratch, void* acc_scratch, void* done,
+                      void* dq, void* dk, void* dv, int BH, int GS, int T, int D, int s,
+                      int q_off, int kv_len, int causal, int window, int p, int bt,
+                      int stochastic, void* stream) {
+  if ((D != 32 && D != 64 && D != 96 && D != 128) || bt % CT || bt <= 0)
+    return (int)cudaErrorInvalidValue;
+  for (const void* x : {qm, gm, km, vm, rs, rp2, (const void*)acc_scratch})
+    if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorInvalidValue;
+  for (const void* x : {m, l, delta, eq, ek, ev, eg, (const void*)e_scratch, (const void*)done})
+    if (reinterpret_cast<uintptr_t>(x) % 4) return (int)cudaErrorInvalidValue;
+  TcArgs a;
+  a.qm = static_cast<const int8_t*>(qm);
+  a.gm = static_cast<const int8_t*>(gm);
+  a.km = static_cast<const int8_t*>(km);
+  a.vm = static_cast<const int8_t*>(vm);
+  a.m = static_cast<const float*>(m);
+  a.l = static_cast<const float*>(l);
+  a.delta = static_cast<const float*>(delta);
+  a.rs = static_cast<const uint32_t*>(rs);
+  a.rp2 = static_cast<const uint32_t*>(rp2);
+  a.eq = static_cast<const int*>(eq);
+  a.ek = static_cast<const int*>(ek);
+  a.ev = static_cast<const int*>(ev);
+  a.eg = static_cast<const int*>(eg);
+  a.e_tile = static_cast<int*>(e_scratch);
+  a.dk_acc = static_cast<int*>(acc_scratch);
+  a.dv_acc = a.dk_acc + (size_t)BH * T * D;
+  a.done = static_cast<int*>(done);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.GS = GS; a.T = T; a.D = D; a.s = s; a.q_off = q_off; a.kv_len = kv_len;
+  a.causal = causal; a.window = window; a.p = p; a.bt = bt;
+  a.NB = (T + bt - 1) / bt;
+  a.NS = 2 * ((GS + RT - 1) / RT);
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem_a = TcLayout(D, false).total, smem_b = TcLayout(D, true).total;
+  void (*kern_a)(TcArgs, int) = D == 32   ? attn_bwd_tc_exp_kernel<32>
+                                : D == 64  ? attn_bwd_tc_exp_kernel<64>
+                                : D == 96  ? attn_bwd_tc_exp_kernel<96>
+                                           : attn_bwd_tc_exp_kernel<128>;
+  cudaError_t err = set_smem(kern_a, smem_a);
+  if (err != cudaSuccess) return (int)err;
+  kern_a<<<dim3(a.NS, a.NB, BH), TC_THREADS, smem_a, st>>>(a, BH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  void (*kern)(TcArgs) = nullptr;
+  switch (D * 2 + (stochastic ? 1 : 0)) {
+    case 64: kern = attn_bwd_tc_kernel<32, false>; break;
+    case 65: kern = attn_bwd_tc_kernel<32, true>; break;
+    case 128: kern = attn_bwd_tc_kernel<64, false>; break;
+    case 129: kern = attn_bwd_tc_kernel<64, true>; break;
+    case 192: kern = attn_bwd_tc_kernel<96, false>; break;
+    case 193: kern = attn_bwd_tc_kernel<96, true>; break;
+    case 256: kern = attn_bwd_tc_kernel<128, false>; break;
+    default: kern = attn_bwd_tc_kernel<128, true>; break;
+  }
+  if ((err = set_smem(kern, smem_b)) != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.NS, (unsigned)BH);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem_b;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  if ((err = cudaLaunchKernelEx(&cfg, kern, a)) != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

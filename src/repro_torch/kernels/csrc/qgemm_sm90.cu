@@ -138,8 +138,11 @@
 
 namespace {
 
+using repro::align1024;
 using repro::bulk_load;
 using repro::eff_exp;
+using repro::fence_operands;
+using repro::gmma_desc;
 using repro::mbar_arrive;
 using repro::mbar_expect_tx;
 using repro::mbar_fence_init;
@@ -150,15 +153,15 @@ using repro::pow2f;
 using repro::quantize_one;
 using repro::scale_exp;
 using repro::smem_u32;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_s8;
+using repro::wgmma_wait0;
+using repro::wgmma_wait1;
 
 // ---------------------------------------------------------------------------
-// PTX helpers: TMA, wgmma (mbarriers, bulk copies, mma.sync: sm90.cuh)
+// PTX helpers: TMA (mbarriers, bulk copies, mma.sync, wgmma: sm90.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t s = smem_u32(p);
-  return p + (((s + 1023u) & ~1023u) - s);
-}
 
 // One 3-D box of a tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -173,99 +176,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile of 128-byte rows written
-// by TMA with the 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), the
-// leading offset unused (1), layout 1 = SWIZZLE_128B.  Advancing the start
-// address by 32 bytes steps one k32 slice along the swizzled row.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-
-// After a wait: the accumulators are read only from here on (the compiler
-// sees no asynchronous write behind the wgmma statement otherwise).
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (64 x 128 int32, the warpgroup's fragment) = a (64 x 32) * b (128 x 32)^T,
-// plus d when acc != 0.
-__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
-                                                    uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
-        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
-        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
-        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
-        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
-        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
-        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// The same with a 64 x 64 fragment: d (64 x 64 int32) = a (64 x 32) * b (64 x 32)^T.
-__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
-                                                   uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
-        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
-        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
-        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db,
-                                         int acc) {
-  if constexpr (BN == 128)
-    wgmma_s8_m64n128k32(d, da, db, acc);
-  else
-    wgmma_s8_m64n64k32(d, da, db, acc);
 }
 
 // Four consecutive f32 values and their bits -> four int8 mantissas packed

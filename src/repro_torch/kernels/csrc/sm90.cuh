@@ -1,5 +1,7 @@
-// Shared Hopper (sm_90a) helpers of the port's kernels: shared-memory
-// addresses, mbarriers, 1-D bulk copies and the int8 mma.sync (PTX).
+// Shared Hopper (sm_90a) helpers of the port's kernels (PTX): shared-memory
+// addresses, mbarriers, 1-D bulk copies, the int8 mma.sync, the int8
+// warpgroup MMA (wgmma) with its descriptors, and thread-block-cluster
+// barriers.
 #pragma once
 
 #include <stdint.h>
@@ -8,6 +10,13 @@ namespace repro {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// p rounded up to the next 1024-byte boundary of shared memory (the
+// 128-byte swizzle's atom).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t s = smem_u32(p);
+  return p + (((s + 1023u) & ~1023u) - s);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -57,6 +66,74 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Four words of four rows (bytes = four columns) -> four words of four
+// columns (bytes = the four rows): o[i] byte j = w[j] byte i.
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&o)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
+  o[0] = __byte_perm(lo01, lo23, 0x5410);
+  o[1] = __byte_perm(lo01, lo23, 0x7632);
+  o[2] = __byte_perm(hi01, hi23, 0x5410);
+  o[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// dst[i] += src[i] for `bytes` / 4 int32 from shared src into global dst
+// (both 16-byte aligned, a multiple of 16 bytes), element by element
+// atomically, by the bulk-copy engine; tracked by the thread's bulk group.
+__device__ __forceinline__ void bulk_add_s32(void* dst, const void* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.s32 [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk groups have read their shared-memory sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// This thread's bulk groups are complete, their global writes made visible
+// to the generic proxy.
+__device__ __forceinline__ void bulk_wait_done() {
+  asm volatile("cp.async.bulk.wait_group 0;\nfence.proxy.async.global;\n" ::: "memory");
+}
+
+// 16 bytes from global src into shared dst (both 16-byte aligned) without
+// registers; bytes past src_bytes (16 or 0) are zero-filled.  Complete
+// after cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global src into shared dst (both 4-byte aligned), zero-filled
+// past src_bytes (4 or 0).  Complete after cp_async_wait_all.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Close this thread's group of asynchronous copies issued since the last.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Every group of this thread but the newest N has landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 // c (16 x 8 int32) += a (16 x 32 s8, row) * b (32 x 8 s8, col).
 __device__ __forceinline__ void mma_s8_m16n8k32(int (&c)[4], uint32_t a0,
                                                 uint32_t a1, uint32_t a2,
@@ -67,6 +144,140 @@ __device__ __forceinline__ void mma_s8_m16n8k32(int (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Shared-memory matrix descriptor of a K-major tile of 128-byte rows written
+// by TMA with the 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), the
+// leading offset unused (1), layout 1 = SWIZZLE_128B.  Advancing the start
+// address by 32 bytes steps one k32 slice along the swizzled row.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// After a wait: the accumulators are read only from here on (the compiler
+// sees no asynchronous write behind the wgmma statement otherwise).
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128 int32, the warpgroup's fragment) = a (64 x 32) * b (128 x 32)^T,
+// plus d when acc != 0.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da,
+                                                    uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
+        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// The same with a 64 x 64 fragment: d (64 x 64 int32) = a (64 x 32) * b (64 x 32)^T.
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db,
+                                         int acc) {
+  if constexpr (BN == 128)
+    wgmma_s8_m64n128k32(d, da, db, acc);
+  else
+    wgmma_s8_m64n64k32(d, da, db, acc);
+}
+
+// The same with a 64 x 32 fragment: d (64 x 32 int32) = a (64 x 32) * b (32 x 32)^T.
+__device__ __forceinline__ void wgmma_s8_m64n32k32(int (&d)[16], uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// Shared memory written by threads (the generic proxy) made visible to the
+// wgmma and bulk-copy engines (the async proxy): before the barrier that
+// hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Thread-block-cluster barrier halves: every thread of every block of the
+// cluster arrives, then waits.  arrive_relaxed orders nothing (a start
+// signal); arrive releases and wait acquires this thread's shared-memory
+// writes, remote ones included.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 }  // namespace repro

@@ -165,7 +165,10 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              **{f"ii_{v}": c for v, c in kfl.ii_variants.items()},
              **{f"qq_blk_{v}": c for v, c in kfl.qq_blk_variants.items()},
              **{f"int8_matmul_{v}": c
-                for v, c in kim.int8_matmul_variants.items()}}
+                for v, c in kim.int8_matmul_variants.items()},
+             **{f"attn_decode_n{n}": c
+                for n, c in kfa.attn_decode_splits.items()},
+             **{f"attn_bwd_{v}": c for v, c in kfa.attn_bwd_variants.items()}}
 
 
 def kernel_launches() -> dict:
@@ -175,7 +178,9 @@ def kernel_launches() -> dict:
     ``qq_blk_wgmma64``, ``qq_blk_dp4a``), the ``int8_matmul`` ones
     (``int8_matmul_wgmma``, ``_stream``, ``_wmma``) and those of
     ``gemm_epi`` and ``norm_gemm`` (``gemm_epi_wgmma``, ``_dp4a``,
-    ``norm_gemm_wgmma``, ``_dp4a``)."""
+    ``norm_gemm_wgmma``, ``_dp4a``), ``attn_decode`` by cluster size
+    (``attn_decode_n1`` ... ``attn_decode_n16``) and ``attn_bwd`` by route
+    (``attn_bwd_wgmma``, ``attn_bwd_dp4a``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
@@ -307,11 +312,14 @@ def plan_attention(op: str, gs: int, t: int, d: int, cfg: QuantConfig, *,
     if d % 4 or d > 256:
         return decide(JNP, f"decode kernel needs D % 4 == 0 and D <= 256, "
                            f"got D={d}")
+    n = kfa.decode_split(gs, t, d)
     need = kfa.decode_smem_bytes(gs, t, d)
     if need > kfa.SMEM_LIMIT:
-        return decide(JNP, f"T={t} needs {need} B of shared memory, over "
-                           f"the decode kernel's {kfa.SMEM_LIMIT}")
-    return decide(FUSED, "decode band fits the kernel's shared memory")
+        return decide(JNP, f"T={t} needs {need} B of shared memory a block "
+                           f"of a {n}-block cluster, over the decode "
+                           f"kernel's {kfa.SMEM_LIMIT}")
+    return decide(FUSED, f"decode band fits the shared memory of a {n}-block "
+                         f"cluster")
 
 
 # ---------------------------------------------------------------------------
@@ -477,9 +485,14 @@ def attn_bwd(qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,
     ``kernels.fused_attention.attn_bwd``)."""
     run = kfa.attn_bwd_plain if _plain_on_card else kfa.attn_bwd
     c = (lambda x: None if x is None else x.contiguous())
-    return run(c(qm), c(gm), c(km), c(vm), c(m), c(l), c(delta), c(rs),
-               c(rp2), eq, ek, ev, eg, q_off, kv_len, p=p, s=s, bt=bt,
-               causal=causal, window=window, stochastic=stochastic)
+    qm, gm, km, vm, m, l, delta, rs, rp2 = (
+        c(x) for x in (qm, gm, km, vm, m, l, delta, rs, rp2))
+    if qm.is_cuda and not _plain_on_card:
+        qm, gm, km, vm = (_aligned_to(x, 16) for x in (qm, gm, km, vm))
+        rs, rp2 = (None if x is None else _aligned_to(x, 16) for x in (rs, rp2))
+    return run(qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,
+               kv_len, p=p, s=s, bt=bt, causal=causal, window=window,
+               stochastic=stochastic)
 
 
 def attn_decode(qm, km, vm, ek_rows, ev_rows, rp, eq, q_off, kv_len, *, p,
@@ -487,8 +500,10 @@ def attn_decode(qm, km, vm, ek_rows, ev_rows, rp, eq, q_off, kv_len, *, p,
     """Run a FUSED decode-attention decision (see
     ``kernels.fused_attention.attn_decode``)."""
     run = kfa.attn_decode_plain if _plain_on_card else kfa.attn_decode
-    return run(qm.contiguous(), km.contiguous(), vm.contiguous(),
-               ek_rows.contiguous(), ev_rows.contiguous(),
+    qm, km, vm = (x.contiguous() for x in (qm, km, vm))
+    if qm.is_cuda and not _plain_on_card:
+        qm, km, vm = (_aligned_to(x, 16) for x in (qm, km, vm))
+    return run(qm, km, vm, ek_rows.contiguous(), ev_rows.contiguous(),
                None if rp is None else rp.contiguous(), eq, q_off, kv_len,
                p=p, s=s, causal=causal, window=window, stochastic=stochastic)
 

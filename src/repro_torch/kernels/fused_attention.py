@@ -8,7 +8,8 @@ r % s + q_off):
                    decode off the int8 cache, K-row exponents as a column
                    epilogue, a float32 softmax, the V-row exponents folded
                    into p, p quantized per query row over the band, int8
-                   PV.  Kernel: ``csrc/fused_attention.cu``.
+                   PV.  Kernel: ``csrc/fused_attention.cu``, one
+                   thread-block cluster a slice (``decode_split``).
   ``attn_fwd``     <- ``fused_attn_fwd_pallas`` (``_fwd_blocks``): the
                    qflow training forward over per-tensor mantissas, an
                    online softmax over KV blocks of ``bt`` positions, p
@@ -17,13 +18,16 @@ r % s + q_off):
                    integer backward, probabilities recomputed from the
                    saved row stats, pn and dS quantized with one exponent
                    per (slice, block) tile.  Kernels of both:
-                   ``csrc/attn_train.cu``.
+                   ``csrc/attn_train.cu``; the backward on ``wgmma`` or
+                   ``__dp4a`` (``attn_bwd_variant``).
 
 Each ``*_plain`` repeats the JAX reference's arithmetic in torch, float
 ops rounded as XLA's CPU build rounds them (``core.fmath``: the Cephes
 exp, fused multiply-adds, window-of-32 sums).  The wrappers take the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or raises.
-Each source's note says what bounds its kernels.
+Each source's note says what bounds its kernels.  The wrappers raise on
+an operand off the alignment the kernels' loads need (``attn_misaligned``);
+``kernels.dispatch`` copies such an operand first.
 """
 
 from __future__ import annotations
@@ -35,26 +39,111 @@ import torch
 
 from ..core import fmath
 from . import build
-from .fused_linear import (_check, _ptr, _raise_on, _scalar_i32, as_u32,
-                           eff_exp, int8_dot, pow2_f32, quantize_tile,
-                           scale_exp)
+from .fused_linear import (_check, _Launches, _ptr, _raise_on, _scalar_i32,
+                           as_u32, eff_exp, int8_dot, pow2_f32,
+                           quantize_tile, scale_exp)
 
 __all__ = ["attn_decode", "attn_decode_plain", "decode_p_plain",
-           "decode_smem_bytes", "attn_fwd", "attn_fwd_plain", "attn_bwd",
-           "attn_bwd_plain", "train_smem_bytes", "bwd_strip", "SMEM_LIMIT"]
+           "decode_smem_bytes", "decode_split", "DECODE_SPLITS",
+           "attn_decode_splits", "attn_misaligned", "attn_fwd",
+           "attn_fwd_plain", "attn_bwd", "attn_bwd_plain",
+           "attn_bwd_variant", "ATTN_BWD_VARIANTS", "attn_bwd_variants",
+           "train_smem_bytes", "bwd_strip", "SMEM_LIMIT"]
 
 _NEG = -1e30          # models.attention._NEG
 # Dynamic shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
-_DECODE_WARPS = 8
+# The decode kernel's block (``csrc/fused_attention.cu`` DecLayout): its
+# threads, the positions a ring stage holds, the largest cluster and the
+# rounding bits it prefetches into shared memory.
+_DEC_THREADS, _DEC_CH, _DEC_NMAX, _DEC_BPRE = 256, 128, 16, 2048
+# Windows of 32 positions a block takes at the least: a shorter band runs
+# faster on fewer blocks than the cluster's exchanges cost.
+_DEC_MIN_WINDOWS = 8
+# Cluster sizes ``decode_split`` can name, each with a launch counter.
+DECODE_SPLITS = tuple(range(1, _DEC_NMAX + 1))
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _decode_layout_bytes(gs: int, t: int, d: int, n: int) -> int:
+    """Shared memory one block of an ``n``-block decode cluster needs
+    (``DecLayout``): its ring of K / V row chunks, the query padded to 16
+    rows, its range's f32 scores (one pad float a window) and int8 p, every
+    window sum of every row and their second-level sums, the exchanged row
+    maxima and exponents, the int32 PV sums, prefetched row exponents and
+    bits, the ring's mbarriers."""
+    m = -(-t // 32)
+    w = -(-m // n)
+    dp = -(-d // 32) * 32
+    stages = 4 if dp <= 64 else 2
+    kld = -(-32 * w // _DEC_CH) * _DEC_CH + 16
+    off = 0
+    for size in (stages * _DEC_CH * dp,            # ring
+                 16 * -(-gs // 16) * dp,           # query
+                 4 * gs * 33 * w,                  # scores
+                 gs * kld,                         # p
+                 4 * gs * (m + m // 32 + 1),       # window sums
+                 4 * gs * 2 * -(-m // 32),         # their second level
+                 4 * _DEC_NMAX * gs,               # row maxima
+                 4 * _DEC_NMAX * gs,               # row exponents
+                 4 * gs,                           # the row's exponent
+                 4 * gs,                           # the row's query position
+                 4 * gs * dp,                      # PV sums
+                 4 * 2 * _DEC_THREADS,             # row exponents of K, V
+                 4 * min(gs * 32 * w, _DEC_BPRE)):  # rounding bits
+        off = _a16(off + size)
+    return off + 8 * stages
+
+
+def decode_split(gs: int, t: int, d: int) -> int:
+    """Blocks of the thread-block cluster that runs one decode slice: the
+    band's m windows of 32 positions (``fmath.sum_windows``) spread evenly,
+    whole windows a block, at least 8 a block (one block up to 256
+    positions, T <= 32 included) over at most 8 blocks, or over at most 16
+    where 8 blocks' shared memory cannot hold their ranges."""
+    m = -(-t // 32)
+    n = -(-m // max(_DEC_MIN_WINDOWS, -(-m // 8)))
+    if _decode_layout_bytes(gs, t, d, n) <= SMEM_LIMIT:
+        return n
+    return -(-m // -(-m // _DEC_NMAX))
 
 
 def decode_smem_bytes(gs: int, t: int, d: int) -> int:
-    """Shared memory the decode kernel needs for one slice: f32 scores and
-    int8 p for (GS, T), the packed query and int32 PV sums for (GS, D),
-    and each warp's window sums of a softmax row."""
-    return (4 * gs * t + 4 * gs * d + gs * d + 4 * gs
-            + 4 * _DECODE_WARPS * -(-t // 32) + gs * t)
+    """Shared memory one block of the decode kernel needs for a (GS, T, D)
+    slice on the cluster ``decode_split`` names."""
+    return _decode_layout_bytes(gs, t, d, decode_split(gs, t, d))
+
+
+# The alignment (bytes) each operand's loads need: 16-byte loads and bulk
+# or asynchronous copies of the int8 tiles and of the backward's bits;
+# words.
+_ALIGN = {"attn_decode": {"qm": 16, "km": 16, "vm": 16, "ek_rows": 4,
+                          "ev_rows": 4, "rp": 4, "eq": 4},
+          "attn_bwd": {"qm": 16, "gm": 16, "km": 16, "vm": 16, "m": 4,
+                       "l": 4, "delta": 4, "rs": 16, "rp2": 16, "eq": 4,
+                       "ek": 4, "ev": 4, "eg": 4}}
+
+
+def attn_misaligned(op: str, ptrs: dict) -> str:
+    """Which operand of ``op`` (``attn_decode`` or ``attn_bwd``) sits off
+    the alignment its kernel's loads need ('' when none): ``ptrs`` maps the
+    operand names to their addresses (None or absent: not passed).  16
+    bytes for the int8 operands (16-byte loads, bulk copies) and the
+    backward's rounding bits (16-byte copies), 4 for the stats, exponents
+    and the decode's bits."""
+    for name, align in _ALIGN[op].items():
+        ptr = ptrs.get(name)
+        if ptr is not None and ptr % align:
+            return (f"{name} at address {ptr:#x} is not {align}-byte "
+                    f"aligned (its loads need it)")
+    return ""
+
+
+def _addresses(**ts) -> dict:
+    return {k: None if t is None else t.data_ptr() for k, t in ts.items()}
 
 
 def decode_p_plain(qm, km, ek_rows, ev_rows, rp, eq, q_off: int,
@@ -105,8 +194,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_attention")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.repro_attn_decode.argtypes = [vp] * 8 + [i] * 11 + [vp]
+        lib.repro_attn_decode.argtypes = [vp] * 8 + [i] * 12 + [vp]
         lib.repro_attn_decode.restype = i
+        lib.repro_attn_decode_smem.argtypes = [i] * 4
+        lib.repro_attn_decode_smem.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -117,7 +208,8 @@ def attn_decode(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
                 kv_len: int, *, p: int, s: int, causal: bool, window: int,
                 stochastic: bool) -> torch.Tensor:
     """Batched fused decode attention (shapes of ``attn_decode_plain``):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    the CUDA kernel for CUDA tensors, on clusters of ``decode_split``
+    blocks, the plain version for CPU tensors."""
     if not qm.is_cuda:
         return attn_decode_plain(qm, km, vm, ek_rows, ev_rows, rp, eq, q_off,
                                  kv_len, p=p, s=s, causal=causal,
@@ -127,10 +219,12 @@ def attn_decode(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
     dev = qm.device
     if d % 4 or d > 256:
         raise ValueError(f"decode kernel needs D % 4 == 0 and D <= 256, got {d}")
-    smem = decode_smem_bytes(gs, t, d)
+    n = decode_split(gs, t, d)
+    smem = _decode_layout_bytes(gs, t, d, n)
     if smem > SMEM_LIMIT:
         raise ValueError(f"decode kernel: T={t} needs {smem} B of shared "
-                         f"memory > {SMEM_LIMIT}")
+                         f"memory a block of a {n}-block cluster > "
+                         f"{SMEM_LIMIT}")
     _check("qm", qm, torch.int8, (bh, gs, d), dev)
     _check("km", km, torch.int8, (bh, t, d), dev)
     _check("vm", vm, torch.int8, (bh, t, d), dev)
@@ -140,20 +234,28 @@ def attn_decode(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
         rp = as_u32(rp)
         _check("rp", rp, torch.int32, (bh, gs, t), dev)
     eq = _scalar_i32("eq", eq, dev)
+    why = attn_misaligned("attn_decode", _addresses(
+        qm=qm, km=km, vm=vm, ek_rows=ek_rows, ev_rows=ev_rows,
+        rp=rp if stochastic else None, eq=eq))
+    if why:
+        raise ValueError(f"attn_decode: {why}")
     y = torch.empty((bh, gs, d), dtype=torch.float32, device=dev)
     err = _lib().repro_attn_decode(
         _ptr(qm), _ptr(eq), _ptr(km), _ptr(vm), _ptr(ek_rows), _ptr(ev_rows),
         _ptr(rp if stochastic else None), _ptr(y), bh, gs, t, d, s,
         int(q_off), int(min(kv_len, t)), int(causal), int(window), p,
-        int(stochastic),
+        int(stochastic), n,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, "attn_decode")
     attn_decode.launches += 1
+    attn_decode_splits[n].launches += 1
     return y
 
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of the kernel since the count was last set to 0, and of each
+# cluster size.
 attn_decode.launches = 0
+attn_decode_splits = {n: _Launches() for n in DECODE_SPLITS}
 
 
 # ---------------------------------------------------------------------------
@@ -170,19 +272,51 @@ def _bwd_smem(d: int, bt: int, bq: int) -> int:
 
 
 def bwd_strip(d: int, bt: int) -> int:
-    """Query rows per block of the ``attn_bwd`` kernels: the largest of 32,
-    16, 8, 4 whose tiles fit in shared memory (4 when none does).  The
-    strip does not change the results."""
+    """Query rows per block of the ``__dp4a`` backward kernels: the largest
+    of 32, 16, 8, 4 whose tiles fit in shared memory (4 when none does).
+    The strip does not change the results.  (The ``wgmma`` route takes
+    row tiles of 128.)"""
     return next((bq for bq in (32, 16, 8) if _bwd_smem(d, bt, bq)
                  <= SMEM_LIMIT), 4)
 
 
+# The routes of the attention backward (``attn_bwd_variant``).
+ATTN_BWD_VARIANTS = ("wgmma", "dp4a")
+# Head dims the wgmma route takes: one warpgroup instruction (or n64 + n32)
+# covers the head dim, and a 128-byte tile row holds it.
+_TC_BWD_DIMS = (32, 64, 96, 128)
+
+
+def attn_bwd_variant(gs: int, t: int, d: int, bt: int,
+                     aligned: bool = True) -> str:
+    """The route of the attention backward for GS query rows over a band of
+    T in KV blocks of bt, head dim D: ``wgmma`` (two launches, int8 tensor
+    cores, each KV block in chunks of 128 positions, so any bt % 128 == 0
+    and any GS, T) for D of 32, 64, 96 or 128 with ``aligned`` operands
+    (16-byte loads; the wrapper raises on an operand that is not, see
+    ``attn_misaligned``); else the ``__dp4a`` kernels."""
+    del gs, t, bt  # the route does not depend on them
+    return "wgmma" if aligned and d in _TC_BWD_DIMS else "dp4a"
+
+
+def _tc_bwd_smem(d: int) -> int:
+    """Shared memory of the wgmma backward's pass B (``TcLayout``): three
+    128 x 128-byte tiles (Q^, G^, dS^), four of 64 x 128 (the block's half
+    of K^ and V^ chunks, P^T, dS^T), three of D x 128 (Q^T, G^T, K^T), the
+    partner's dQ partial (512 D bytes), 128 bytes of flags and the 1024
+    bytes of the tiles' alignment."""
+    return 1024 + 3 * 128 * 128 + 4 * 64 * 128 + 3 * d * 128 + 512 * d + 128
+
+
 def train_smem_bytes(op: str, d: int, bt: int) -> int:
     """Shared memory of one block of the ``attn_fwd`` or ``attn_bwd``
-    kernel (the layouts of ``csrc/attn_train.cu``): packed int8 tiles with
-    odd word strides, the score or pn/dS tiles, the float accumulators and
-    the row stats."""
+    kernel (the layouts of ``csrc/attn_train.cu``): for the forward and
+    the ``__dp4a`` backward, packed int8 tiles with odd word strides, the
+    score or pn/dS tiles, the float accumulators and the row stats; for
+    the ``wgmma`` backward its swizzled tiles."""
     if op == "attn_bwd":
+        if attn_bwd_variant(0, 0, d, bt) == "wgmma":
+            return _tc_bwd_smem(d)
         return _bwd_smem(d, bt, bwd_strip(d, bt))
     dw, tw = -(-d // 4), bt // 4
     kld, vld = dw | 1, tw | 1
@@ -308,6 +442,8 @@ def _lib_train() -> ctypes.CDLL:
         lib.repro_attn_fwd.restype = i
         lib.repro_attn_bwd.argtypes = [vp] * 18 + [i] * 13 + [vp]
         lib.repro_attn_bwd.restype = i
+        lib.repro_attn_bwd_tc.argtypes = [vp] * 19 + [i] * 12 + [vp]
+        lib.repro_attn_bwd_tc.restype = i
         lib._typed = True
     return lib
 
@@ -387,25 +523,47 @@ def attn_bwd(qm: torch.Tensor, gm: torch.Tensor, km: torch.Tensor,
         _check("rp2", rp2, torch.int32, (bh, gs, t), dev)
     eq, ek, ev, eg = (_scalar_i32(n, e, dev) for n, e in
                       (("eq", eq), ("ek", ek), ("ev", ev), ("eg", eg)))
+    why = attn_misaligned("attn_bwd", _addresses(
+        qm=qm, gm=gm, km=km, vm=vm, m=m, l=l, delta=delta,
+        rs=rs if stochastic else None, rp2=rp2 if stochastic else None,
+        eq=eq, ek=ek, ev=ev, eg=eg))
+    if why:
+        raise ValueError(f"attn_bwd: {why}")
+    variant = attn_bwd_variant(gs, t, d, bt)
     nb = -(-t // bt)
-    e_scratch = torch.empty((2, bh, nb), dtype=torch.int32, device=dev)
-    acc_scratch = torch.empty((2, bh, t, d), dtype=torch.int32, device=dev)
     dq = torch.empty((bh, gs, d), dtype=torch.float32, device=dev)
     dk = torch.empty((bh, t, d), dtype=torch.float32, device=dev)
     dv = torch.empty((bh, t, d), dtype=torch.float32, device=dev)
-    err = _lib_train().repro_attn_bwd(
-        _ptr(qm), _ptr(gm), _ptr(km), _ptr(vm), _ptr(m), _ptr(l),
-        _ptr(delta), _ptr(rs if stochastic else None),
-        _ptr(rp2 if stochastic else None), _ptr(eq), _ptr(ek), _ptr(ev),
-        _ptr(eg), _ptr(e_scratch), _ptr(acc_scratch), _ptr(dq), _ptr(dk),
-        _ptr(dv), bh, gs, t, d, s, int(q_off), int(min(kv_len, t)),
-        int(causal), int(window), p, bt, bwd_strip(d, bt), int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "attn_bwd")
+    operands = [_ptr(x) for x in (qm, gm, km, vm, m, l, delta,
+                                  rs if stochastic else None,
+                                  rp2 if stochastic else None,
+                                  eq, ek, ev, eg)]
+    shape = [bh, gs, t, d, s, int(q_off), int(min(kv_len, t)), int(causal),
+             int(window), p, bt]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    acc = torch.empty((2, bh, t, d), dtype=torch.int32, device=dev)
+    if variant == "wgmma":
+        # every slot, sum and count is written (or zeroed) by the kernels'
+        # first pass
+        e_scratch = torch.empty((bh, nb, 2 * -(-gs // 128), 2),
+                                dtype=torch.int32, device=dev)
+        done = torch.empty((bh,), dtype=torch.int32, device=dev)
+        err = _lib_train().repro_attn_bwd_tc(
+            *operands, _ptr(e_scratch), _ptr(acc), _ptr(done), _ptr(dq),
+            _ptr(dk), _ptr(dv), *shape, int(stochastic), stream)
+    else:
+        e_scratch = torch.empty((2, bh, nb), dtype=torch.int32, device=dev)
+        err = _lib_train().repro_attn_bwd(
+            *operands, _ptr(e_scratch), _ptr(acc), _ptr(dq), _ptr(dk),
+            _ptr(dv), *shape, bwd_strip(d, bt), int(stochastic), stream)
+    _raise_on(err, f"attn_bwd ({variant})")
     attn_bwd.launches += 1
+    attn_bwd_variants[variant].launches += 1
     return dq, dk, dv
 
 
-# Launches of each wrapper's kernels since the count was last set to 0.
+# Launches of each wrapper's kernels since the count was last set to 0
+# (a backward call is two launches on wgmma, three on __dp4a, counted once).
 attn_fwd.launches = 0
 attn_bwd.launches = 0
+attn_bwd_variants = {v: _Launches() for v in ATTN_BWD_VARIANTS}

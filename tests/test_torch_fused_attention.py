@@ -96,13 +96,14 @@ def test_decode_integer_parts_equal_jax(case, stochastic):
 
 @pytest.mark.parametrize("mode,device,t,want", [
     ("auto", "cpu", 160, kd.JNP), ("auto", "cuda", 160, kd.FUSED),
-    ("fused", "cpu", 160, kd.FUSED), ("fused", "cuda", 8192, kd.JNP),
+    ("fused", "cpu", 160, kd.FUSED), ("fused", "cuda", 32768, kd.FUSED),
+    ("fused", "cuda", 131072, kd.JNP),
 ])
 def test_plan_attention_decode(mode, device, t, want):
     d = kd.plan_attention("attn_decode", 7, t, 64, QuantConfig(), s=1,
                           kind="qi", kernel_mode=mode, device=device)
     assert d.path == want
-    if t == 8192:
+    if t == 131072:
         assert "shared memory" in d.reason
 
 

@@ -192,7 +192,10 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "int8_matmul_wmma": 0,
                                     "gemm_epi_wgmma": 0, "gemm_epi_dp4a": 0,
                                     "norm_gemm_wgmma": 0,
-                                    "norm_gemm_dp4a": 0}
+                                    "norm_gemm_dp4a": 0,
+                                    **{f"attn_decode_n{n}": 0
+                                       for n in range(1, 17)},
+                                    "attn_bwd_wgmma": 0, "attn_bwd_dp4a": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

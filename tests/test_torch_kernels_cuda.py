@@ -93,6 +93,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want.update({f"qq_blk_{v}": 0 for v in kfl.QQ_BLK_VARIANTS})
     want.update({f"gemm_epi_{v}": 0 for v in kfl.GEMM_EPI_VARIANTS})
     want.update({f"norm_gemm_{v}": 0 for v in kfc.NORM_GEMM_VARIANTS})
+    want.update({f"attn_decode_n{n}": 0 for n in kfa.DECODE_SPLITS})
+    want.update({f"attn_bwd_{v}": 0 for v in kfa.ATTN_BWD_VARIANTS})
     want[f"qq_{kfl.qq_variant(m, k)}"] = 2
     want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
     assert kd.kernel_launches() == want
@@ -162,33 +164,106 @@ def test_iq_and_pp_routes_equal_plain(cuda, m, n, k, stochastic):
     assert torch.equal(bqk.e, bqp.e) and torch.equal(y2, y2p)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,gs,t,d,s,pos,window", [
-    (3, 7, 19, 16, 1, 18, 0), (2, 14, 40, 64, 2, 30, 0),
-    (4, 7, 33, 16, 1, 20, 8), (8, 7, 160, 64, 1, 159, 0),
-    (2, 7, 1100, 64, 1, 1099, 0)])
-def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
-                                             window):
-    """y ==: the kernel's softmax spells the plain version's Cephes exp and
-    windowed row sum (T = 1100: more than 32 windows, summed again)."""
-    g = torch.Generator(device=cuda).manual_seed(1)
+# (BH, GS, T, D, s, pos, window): the first five (T 19 to 1100, a window)
+# and the qwen2-0.5b decode slice at 4096 and at its published 32768
+# positions; T 5001 (the windows' offset split lands inside a block's
+# range; more than 32 windows summed again); a window across the blocks;
+# the cluster sizes the split names at GS 7 (1 to 8: T up to 256, 300,
+# 600, 1000, 1100, 1500, 1700, 4096; then 16 at 48000) and 15 at GS 56;
+# D 12 and 48 (rows padded, copied by the threads), 32, 128 and 256.
+DECODE_SHAPES = [(3, 7, 19, 16, 1, 18, 0), (2, 14, 40, 64, 2, 30, 0),
+                 (4, 7, 33, 16, 1, 20, 8), (8, 7, 160, 64, 1, 159, 0),
+                 (2, 7, 1100, 64, 1, 1099, 0), (8, 7, 4096, 64, 1, 4095, 0),
+                 (8, 7, 32768, 64, 1, 32767, 0), (2, 7, 5001, 64, 1, 5000, 0),
+                 (2, 7, 4096, 64, 1, 4000, 700), (2, 7, 1000, 64, 1, 999, 0),
+                 (2, 7, 1500, 32, 1, 1499, 0), (2, 7, 1700, 128, 1, 1699, 0),
+                 (1, 7, 48000, 64, 1, 47999, 0), (1, 56, 3622, 64, 8, 3600, 0),
+                 (2, 9, 700, 12, 1, 650, 0), (2, 7, 600, 48, 1, 599, 0),
+                 (2, 7, 300, 256, 1, 299, 0)]
 
+
+def _decode_operands(g, dev, bh, gs, t, d, stochastic):
     def i8(*shape):
-        return torch.randint(-127, 128, shape, generator=g, device=cuda,
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
                              dtype=torch.int8)
 
     qm, km, vm = i8(bh, gs, d), i8(bh, t, d), i8(bh, t, d)
-    ek = torch.randint(118, 126, (bh, t, 1), generator=g, device=cuda,
+    ek = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev,
                        dtype=torch.int32)
-    ev = torch.randint(118, 126, (bh, t, 1), generator=g, device=cuda,
+    ev = torch.randint(118, 126, (bh, t, 1), generator=g, device=dev,
                        dtype=torch.int32)
-    rp = prng.bits(prng.key(3), (bh, gs, t), cuda)
-    eq = torch.tensor(122, dtype=torch.int32, device=cuda)
-    kw = dict(p=7, s=s, causal=True, window=window, stochastic=True)
+    rp = prng.bits(prng.key(3), (bh, gs, t), dev) if stochastic else None
+    eq = torch.tensor(122, dtype=torch.int32, device=dev)
+    return qm, km, vm, ek, ev, rp, eq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("bh,gs,t,d,s,pos,window", DECODE_SHAPES)
+def test_decode_kernel_within_bound_of_plain(cuda, bh, gs, t, d, s, pos,
+                                             window, stochastic):
+    """y ==: the kernel's softmax spells the plain version's Cephes exp and
+    windowed row sum, block by block of the cluster; the call moves the
+    counter of the cluster size ``decode_split`` names."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qm, km, vm, ek, ev, rp, eq = _decode_operands(g, cuda, bh, gs, t, d,
+                                                  stochastic)
+    kw = dict(p=7, s=s, causal=True, window=window, stochastic=stochastic)
+    kd.reset_kernel_launches()
     got = kfa.attn_decode(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
     want = kfa.attn_decode_plain(qm, km, vm, ek, ev, rp, eq, pos, t, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), (got - want).abs().max().item()
+    n = kfa.decode_split(gs, t, d)
+    counts = kd.kernel_launches()
+    assert counts["attn_decode"] == 1 and counts[f"attn_decode_n{n}"] == 1
+
+
+def _offset_view(x):
+    """x as a contiguous view one element into a larger storage."""
+    full = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = full[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,operand", [("attn_decode", "qm"),
+                                        ("attn_decode", "km"),
+                                        ("attn_decode", "vm"),
+                                        ("attn_bwd", "qm"), ("attn_bwd", "gm")])
+def test_attention_offset_views_raise(cuda, op, operand):
+    """An int8 operand as a contiguous view one byte into its storage: the
+    wrapper raises ValueError naming it instead of faulting; the card stays
+    usable (a call right after ==); the dispatch copies the operand and
+    runs."""
+    g = torch.Generator(device=cuda).manual_seed(44)
+    if op == "attn_decode":
+        qm, km, vm, ek, ev, rp, eq = _decode_operands(g, cuda, 8, 7, 160, 64,
+                                                      True)
+        args = [qm, km, vm, ek, ev, rp, eq, 159, 160]
+        kw = dict(p=7, s=1, causal=True, window=0, stochastic=True)
+        wrapper, plain, routed = kfa.attn_decode, kfa.attn_decode_plain, \
+            kd.attn_decode
+        i = {"qm": 0, "km": 1, "vm": 2}[operand]
+    else:
+        args, kw = _bwd_operands(g, cuda, TRAIN_SHAPES[0], True)
+        wrapper, plain, routed = kfa.attn_bwd, kfa.attn_bwd_plain, kd.attn_bwd
+        i = {"qm": 0, "gm": 1}[operand]
+    bad = list(args)
+    bad[i] = _offset_view(args[i])
+    with pytest.raises(ValueError, match=operand):
+        wrapper(*bad, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    for x, y in zip(_as_tuple(wrapper(*args, **kw)), _as_tuple(want)):
+        assert torch.equal(x, y)
+    for x, y in zip(_as_tuple(routed(*bad, **kw)), _as_tuple(want)):
+        assert torch.equal(x, y)
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 # (B, M, K, N, blk): the qwen2-0.5b per-block training shapes (the gate's
@@ -328,15 +403,45 @@ def test_float_scatter_on_card_equals_cpu(cuda):
 # (BH, GS, T, D, s, q_off, kv_len, causal, window): the qwen2-0.5b
 # training slice; odd GS, T and D with kv_len < T; T over 3 KV blocks; a
 # sliding window over 4 blocks; a 1500-position band (bt = 256) behind an
-# offset; the backward's narrow query strips: D = 128 over 9 blocks of
-# bt = 512 (the last one ragged) and D = 256 with bt = 256, 8-row strips.
+# offset; the __dp4a backward's narrow query strips: D = 128 over 9 blocks
+# of bt = 512 (the last one ragged) and D = 256 with bt = 256, 8-row
+# strips; on wgmma D 32 and 96 (n64 + n32) with two row tiles, T odd (the
+# bits one by one) and a ragged last block.
 TRAIN_SHAPES = [(8, 896, 128, 64, 128, 0, 128, True, 0),
                 (2, 21, 200, 12, 3, 0, 170, False, 0),
                 (3, 35, 300, 16, 5, 0, 300, True, 0),
                 (2, 64, 400, 64, 64, 0, 400, True, 100),
                 (1, 14, 1500, 8, 2, 1498, 1500, True, 0),
                 (1, 20, 4100, 128, 10, 0, 4100, False, 0),
-                (1, 24, 2000, 256, 24, 1500, 1990, True, 300)]
+                (1, 24, 2000, 256, 24, 1500, 1990, True, 300),
+                (2, 40, 300, 32, 5, 0, 300, True, 0),
+                (1, 150, 520, 96, 30, 0, 500, False, 0),
+                (2, 21, 201, 64, 3, 0, 190, False, 0)]
+
+
+def _bwd_operands(g, dev, shape, stochastic):
+    """attn_bwd's arguments at a TRAIN_SHAPES entry (the row stats from the
+    forward's plain version) and its keywords."""
+    bh, gs, t, d, s, q_off, kv_len, causal, window = shape
+
+    def i8(*shp):
+        return torch.randint(-127, 128, shp, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def e(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    qm, gm, km, vm = i8(bh, gs, d), i8(bh, gs, d), i8(bh, t, d), i8(bh, t, d)
+    rp, rs, rp2 = (prng.bits(prng.key(i), (bh, gs, t), dev) if stochastic
+                   else None for i in (4, 5, 6))
+    eq, ek, ev, eg = e(125), e(125), e(124), e(110)
+    kw = dict(p=7, s=s, bt=kd.attn_block_t(t), causal=causal, window=window,
+              stochastic=stochastic)
+    _, m, l = kfa.attn_fwd_plain(qm, km, vm, rp, eq, ek, ev, q_off, kv_len,
+                                 **kw)
+    delta = torch.randn((bh, gs, 1), generator=g, device=dev) * 1e-3
+    return [qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,
+            kv_len], kw
 
 
 @pytest.mark.cuda
@@ -344,7 +449,8 @@ TRAIN_SHAPES = [(8, 896, 128, 64, 128, 0, 128, True, 0),
 @pytest.mark.parametrize("shape", TRAIN_SHAPES)
 def test_attn_train_kernels_equal_plain(cuda, shape, stochastic):
     """attn_fwd (y, m, l) and attn_bwd (dq, dk, dv) == their plain
-    versions: the kernels reproduce the plain float order op for op."""
+    versions: the kernels reproduce the plain float order op for op; the
+    backward on the route ``attn_bwd_variant`` names (its counter)."""
     bh, gs, t, d, s, q_off, kv_len, causal, window = shape
     g = torch.Generator(device=cuda).manual_seed(5)
 
@@ -376,8 +482,12 @@ def test_attn_train_kernels_equal_plain(cuda, shape, stochastic):
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert torch.equal(x, y), (name, (x - y).abs().max().item())
-    assert kd.kernel_launches()["attn_fwd"] == 1
-    assert kd.kernel_launches()["attn_bwd"] == 1
+    counts = kd.kernel_launches()
+    assert counts["attn_fwd"] == 1
+    assert counts["attn_bwd"] == 1
+    variant = kfa.attn_bwd_variant(gs, t, d, kw["bt"])
+    assert variant == ("wgmma" if d in (32, 64, 96, 128) else "dp4a")
+    assert counts[f"attn_bwd_{variant}"] == 1
 
 
 @pytest.mark.cuda
