@@ -20,8 +20,8 @@ Phases, any of which failing exits non-zero:
    at qwen2-0.5b's decode slice for bands of 160, 4096 and 32768 positions
    (each planned FUSED, on the cluster size ``decode_split`` names, its
    counter moved), ``attn_fwd`` (y, m, l) and ``attn_bwd`` (dq, dk, dv)
-   ``==`` at the qwen2 training slice (``attn_bwd`` on the route
-   ``attn_bwd_variant`` names) and at an odd shape, ``qq_blk`` y and
+   ``==`` at the qwen2 training slice (each on the route
+   ``attn_fwd_variant`` / ``attn_bwd_variant`` names) and at an odd shape, ``qq_blk`` y and
    mantissas ``==`` on each variant (``fused_linear.qq_blk_variant``: the
    128 x 128 and 64 x 64 tilings of the Hopper route, ``__dp4a``) at the
    per-block training shapes and odd ones (blocks of 128, 32 and 8, more
@@ -99,8 +99,8 @@ After each of phases 3-10 every ``qq``, ``qi`` and ``ii`` launch must be
 one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``), every
 ``qq_blk`` launch one of ``wgmma`` or ``wgmma64``, every ``int8_matmul``
 launch one of ``wgmma``, every ``attn_decode`` launch on the cluster size
-``decode_split`` names for the decode slice and every ``attn_bwd`` launch
-on ``wgmma``: the variants the shape rules name for the main path's
+``decode_split`` names for the decode slice and every ``attn_fwd`` and
+``attn_bwd`` launch on ``wgmma``: the variants the shape rules name for the main path's
 shapes; the counts by variant are printed.  Each step
 profile also sums the device time of the port's own kernels by name.
 
@@ -696,7 +696,8 @@ def _check_variants(label, launches):
     9) on wgmma, every gemm_epi and norm_gemm launch (phases 8 and 10) on
     wgmma (phase 6 also holds the qq_blk split between the two tilings to
     its count); every attn_decode launch (phase 3) on the cluster size
-    decode_split names and every attn_bwd launch (phase 5) on wgmma."""
+    decode_split names and every attn_fwd and attn_bwd launch (phase 5)
+    on wgmma."""
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import int8_matmul as kim
@@ -725,13 +726,17 @@ def _check_variants(label, launches):
         raise AssertionError(f"{label}: {launches['attn_decode']} attn_decode "
                              f"launches by cluster size {per}, expected all "
                              f"on {n}")
+    per_f = {v: launches[f"attn_fwd_{v}"] for v in kfa.ATTN_FWD_VARIANTS}
+    if sum(per_f.values()) != launches["attn_fwd"] or per_f["dp4a"]:
+        raise AssertionError(f"{label}: {launches['attn_fwd']} attn_fwd "
+                             f"launches as {per_f}, expected all on wgmma")
     per_b = {v: launches[f"attn_bwd_{v}"] for v in kfa.ATTN_BWD_VARIANTS}
     if sum(per_b.values()) != launches["attn_bwd"] or per_b["dp4a"]:
         raise AssertionError(f"{label}: {launches['attn_bwd']} attn_bwd "
                              f"launches as {per_b}, expected all on wgmma")
-    if launches["attn_decode"] or launches["attn_bwd"]:
+    if launches["attn_decode"] or launches["attn_fwd"] or launches["attn_bwd"]:
         print(f"{label}: attn_decode launches by cluster size {per}, "
-              f"attn_bwd by route {per_b}")
+              f"attn_fwd by route {per_f}, attn_bwd by route {per_b}")
 
 
 def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
@@ -1342,7 +1347,9 @@ def check_attn_train(torch, dev, g, bits):
     """attn_fwd and attn_bwd against their plain versions: the qwen2
     training slice (B*Hkv = 8, GS = 7 x 128, T = 128, D = 64, causal) and
     an odd shape (GS = 21, T = 200, kv_len = 170, two KV blocks, not
-    causal); timed at the training slice."""
+    causal), each on the route its rule names (its counter moved); timed
+    at the training slice, the forward also on its ``__dp4a`` kernel
+    through the C entry (the comparison behind the rule)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import fused_attention as kfa
     from repro_torch.kernels import fused_linear as kfl
@@ -1364,6 +1371,10 @@ def check_attn_train(torch, dev, g, bits):
         kw = dict(p=7, s=s, bt=dispatch.attn_block_t(t), causal=causal,
                   window=0, stochastic=True)
         fwd = (qm, km, vm, rp, eq, ek, ev, 0, kv_len)
+        fvariant = kfa.attn_fwd_variant(gs, t, d, kw["bt"])
+        if fvariant != ("wgmma" if label == "train" else "dp4a"):
+            raise AssertionError(f"attn_fwd {label}: the rule names {fvariant}")
+        before = dispatch.kernel_launches()[f"attn_fwd_{fvariant}"]
         got = kfa.attn_fwd(*fwd, **kw)
         want = kfa.attn_fwd_plain(*fwd, **kw)
         torch.cuda.synchronize()
@@ -1371,6 +1382,10 @@ def check_attn_train(torch, dev, g, bits):
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"attn_fwd {label}: kernel != plain "
                                  f"(max |d| {err_f})")
+        if dispatch.kernel_launches()[f"attn_fwd_{fvariant}"] != before + 1:
+            raise AssertionError(f"attn_fwd {label}: not on {fvariant}")
+        print(f"attn_fwd {label}: on {fvariant}, kernel == plain")
+        want_f = want
         _, m, l = want
         delta = torch.randn((bh, gs, 1), generator=g, device=dev) * 1e-3
         bwd = (qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, 0, kv_len)
@@ -1389,7 +1404,8 @@ def check_attn_train(torch, dev, g, bits):
         if label == "train":
             timed = dict(fwd=fwd, bwd=bwd, kw=kw, err_f=err_f, err_b=err_b,
                          shape=[bh, gs, t, d], kv_len=kv_len, s=s,
-                         causal=causal, variant=variant)
+                         causal=causal, variant=variant, fvariant=fvariant,
+                         y=want_f[0])
 
     bh, gs, t, d = timed["shape"]
     kw = timed["kw"]
@@ -1432,10 +1448,33 @@ def check_attn_train(torch, dev, g, bits):
         if name == "attn_bwd":
             row.update(variant=timed["variant"],
                        line_as=[f"attn_bwd_{timed['variant']}"])
+        else:
+            row.update(variant=timed["fvariant"],
+                       line_as=[f"attn_fwd_{timed['fvariant']}"])
+            row["dp4a_ms"] = _dp4a_ms(
+                torch, kfa._lib_train().repro_attn_fwd,
+                lambda: _fwd_dp4a_call(torch, fwd32, kw, timed), timed["y"],
+                "attn_fwd")
+            print(f"attn_fwd train on the __dp4a kernel: {row['dp4a_ms']:.4f} "
+                  f"ms device time (the rule's {timed['fvariant']}: {ms:.4f})")
         out.append(row)
         print(f"{name}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
               f"{by}; plain {pms:.3f} ms), kernel == plain at both shapes")
     return out
+
+
+def _fwd_dp4a_call(torch, fwd32, kw, timed):
+    """Outputs and C arguments of ``repro_attn_fwd`` (the ``__dp4a``
+    forward) on the training slice's operands."""
+    from repro_torch.kernels import fused_linear as kfl
+    qm, km, vm, rp, eq, ek, ev, q_off, kv_len = fwd32
+    bh, gs, t, d = timed["shape"]
+    y, m, l = (torch.empty(shape, dtype=torch.float32, device=qm.device)
+               for shape in ((bh, gs, d), (bh, gs, 1), (bh, gs, 1)))
+    call = [kfl._ptr(x) for x in (qm, km, vm, rp, eq, ek, ev, y, m, l)]
+    call += [bh, gs, t, d, kw["s"], q_off, kv_len, int(kw["causal"]),
+             kw["window"], kw["p"], kw["bt"], int(kw["stochastic"])]
+    return (y, m, l), call
 
 
 def step_profile(torch, step, step_ms: float, rec, name="decode_step_profile"):

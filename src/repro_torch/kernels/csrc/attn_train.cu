@@ -40,7 +40,22 @@
 // shared memory, so the forward has no limit on T.  The backward's tile
 // exponent spans all GS rows of a block, more than one block's shared
 // memory at long sequence, so it needs a reduction across blocks before it
-// can quantize.  Two routes (kernels/fused_attention.py attn_bwd_variant):
+// can quantize.
+//
+// The forward has two routes (kernels/fused_attention.py attn_fwd_variant):
+// wgmma (D of 32, 64, 96 or 128, 16-byte aligned operands): a block of 64
+// query rows, four warpgroups splitting each chunk of 128 KV positions (32
+// each: S on wgmma.m64n32k32, its exps, quantize and row sums) and PV's
+// columns (D / 4 each, from P^ staged in shared memory); the row maxima,
+// exponents and window sums meet in shared memory.  A thread holds 16
+// scores of a chunk, not the 64 of one warpgroup a tile: at the qwen2
+// training slice the time goes to each thread's exps and quantizes, one
+// after another, not to the tensor cores.
+// __dp4a (every other head dim): 16 query rows a block, the integer dots
+// on words packed in shared memory.
+//
+// The backward has two routes (kernels/fused_attention.py
+// attn_bwd_variant):
 //
 // wgmma (D of 32, 64, 96 or 128, 16-byte aligned operands): two launches,
 // no memset, every product on wgmma.m64nNk32.s32.s8.s8 from swizzled
@@ -75,7 +90,6 @@
 //      block order, and add the int32 partial sums of dk_j and dv_j with
 //      integer atomics (exact in any order);
 //   C  scale the int32 dk, dv sums by their powers of two.
-// The forward's integer dots use __dp4a on words packed in shared memory.
 //
 // Bounds on the H100.  Forward: each slice reads GS*D + 2*T*D int8 and
 // 4 bytes of rounding bits per visible (row, position) pair, and writes
@@ -688,10 +702,12 @@ __device__ __forceinline__ int sw128(int row, int k) {
 // 16-byte asynchronous copies (complete after cp_async_wait_all); rows past
 // rows_valid zero (src is read only below rows_valid; the zero-filled
 // copies name `any`, a valid address, and read nothing).
+// (NT: the block's threads, every one of which copies.)
+template <int NT = TC_THREADS>
 __device__ __forceinline__ void tile_rows(uint8_t* tile, const int8_t* __restrict__ src,
                                           int rows, int rows_valid, int D, const int8_t* any) {
   const int cpr = D / 16;
-  for (int x = threadIdx.x; x < rows * cpr; x += TC_THREADS) {
+  for (int x = threadIdx.x; x < rows * cpr; x += NT) {
     const int r = x / cpr, c = x % cpr;
     const bool ok = r < rows_valid;
     cp_async16(tile + sw128(r, 16 * c), ok ? src + (size_t)r * D + 16 * c : any, ok ? 16u : 0u);
@@ -701,10 +717,11 @@ __device__ __forceinline__ void tile_rows(uint8_t* tile, const int8_t* __restric
 // The transpose of `rows` rows of a K-major tile (D bytes each) into the
 // tile dst whose row d holds column d: a thread reads a word of four rows
 // and writes the four columns' words (byte permutes of the 4 x 4 block).
+template <int NT = TC_THREADS>
 __device__ __forceinline__ void tile_transpose(uint8_t* dst, const uint8_t* src, int rows,
                                                int D) {
   const int dw = D / 4;
-  for (int x = threadIdx.x; x < rows / 4 * dw; x += TC_THREADS) {
+  for (int x = threadIdx.x; x < rows / 4 * dw; x += NT) {
     const int rg = x / dw, w = x % dw;
     uint32_t in[4], out[4];
 #pragma unroll
@@ -1140,6 +1157,496 @@ __global__ void __launch_bounds__(TC_THREADS, 1) attn_bwd_tc_kernel(TcArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (wgmma): D % 32 == 0, D <= 128
+// ---------------------------------------------------------------------------
+
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use (H100)
+constexpr int FT_ROWS = 64;       // query rows of a block (one wgmma row tile)
+constexpr int FT_MAXW = 16;       // windows of 32 positions a KV block holds at most
+
+// The forward's shared memory (kernels/fused_attention.py _tc_fwd_layout
+// mirrors it): Q^'s tile of 64 rows, V^T of the KV block's chunks (D rows
+// of 128 positions each), the row stats the warpgroups exchange (their
+// partial maxima and exponents, every window sum of the block), then one
+// set, or two where they fit (the next KV block loads while this one
+// computes), of the block's K^ chunks and V^ staging chunks (128 positions
+// of D bytes each).  Once V^T is built, a set's V^ staging holds the warps'
+// row-sum staging (16 KB), then P^'s chunks (64 x 128 bytes each).  Every
+// tile K-major with 128-byte rows in the 128-byte swizzle.
+struct FwdTcLayout {
+  int nch, nset;
+  size_t qs, vt, red, ks, set_bytes, total;
+  __host__ __device__ FwdTcLayout(int D, int bt) {
+    nch = bt / CT;
+    qs = 0;
+    vt = qs + (size_t)FT_ROWS * 128;
+    red = vt + (size_t)nch * D * 128;
+    ks = (red + 4 * (2 * 4 * FT_ROWS + FT_ROWS * FT_MAXW) + 1023) / 1024 * 1024;
+    set_bytes = 2 * (size_t)nch * TILE;
+    nset = 1024 + ks + 2 * set_bytes <= (size_t)SMEM_MAX ? 2 : 1;
+    total = 1024 + ks + nset * set_bytes;
+  }
+  __host__ __device__ size_t k_tile(int set, int k) const {
+    return ks + set * set_bytes + (size_t)k * TILE;
+  }
+  __host__ __device__ size_t v_stage(int set, int k) const {
+    return k_tile(set, k) + (size_t)nch * TILE;
+  }
+};
+
+struct FwdArgs {
+  const int8_t* qm; const int8_t* km; const int8_t* vm; const uint32_t* rp;
+  const int* eq; const int* ek; const int* ev;
+  float* y; float* m; float* l;
+  int GS, T, s, q_off, kv_len, causal, window, p, bt, stochastic;
+};
+
+// Whether positions [c, c + n) can hold a visible pair for query rows
+// whose positions lie in [qmin, qmax] (false only where every pair is
+// masked: such a span adds nothing, so skipping it is exact).
+__device__ __forceinline__ bool span_visible(int c, int n, int qmin, int qmax, int kv_len,
+                                             int causal, int window) {
+  if (c >= kv_len || (causal && c > qmax)) return false;
+  return !window || c + n - 1 > qmin - window;
+}
+
+// d (64 x N int32) (+)= a (64 x 32) * b (N x 32)^T at shared addresses a,
+// b, for the N of 8 to 32 a warpgroup's share of PV takes.
+template <int N>
+__device__ __forceinline__ void wgmma_small(int (&d)[N / 2], uint32_t a, uint32_t b, int acc) {
+  if constexpr (N == 8) {
+    repro::wgmma_s8_m64n8k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else if constexpr (N == 16) {
+    repro::wgmma_s8_m64n16k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else if constexpr (N == 24) {
+    repro::wgmma_s8_m64n24k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else if constexpr (N == 32) {
+    wgmma_s8_m64n32k32(d, gmma_desc(a), gmma_desc(b), acc);
+  } else {
+    static_assert(N == 64, "wgmma_small takes N of 8, 16, 24, 32 or 64");
+    wgmma_s8_m64n64k32(d, gmma_desc(a), gmma_desc(b), acc);
+  }
+}
+
+// Grid (row tile of 64 query rows, slice); NW warpgroups a block split
+// every chunk of 128 KV positions, 128 / NW positions each, and PV's D
+// columns, D / NW each.  Over the KV blocks the tile sees, in order (the
+// next one's tiles loading meanwhile where two sets fit): V^T built from
+// its staging; S = Q^ K^^T on wgmma for the warpgroup's positions, masked
+// and scaled; the online softmax, each row's max and exponent reduced over
+// its quad, then over the warpgroups through shared memory; p's row sums
+// in windows of 32 (one lane a window, from the warp's staging), the
+// windows summed in order; p quantized against its bits (loaded into
+// registers while the tiles land) into P^'s tile; PV on wgmma for the
+// warpgroup's columns; acc = fma(acc, alpha, float(PV) 2^(se + sv)) in
+// registers.  At bt 128 one sweep keeps S and p in registers; at bt 256
+// and 512 each row's max and exponent span several chunks, so S is
+// computed again in three sweeps (max; exps, exponent and row sums;
+// quantize), the tensor cores' work being cheap beside the exps.  (The
+// rounding mode is an argument, not a template parameter: one build of
+// each shape serves both.)
+template <int D, int NW>
+__global__ void __launch_bounds__(128 * NW, 1) attn_fwd_tc_kernel(FwdArgs a) {
+  constexpr int NT = 128 * NW;
+  constexpr int NP = CT / NW;    // positions of a chunk a warpgroup takes
+  constexpr int NV = NP / 2;     // of them a thread holds (2 rows x NP / 4)
+  constexpr int NWIN = NP / 32;  // windows of 32 among them
+  constexpr int DN = D / NW;     // PV columns a warpgroup takes
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const FwdTcLayout L(D, a.bt);
+  const uint32_t sb = repro::smem_u32(base);
+  const size_t bh = blockIdx.y;
+  const int GS = a.GS, T = a.T, bt = a.bt, P = a.p;
+  const bool stoch = a.stochastic != 0;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int c2 = 2 * (lane % 4);
+  const int R0 = blockIdx.x * FT_ROWS, rows = min(FT_ROWS, GS - R0);
+  // this thread's fragment rows (h = 0, 1) of the tile's 64
+  int row[2], qpos[2];
+  bool ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = 16 * warp + lane / 4 + 8 * h;
+    ok[h] = row[h] < rows;
+    qpos[h] = (R0 + row[h]) % a.s + a.q_off;
+  }
+  int qmin, qmax, lo, hi;
+  strip_positions(R0, R0 + rows, a.s, a.q_off, &qmin, &qmax);
+  block_range(qmin, qmax, a.kv_len, bt, a.causal, a.window, &lo, &hi);
+  const int sq = scale_exp(*a.eq, P), sk = scale_exp(*a.ek, P), sv = scale_exp(*a.ev, P);
+  const float sc = pow2f(sq + sk);
+  const int8_t* km = a.km + bh * T * (size_t)D;
+  const int8_t* vm = a.vm + bh * T * (size_t)D;
+  const uint32_t* rp = stoch ? a.rp + (bh * GS + R0) * (size_t)T : nullptr;
+  const bool t_even = T % 2 == 0;
+  float* red_m = reinterpret_cast<float*>(base + L.red);  // [NW][64]
+  int* red_e = reinterpret_cast<int*>(red_m + 4 * FT_ROWS);  // [NW][64]
+  float* wsum = reinterpret_cast<float*>(red_e + 4 * FT_ROWS);  // [64][FT_MAXW]
+  const uint32_t aq = sb + (uint32_t)L.qs;
+
+  // which of this thread's NV fragment pairs of the warpgroup's span at c
+  // are visible (bit i: row (i / 2) % 2, position c + 8 (i / 4) + c2 + i % 2)
+  auto vmask = [&](int c) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int h = (i / 2) % 2, t = c + 8 * (i / 4) + c2 + i % 2;
+      if (ok[h] && visible(t, qpos[h], a.kv_len, a.causal, a.window)) v |= 1u << i;
+    }
+    return v;
+  };
+  auto sees = [&](int c, int n) {
+    return span_visible(c, n, qmin, qmax, a.kv_len, a.causal, a.window);
+  };
+  // the chunks of KV block j the tile can see (asynchronous copies; a
+  // chunk it cannot see keeps whatever its slot held)
+  auto load_block = [&](int j, int set) {
+    for (int k = 0; k < L.nch; ++k) {
+      const int c = j * bt + CT * k;
+      if (!sees(c, CT)) continue;
+      tile_rows<NT>(base + L.k_tile(set, k), km + (size_t)c * D, CT, T - c, D, a.km);
+      tile_rows<NT>(base + L.v_stage(set, k), vm + (size_t)c * D, CT, T - c, D, a.vm);
+    }
+  };
+  // this thread's rounding bits of the warpgroup's NP positions from c
+  // (two consecutive words a fragment pair, read only where one of the
+  // pair is visible)
+  auto load_bits = [&](uint32_t (&bits)[NV], int c, uint32_t vm) {
+#pragma unroll
+    for (int g = 0; g < NV / 4; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * g + 2 * h, t = c + 8 * g + c2;
+        uint32_t b0 = 0, b1 = 0;
+        if (stoch && ((vm >> i) & 3u)) {
+          const uint32_t* src = rp + (size_t)row[h] * T + t;
+          if (t_even) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+            b0 = v.x;
+            b1 = v.y;
+          } else {
+            b0 = __ldg(src);
+            if (t + 1 < T) b1 = __ldg(src + 1);
+          }
+        }
+        bits[i] = b0;
+        bits[i + 1] = b1;
+      }
+  };
+  // S of the warpgroup's NP positions of chunk k (at c) on wgmma, masked
+  // and scaled into x
+  auto scores = [&](float (&x)[NV], uint32_t kt, int k, uint32_t vm) {
+    int s[NV];
+    const uint32_t bk = kt + (uint32_t)(k * TILE + wg * NP * 128);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk)
+      wgmma_small<NP>(s, aq + 32 * kk, bk + 32 * kk, kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(s);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      x[i] = (vm >> i) & 1u ? __fmul_rn(__int2float_rn(s[i]), sc) : NEG;
+  };
+  // p = exp(s - m') on the visible pairs, 0 elsewhere (in place)
+  auto exps = [&](float (&x)[NV], uint32_t vm, const float (&m_new)[2]) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      x[i] = (vm >> i) & 1u ? cephes_expf(__fsub_rn(x[i], m_new[(i / 2) % 2])) : 0.0f;
+  };
+  // the sums of p over each window of 32 of the warpgroup's positions, in
+  // index order, into wsum[row][w0 + window]: the warp stages one fragment
+  // half at a time (8 rows, chunks of 16 bytes swizzled by the row), one
+  // lane sums a (row, window)
+  auto window_sums = [&](const float (&x)[NV], float* stg, int w0) {
+    const int q = lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int g = 0; g < NV / 4; ++g) {
+        const int col = 8 * g + c2;
+        *reinterpret_cast<float2*>(stg + q * NP + 4 * ((col / 4) ^ q) + col % 4) =
+            make_float2(x[4 * g + 2 * h], x[4 * g + 2 * h + 1]);
+      }
+      __syncwarp();
+      if (lane < 8 * NWIN) {
+        const int r = lane % 8, w = lane / 8;
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 v = *reinterpret_cast<const float4*>(stg + r * NP + 4 * ((8 * w + k) ^ r));
+          s = __fadd_rn(s, v.x);
+          s = __fadd_rn(s, v.y);
+          s = __fadd_rn(s, v.z);
+          s = __fadd_rn(s, v.w);
+        }
+        wsum[(16 * warp + r + 8 * h) * FT_MAXW + w0 + w] = s;
+      }
+      __syncwarp();  // the staging is read before the next half overwrites it
+    }
+  };
+  // ... and 0 for the windows of a span the tile cannot see
+  auto zero_windows = [&](int w0) {
+    if (lane < 8 * NWIN)
+      for (int h = 0; h < 2; ++h)
+        wsum[(16 * warp + lane % 8 + 8 * h) * FT_MAXW + w0 + lane / 8] = 0.0f;
+  };
+  // each row's max of x over the warpgroups (after the block's barrier)
+  auto row_max = [&](const float (&mx)[2], float (&m_new)[2], float (&alpha)[2],
+                     const float (&m_run)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (lane % 4 == 0) red_m[wg * FT_ROWS + row[h]] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = red_m[row[h]];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) v = fmaxf(v, red_m[w * FT_ROWS + row[h]]);
+      m_new[h] = fmaxf(m_run[h], v);
+      alpha[h] = cephes_expf(__fsub_rn(m_run[h], m_new[h]));
+    }
+  };
+  // each row's largest exponent over the warpgroups (after the block's
+  // barrier, which also hands over the window sums)
+  auto row_exp = [&](int (&em)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int e = max(em[h], __shfl_xor_sync(0xffffffffu, em[h], 1));
+      e = max(e, __shfl_xor_sync(0xffffffffu, e, 2));
+      if (lane % 4 == 0) red_e[wg * FT_ROWS + row[h]] = e;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) em[h] = max(em[h], red_e[w * FT_ROWS + row[h]]);
+  };
+  // P^ of the warpgroup's positions of chunk k into its tile, p quantized
+  // against its bits with its row's exponent
+  auto store_p = [&](const float (&x)[NV], const uint32_t (&bits)[NV], uint8_t* pt,
+                     const int (&em)[2]) {
+#pragma unroll
+    for (int i = 0; i < NV; i += 2) {
+      const int h = (i / 2) % 2;
+      const int q0 = quantize_one(x[i], stoch ? bits[i] : 0u, em[h], P, stoch);
+      const int q1 = quantize_one(x[i + 1], stoch ? bits[i + 1] : 0u, em[h], P, stoch);
+      *reinterpret_cast<uint16_t*>(pt + sw128(row[h], wg * NP + 8 * (i / 4) + c2)) =
+          (uint16_t)((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+    }
+  };
+
+  tile_rows<NT>(base + L.qs, a.qm + (bh * GS + R0) * (size_t)D, FT_ROWS, rows, D, a.qm);
+  if (lo < hi) load_block(lo, 0);
+  repro::cp_async_commit();
+
+  float acc[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.0f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.0f, 0.0f};
+
+  for (int j = lo; j < hi; ++j) {
+    const int set = L.nset == 2 ? (j - lo) & 1 : 0;
+    const int cb = j * bt;
+    const int cw = cb + wg * NP;  // the warpgroup's first position of chunk 0
+    // one chunk a block: its bits load while its tiles land
+    uint32_t bits[NV], vm = 0;
+    if (L.nch == 1 && sees(cw, NP)) {
+      vm = vmask(cw);
+      load_bits(bits, cw, vm);
+    }
+    if (L.nset == 2 && j + 1 < hi) {
+      load_block(j + 1, set ^ 1);
+      repro::cp_async_commit();
+      repro::cp_async_wait<1>();
+    } else {
+      repro::cp_async_wait<0>();
+    }
+    __syncthreads();  // the block's tiles landed (every thread's copies)
+    for (int k = 0; k < L.nch; ++k)
+      if (sees(cb + CT * k, CT))
+        tile_transpose<NT>(base + L.vt + (size_t)k * D * 128, base + L.v_stage(set, k), CT, D);
+    fence_proxy_async();
+    __syncthreads();
+
+    const uint32_t kt = sb + (uint32_t)L.k_tile(set, 0);
+    float* stg = reinterpret_cast<float*>(base + L.v_stage(set, 0)) + (tid / 32) * 8 * NP;
+    float m_new[2], alpha[2];
+    int em[2] = {1, 1};
+    if (L.nch == 1) {
+      // one chunk: S and p stay in registers
+      const bool mine = sees(cw, NP);
+      float x[NV];
+      float mx[2] = {NEG, NEG};
+      if (mine) {
+        scores(x, kt, 0, vm);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x[i]);
+      }
+      row_max(mx, m_new, alpha, m_run);
+      if (mine) {
+        exps(x, vm, m_new);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) em[(i / 2) % 2] = max(em[(i / 2) % 2], eff_exp(x[i]));
+        window_sums(x, stg, wg * NWIN);
+      } else {
+        zero_windows(wg * NWIN);
+      }
+      row_exp(em);
+      if (mine) store_p(x, bits, base + L.v_stage(set, 0), em);
+    } else {
+      // sweep 1: each row's max over the block
+      float mx[2] = {NEG, NEG};
+      for (int k = 0; k < L.nch; ++k) {
+        const int c = cw + CT * k;
+        if (!sees(c, NP)) continue;
+        float x[NV];
+        scores(x, kt, k, vmask(c));
+#pragma unroll
+        for (int i = 0; i < NV; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x[i]);
+      }
+      row_max(mx, m_new, alpha, m_run);
+      // sweep 2: the exps' largest exponent and the window sums
+      for (int k = 0; k < L.nch; ++k) {
+        const int c = cw + CT * k;
+        if (!sees(c, NP)) {
+          zero_windows(4 * k + wg * NWIN);
+          continue;
+        }
+        const uint32_t kvm = vmask(c);
+        float x[NV];
+        scores(x, kt, k, kvm);
+        exps(x, kvm, m_new);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) em[(i / 2) % 2] = max(em[(i / 2) % 2], eff_exp(x[i]));
+        window_sums(x, stg, 4 * k + wg * NWIN);
+      }
+      row_exp(em);
+      // sweep 3: P^ of every chunk
+      for (int k = 0; k < L.nch; ++k) {
+        const int c = cw + CT * k;
+        if (!sees(c, NP)) continue;
+        const uint32_t kvm = vmask(c);
+        uint32_t kbits[NV];
+        load_bits(kbits, c, kvm);
+        float x[NV];
+        scores(x, kt, k, kvm);
+        exps(x, kvm, m_new);
+        store_p(x, kbits, base + L.v_stage(set, k), em);
+      }
+    }
+    // the row sums: every window of the block in order
+    float tot[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      for (int w = 0; w < 4 * L.nch; ++w)
+        tot[h] = __fadd_rn(tot[h], wsum[row[h] * FT_MAXW + w]);
+    fence_proxy_async();
+    __syncthreads();  // P^ written; every row sum read
+    // PV for the warpgroup's columns over the block's visible slices of 32
+    int pv[DN / 2];
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) pv[i] = 0;
+    wgmma_fence();
+    for (int k = 0; k < L.nch; ++k)
+#pragma unroll
+      for (int sl = 0; sl < 4; ++sl)
+        if (sees(cb + CT * k + 32 * sl, 32))
+          wgmma_small<DN>(pv, sb + (uint32_t)(L.v_stage(set, k) + 32 * sl),
+                          sb + (uint32_t)(L.vt + k * D * 128 + wg * DN * 128 + 32 * sl), 1);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_operands(pv);
+    float ps[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ps[h] = pow2f(scale_exp(em[h], P) + sv);
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) {
+      const int h = (i / 2) % 2;
+      acc[i] = fmaf(acc[i], alpha[h], __fmul_rn(__int2float_rn(pv[i]), ps[h]));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_run[h] = fmaf(l_run[h], alpha[h], tot[h]);
+      m_run[h] = m_new[h];
+    }
+    __syncthreads();  // every warpgroup is done with the block's tiles
+    if (L.nset == 1 && j + 1 < hi) {
+      load_block(j + 1, 0);
+      repro::cp_async_commit();
+    }
+  }
+  repro::cp_async_wait<0>();  // (no KV block: the query tile's copies)
+
+  // y = acc / max(l, 1e-30) for the warpgroup's columns: four a thread
+  // (the quad's even lane takes a column group's first four, the odd one
+  // the next group's last four) where the groups pair up, else two
+  constexpr int NG = DN / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lf = fmaxf(l_run[h], L_FLOOR);
+    float* yr = a.y + (bh * GS + R0 + row[h]) * (size_t)D + wg * DN;
+    if constexpr (NG % 2 == 0) {
+      const bool odd = lane & 1;
+#pragma unroll
+      for (int g = 0; g < NG; g += 2) {
+        const float2 lo2 = make_float2(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+        const float2 hi2 = make_float2(acc[4 * g + 4 + 2 * h], acc[4 * g + 4 + 2 * h + 1]);
+        const float2 snd = odd ? lo2 : hi2;
+        const float rx = __shfl_xor_sync(0xffffffffu, snd.x, 1);
+        const float ry = __shfl_xor_sync(0xffffffffu, snd.y, 1);
+        const float4 v = odd ? make_float4(rx, ry, hi2.x, hi2.y) : make_float4(lo2.x, lo2.y, rx, ry);
+        if (ok[h])
+          *reinterpret_cast<float4*>(yr + (odd ? 8 * g + 8 + c2 - 2 : 8 * g + c2)) =
+              make_float4(__fdiv_rn(v.x, lf), __fdiv_rn(v.y, lf), __fdiv_rn(v.z, lf),
+                          __fdiv_rn(v.w, lf));
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        if (ok[h])
+          *reinterpret_cast<float2*>(yr + 8 * g + c2) =
+              make_float2(__fdiv_rn(acc[4 * g + 2 * h], lf), __fdiv_rn(acc[4 * g + 2 * h + 1], lf));
+    }
+  }
+  if (wg) return;
+  // m and l by the first warpgroup: a warp's 16 rows as four float4 each
+  // (lanes 0-3 m, 4-7 l) where they are whole and aligned, else a word a row
+  const size_t g0 = bh * GS + R0 + 16 * warp;
+  const int k4 = lane % 4, which = (lane / 4) % 2;
+  float v[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int r = 4 * k4 + jj, src = 4 * (r % 8);
+    const float m0 = __shfl_sync(0xffffffffu, m_run[0], src);
+    const float m1 = __shfl_sync(0xffffffffu, m_run[1], src);
+    const float l0 = __shfl_sync(0xffffffffu, l_run[0], src);
+    const float l1 = __shfl_sync(0xffffffffu, l_run[1], src);
+    v[jj] = which ? (r >= 8 ? l1 : l0) : (r >= 8 ? m1 : m0);
+  }
+  const bool whole = 16 * warp + 16 <= rows &&
+                     reinterpret_cast<uintptr_t>(a.m + g0) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(a.l + g0) % 16 == 0;
+  if (whole) {
+    if (lane < 8)
+      *reinterpret_cast<float4*>((which ? a.l : a.m) + g0 + 4 * k4) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  } else if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (ok[h]) {
+        a.m[bh * GS + R0 + row[h]] = m_run[h];
+        a.l[bh * GS + R0 + row[h]] = l_run[h];
+      }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1168,6 +1675,57 @@ int repro_attn_fwd(const void* qm, const void* km, const void* vm, const void* r
       static_cast<float*>(y), static_cast<float*>(m), static_cast<float*>(l), GS, T, D, s,
       q_off, kv_len, causal, window, p, bt);
   return (int)cudaGetLastError();
+}
+
+// The forward on the tensor cores (D of 32, 64, 96 or 128; bt 128, 256 or
+// 512): the operands of repro_attn_fwd; nw warpgroups a block of 64 query
+// rows, each taking 128 / nw positions of every chunk (4, or 2 at D 64, the
+// tiling the rule does not take, kept to time it).  qm, km, vm and y
+// 16-byte aligned, rp 8-byte (it is read two words at a time), eq, ek, ev,
+// m and l 4-byte, else cudaErrorInvalidValue.
+int repro_attn_fwd_tc(const void* qm, const void* km, const void* vm, const void* rp,
+                      const void* eq, const void* ek, const void* ev, void* y, void* m,
+                      void* l, int BH, int GS, int T, int D, int s, int q_off, int kv_len,
+                      int causal, int window, int p, int bt, int stochastic, int nw,
+                      void* stream) {
+  if ((D != 32 && D != 64 && D != 96 && D != 128) || (bt != 128 && bt != 256 && bt != 512) ||
+      (nw != 4 && !(nw == 2 && D == 64)))
+    return (int)cudaErrorInvalidValue;
+  for (const void* x : {qm, km, vm, (const void*)y})
+    if (reinterpret_cast<uintptr_t>(x) % 16) return (int)cudaErrorInvalidValue;
+  if (stochastic && reinterpret_cast<uintptr_t>(rp) % 8) return (int)cudaErrorInvalidValue;
+  for (const void* x : {eq, ek, ev, (const void*)m, (const void*)l})
+    if (reinterpret_cast<uintptr_t>(x) % 4) return (int)cudaErrorInvalidValue;
+  const FwdTcLayout L(D, bt);
+  if (L.total > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  FwdArgs a;
+  a.qm = static_cast<const int8_t*>(qm);
+  a.km = static_cast<const int8_t*>(km);
+  a.vm = static_cast<const int8_t*>(vm);
+  a.rp = static_cast<const uint32_t*>(rp);
+  a.eq = static_cast<const int*>(eq);
+  a.ek = static_cast<const int*>(ek);
+  a.ev = static_cast<const int*>(ev);
+  a.y = static_cast<float*>(y);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.GS = GS; a.T = T; a.s = s; a.q_off = q_off; a.kv_len = kv_len; a.causal = causal;
+  a.window = window; a.p = p; a.bt = bt; a.stochastic = stochastic;
+  void (*kern)(FwdArgs) = nw == 2    ? attn_fwd_tc_kernel<64, 2>
+                          : D == 32  ? attn_fwd_tc_kernel<32, 4>
+                          : D == 64  ? attn_fwd_tc_kernel<64, 4>
+                          : D == 96  ? attn_fwd_tc_kernel<96, 4>
+                                     : attn_fwd_tc_kernel<128, 4>;
+  cudaError_t err = set_smem(kern, L.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((GS + FT_ROWS - 1) / FT_ROWS, BH);
+  kern<<<grid, 128 * nw, L.total, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of one block of the tensor-core forward (FwdTcLayout).
+long long repro_attn_fwd_tc_smem(int D, int bt) {
+  return (long long)FwdTcLayout(D, bt).total;
 }
 
 // qm/gm (BH,GS,D), km/vm (BH,T,D) int8; m, l, delta (BH,GS) f32; rs/rp2

@@ -255,6 +255,42 @@ __device__ __forceinline__ void wgmma_s8_m64n32k32(int (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// The same with the narrow fragments of 64 x 8, 64 x 16 and 64 x 24.
+__device__ __forceinline__ void wgmma_s8_m64n8k32(int (&d)[4], uint64_t da, uint64_t db,
+                                                  int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n16k32(int (&d)[8], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n24k32(int (&d)[12], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // Shared memory written by threads (the generic proxy) made visible to the
 // wgmma and bulk-copy engines (the async proxy): before the barrier that
 // hands the tile over.

@@ -168,6 +168,7 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
                 for v, c in kim.int8_matmul_variants.items()},
              **{f"attn_decode_n{n}": c
                 for n, c in kfa.attn_decode_splits.items()},
+             **{f"attn_fwd_{v}": c for v, c in kfa.attn_fwd_variants.items()},
              **{f"attn_bwd_{v}": c for v, c in kfa.attn_bwd_variants.items()}}
 
 
@@ -179,8 +180,9 @@ def kernel_launches() -> dict:
     (``int8_matmul_wgmma``, ``_stream``, ``_wmma``) and those of
     ``gemm_epi`` and ``norm_gemm`` (``gemm_epi_wgmma``, ``_dp4a``,
     ``norm_gemm_wgmma``, ``_dp4a``), ``attn_decode`` by cluster size
-    (``attn_decode_n1`` ... ``attn_decode_n16``) and ``attn_bwd`` by route
-    (``attn_bwd_wgmma``, ``attn_bwd_dp4a``)."""
+    (``attn_decode_n1`` ... ``attn_decode_n16``) and ``attn_fwd`` and
+    ``attn_bwd`` by route (``attn_fwd_wgmma``, ``attn_fwd_dp4a``,
+    ``attn_bwd_wgmma``, ``attn_bwd_dp4a``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
@@ -471,12 +473,16 @@ def _matmul_unfused(am: torch.Tensor, bmant: torch.Tensor, ea, eb, pa: int,
 def attn_fwd(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, *, p, s, bt, causal,
              window, stochastic):
     """Run a FUSED training-attention forward (see
-    ``kernels.fused_attention.attn_fwd``)."""
+    ``kernels.fused_attention.attn_fwd``); an int8 operand or the bits off
+    the alignment the kernel's loads need is copied first."""
     run = kfa.attn_fwd_plain if _plain_on_card else kfa.attn_fwd
-    return run(qm.contiguous(), km.contiguous(), vm.contiguous(),
-               None if rp is None else rp.contiguous(), eq, ek, ev, q_off,
-               kv_len, p=p, s=s, bt=bt, causal=causal, window=window,
-               stochastic=stochastic)
+    qm, km, vm = (x.contiguous() for x in (qm, km, vm))
+    rp = None if rp is None else rp.contiguous()
+    if qm.is_cuda and not _plain_on_card:
+        qm, km, vm = (_aligned_to(x, 16) for x in (qm, km, vm))
+        rp = None if rp is None else _aligned_to(rp, 8)
+    return run(qm, km, vm, rp, eq, ek, ev, q_off, kv_len, p=p, s=s, bt=bt,
+               causal=causal, window=window, stochastic=stochastic)
 
 
 def attn_bwd(qm, gm, km, vm, m, l, delta, rs, rp2, eq, ek, ev, eg, q_off,

@@ -13,7 +13,8 @@ r % s + q_off):
   ``attn_fwd``     <- ``fused_attn_fwd_pallas`` (``_fwd_blocks``): the
                    qflow training forward over per-tensor mantissas, an
                    online softmax over KV blocks of ``bt`` positions, p
-                   quantized per row per block in the kernel.
+                   quantized per row per block in the kernel; on
+                   ``wgmma`` or ``__dp4a`` (``attn_fwd_variant``).
   ``attn_bwd``     <- ``fused_attn_bwd_pallas`` (``_bwd_block``): the A.2
                    integer backward, probabilities recomputed from the
                    saved row stats, pn and dS quantized with one exponent
@@ -46,8 +47,10 @@ from .fused_linear import (_check, _Launches, _ptr, _raise_on, _scalar_i32,
 __all__ = ["attn_decode", "attn_decode_plain", "decode_p_plain",
            "decode_smem_bytes", "decode_split", "DECODE_SPLITS",
            "attn_decode_splits", "attn_misaligned", "attn_fwd",
-           "attn_fwd_plain", "attn_bwd", "attn_bwd_plain",
-           "attn_bwd_variant", "ATTN_BWD_VARIANTS", "attn_bwd_variants",
+           "attn_fwd_plain", "attn_fwd_variant", "attn_fwd_tiles",
+           "ATTN_FWD_VARIANTS", "attn_fwd_variants", "attn_bwd",
+           "attn_bwd_plain", "attn_bwd_variant", "ATTN_BWD_VARIANTS",
+           "attn_bwd_variants",
            "train_smem_bytes", "bwd_strip", "SMEM_LIMIT"]
 
 _NEG = -1e30          # models.attention._NEG
@@ -118,22 +121,25 @@ def decode_smem_bytes(gs: int, t: int, d: int) -> int:
 
 
 # The alignment (bytes) each operand's loads need: 16-byte loads and bulk
-# or asynchronous copies of the int8 tiles and of the backward's bits;
-# words.
+# or asynchronous copies of the int8 tiles and of the backward's bits; the
+# forward's bits two words at a time; words.
 _ALIGN = {"attn_decode": {"qm": 16, "km": 16, "vm": 16, "ek_rows": 4,
                           "ev_rows": 4, "rp": 4, "eq": 4},
+          "attn_fwd": {"qm": 16, "km": 16, "vm": 16, "rp": 8, "eq": 4,
+                       "ek": 4, "ev": 4},
           "attn_bwd": {"qm": 16, "gm": 16, "km": 16, "vm": 16, "m": 4,
                        "l": 4, "delta": 4, "rs": 16, "rp2": 16, "eq": 4,
                        "ek": 4, "ev": 4, "eg": 4}}
 
 
 def attn_misaligned(op: str, ptrs: dict) -> str:
-    """Which operand of ``op`` (``attn_decode`` or ``attn_bwd``) sits off
-    the alignment its kernel's loads need ('' when none): ``ptrs`` maps the
-    operand names to their addresses (None or absent: not passed).  16
-    bytes for the int8 operands (16-byte loads, bulk copies) and the
-    backward's rounding bits (16-byte copies), 4 for the stats, exponents
-    and the decode's bits."""
+    """Which operand of ``op`` (``attn_decode``, ``attn_fwd`` or
+    ``attn_bwd``) sits off the alignment its kernel's loads need ('' when
+    none): ``ptrs`` maps the operand names to their addresses (None or
+    absent: not passed).  16 bytes for the int8 operands (16-byte loads,
+    bulk copies) and the backward's rounding bits (16-byte copies), 8 for
+    the forward's bits (two words a load), 4 for the stats, exponents and
+    the decode's bits."""
     for name, align in _ALIGN[op].items():
         ptr = ptrs.get(name)
         if ptr is not None and ptr % align:
@@ -299,6 +305,50 @@ def attn_bwd_variant(gs: int, t: int, d: int, bt: int,
     return "wgmma" if aligned and d in _TC_BWD_DIMS else "dp4a"
 
 
+# The routes of the attention forward (``attn_fwd_variant``).
+ATTN_FWD_VARIANTS = ("wgmma", "dp4a")
+# The wgmma forward's block (``csrc/attn_train.cu`` FwdTcLayout): its query
+# rows, the most windows of 32 a KV block holds, the KV blocks it takes.
+_FWD_ROWS, _FWD_MAXW, _FWD_BT = 64, 16, (128, 256, 512)
+
+
+def attn_fwd_variant(gs: int, t: int, d: int, bt: int,
+                     aligned: bool = True) -> str:
+    """The route of the attention forward for GS query rows over a band of
+    T in KV blocks of bt, head dim D: ``wgmma`` (int8 tensor cores, each KV
+    block in chunks of 128 positions) for D of 32, 64, 96 or 128 at bt 128,
+    256 or 512 with ``aligned`` operands (16-byte copies of the tiles,
+    8-byte loads of the bits; the wrapper raises on an operand that is not,
+    see ``attn_misaligned``); else the ``__dp4a`` kernel."""
+    del gs, t  # the route does not depend on them
+    return ("wgmma" if aligned and d in _TC_BWD_DIMS and bt in _FWD_BT
+            else "dp4a")
+
+
+def _tc_fwd_layout(d: int, bt: int) -> tuple:
+    """(bytes, sets) of one block of the wgmma forward (``FwdTcLayout``):
+    Q^'s tile (64 rows of 128 bytes), V^T of the KV block's chunks (D rows
+    of 128 bytes each), the row stats its warpgroups exchange (two of 4 x
+    64 words, 64 x 16 window sums), then one or two sets (two where they
+    fit) of the block's K^ chunks and V^ staging chunks (128 x 128 bytes
+    each), and the 1024 bytes of the tiles' alignment."""
+    nch = bt // 128
+    red = _FWD_ROWS * 128 + nch * d * 128 + 4 * (2 * 4 * _FWD_ROWS
+                                                  + _FWD_ROWS * _FWD_MAXW)
+    ks = -(-red // 1024) * 1024
+    set_bytes = 2 * nch * 128 * 128
+    sets = 2 if 1024 + ks + 2 * set_bytes <= SMEM_LIMIT else 1
+    return 1024 + ks + sets * set_bytes, sets
+
+
+def attn_fwd_tiles(d: int, bt: int) -> int:
+    """Warpgroups a block of 64 query rows of the wgmma forward, each
+    taking 128 / n positions of every chunk and D / n columns of PV: 4
+    (the C entry also takes 2 at D 64, to time it)."""
+    del d, bt
+    return 4
+
+
 def _tc_bwd_smem(d: int) -> int:
     """Shared memory of the wgmma backward's pass B (``TcLayout``): three
     128 x 128-byte tiles (Q^, G^, dS^), four of 64 x 128 (the block's half
@@ -310,14 +360,17 @@ def _tc_bwd_smem(d: int) -> int:
 
 def train_smem_bytes(op: str, d: int, bt: int) -> int:
     """Shared memory of one block of the ``attn_fwd`` or ``attn_bwd``
-    kernel (the layouts of ``csrc/attn_train.cu``): for the forward and
-    the ``__dp4a`` backward, packed int8 tiles with odd word strides, the
-    score or pn/dS tiles, the float accumulators and the row stats; for
-    the ``wgmma`` backward its swizzled tiles."""
+    kernel on the route its rule names (the layouts of
+    ``csrc/attn_train.cu``): for the ``__dp4a`` routes, packed int8 tiles
+    with odd word strides, the score or pn/dS tiles, the float
+    accumulators and the row stats; for the ``wgmma`` routes their
+    swizzled tiles."""
     if op == "attn_bwd":
         if attn_bwd_variant(0, 0, d, bt) == "wgmma":
             return _tc_bwd_smem(d)
         return _bwd_smem(d, bt, bwd_strip(d, bt))
+    if attn_fwd_variant(0, 0, d, bt) == "wgmma":
+        return _tc_fwd_layout(d, bt)[0]
     dw, tw = -(-d // 4), bt // 4
     kld, vld = dw | 1, tw | 1
     bq = 16
@@ -440,6 +493,10 @@ def _lib_train() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.repro_attn_fwd.argtypes = [vp] * 10 + [i] * 12 + [vp]
         lib.repro_attn_fwd.restype = i
+        lib.repro_attn_fwd_tc.argtypes = [vp] * 10 + [i] * 13 + [vp]
+        lib.repro_attn_fwd_tc.restype = i
+        lib.repro_attn_fwd_tc_smem.argtypes = [i] * 2
+        lib.repro_attn_fwd_tc_smem.restype = ctypes.c_longlong
         lib.repro_attn_bwd.argtypes = [vp] * 18 + [i] * 13 + [vp]
         lib.repro_attn_bwd.restype = i
         lib.repro_attn_bwd_tc.argtypes = [vp] * 19 + [i] * 12 + [vp]
@@ -462,7 +519,8 @@ def attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
              ev: torch.Tensor, q_off: int, kv_len: int, *, p: int, s: int,
              bt: int, causal: bool, window: int, stochastic: bool):
     """Batched fused attention forward (shapes of ``attn_fwd_plain``): the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel on the route ``attn_fwd_variant`` names for CUDA tensors,
+    the plain version for CPU tensors."""
     if not qm.is_cuda:
         return attn_fwd_plain(qm, km, vm, rp, eq, ek, ev, q_off, kv_len,
                               p=p, s=s, bt=bt, causal=causal, window=window,
@@ -479,17 +537,28 @@ def attn_fwd(qm: torch.Tensor, km: torch.Tensor, vm: torch.Tensor,
         _check("rp", rp, torch.int32, (bh, gs, t), dev)
     eq, ek, ev = (_scalar_i32(n, e, dev) for n, e in
                   (("eq", eq), ("ek", ek), ("ev", ev)))
+    why = attn_misaligned("attn_fwd", _addresses(
+        qm=qm, km=km, vm=vm, rp=rp if stochastic else None, eq=eq, ek=ek,
+        ev=ev))
+    if why:
+        raise ValueError(f"attn_fwd: {why}")
+    variant = attn_fwd_variant(gs, t, d, bt)
     y = torch.empty((bh, gs, d), dtype=torch.float32, device=dev)
     m = torch.empty((bh, gs, 1), dtype=torch.float32, device=dev)
     l = torch.empty((bh, gs, 1), dtype=torch.float32, device=dev)
-    err = _lib_train().repro_attn_fwd(
-        _ptr(qm), _ptr(km), _ptr(vm), _ptr(rp if stochastic else None),
-        _ptr(eq), _ptr(ek), _ptr(ev), _ptr(y), _ptr(m), _ptr(l), bh, gs, t,
-        d, s, int(q_off), int(min(kv_len, t)), int(causal), int(window), p,
-        bt, int(stochastic),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "attn_fwd")
+    args = [_ptr(x) for x in (qm, km, vm, rp if stochastic else None, eq, ek,
+                              ev, y, m, l)]
+    args += [bh, gs, t, d, s, int(q_off), int(min(kv_len, t)), int(causal),
+             int(window), p, bt, int(stochastic)]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if variant == "wgmma":
+        err = _lib_train().repro_attn_fwd_tc(*args, attn_fwd_tiles(d, bt),
+                                             stream)
+    else:
+        err = _lib_train().repro_attn_fwd(*args, stream)
+    _raise_on(err, f"attn_fwd ({variant})")
     attn_fwd.launches += 1
+    attn_fwd_variants[variant].launches += 1
     return y, m, l
 
 
@@ -566,4 +635,5 @@ def attn_bwd(qm: torch.Tensor, gm: torch.Tensor, km: torch.Tensor,
 # (a backward call is two launches on wgmma, three on __dp4a, counted once).
 attn_fwd.launches = 0
 attn_bwd.launches = 0
+attn_fwd_variants = {v: _Launches() for v in ATTN_FWD_VARIANTS}
 attn_bwd_variants = {v: _Launches() for v in ATTN_BWD_VARIANTS}

@@ -1,9 +1,10 @@
 """The attention kernels' shape rules on the CPU: the decode cluster's split
 of the band (``decode_split``, ``decode_smem_bytes``),
 its row sum taken block by block in ``fmath.sum_windows``'s order, the
-planner's decode band, the backward's route (``attn_bwd_variant``) and
-shared memory, and the operands' alignment (``attn_misaligned``).  Small
-and quick: no kernel runs and no JAX step is compiled."""
+planner's decode band, the forward's and the backward's routes
+(``attn_fwd_variant``, ``attn_bwd_variant``) and shared memory, and the
+operands' alignment (``attn_misaligned``).  Small and quick: no kernel
+runs and no JAX step is compiled."""
 
 import pytest
 import torch
@@ -155,6 +156,68 @@ def test_attn_bwd_variant_and_shared_memory(d, bt):
     assert fwd.path == kd.JNP or bwd.path == kd.FUSED
 
 
+@pytest.mark.parametrize("bt", [128, 256, 512])
+def test_attn_fwd_variant_over_head_dims(bt):
+    """wgmma for D of 32, 64, 96 and 128 at every bt with aligned
+    operands, __dp4a for every other D up to 300 and for unaligned
+    operands; the route does not depend on GS or T."""
+    for d in range(1, 301):
+        want = "wgmma" if d in (32, 64, 96, 128) else "dp4a"
+        for gs, t in ((7, 4 * bt), (896, bt), (130, 4100)):
+            assert kfa.attn_fwd_variant(gs, t, d, bt) == want, (d, gs, t)
+        assert kfa.attn_fwd_variant(64, 4 * bt, d, bt, aligned=False) == \
+            "dp4a"
+
+
+@pytest.mark.parametrize("d", [8, 12, 32, 64, 96, 128, 160, 256])
+@pytest.mark.parametrize("bt", [128, 256, 512])
+def test_attn_fwd_shared_memory(d, bt):
+    """train_smem_bytes('attn_fwd') follows the route: on wgmma its layout
+    (the query tile, V^T of the block's chunks, the warpgroups' row stats,
+    then one or two sets of K^ and V^ chunks, two only where they fit),
+    always within SMEM_LIMIT; on __dp4a the packed strip's; a FUSED
+    forward still implies a backward that fits."""
+    need = kfa.train_smem_bytes("attn_fwd", d, bt)
+    nch = bt // 128
+    if kfa.attn_fwd_variant(64, 4 * bt, d, bt) == "wgmma":
+        assert kfa.attn_fwd_tiles(d, bt) == 4
+        fixed = -(-(64 * 128 + nch * d * 128 + 4 * (2 * 4 * 64 + 64 * 16))
+                  // 1024) * 1024
+        sets = 2 if 1024 + fixed + 2 * 2 * nch * 16384 <= kfa.SMEM_LIMIT \
+            else 1
+        assert (need, sets) == kfa._tc_fwd_layout(d, bt)
+        assert need == 1024 + fixed + sets * 2 * nch * 16384
+        assert need <= kfa.SMEM_LIMIT
+        assert sets == (2 if bt < 512 else 1)
+    else:
+        dw, tw = -(-d // 4), bt // 4
+        assert need == 4 * (16 * dw + bt * (dw | 1) + d * (tw | 1)
+                            + 16 * bt + 16 * tw + 16 * d + 64)
+    t = {128: 1000, 256: 3000, 512: 5000}[bt]
+    fwd, bwd = (kd.plan_attention(op, 64, t, d, QuantConfig(), s=64,
+                                  kernel_mode="fused", device="cuda")
+                for op in ("attn_fwd", "attn_bwd"))
+    assert fwd.path == kd.JNP or bwd.path == kd.FUSED
+    if d in (32, 64, 96, 128):
+        assert fwd.path == kd.FUSED and fwd.bt == bt
+
+
+def test_attn_misaligned_forward_operands():
+    """The forward's int8 tiles need 16 bytes (16-byte copies), its bits
+    8 (two words a load), its exponents 4; bits not passed are not
+    checked."""
+    needs = {"qm": 16, "km": 16, "vm": 16, "rp": 8, "eq": 4, "ek": 4,
+             "ev": 4}
+    base = {name: 4096 for name in needs}
+    assert kfa.attn_misaligned("attn_fwd", base) == ""
+    assert kfa.attn_misaligned("attn_fwd", {**base, "rp": None}) == ""
+    for name, need in needs.items():
+        for off in (1, 2, 4, 8, 12):
+            why = kfa.attn_misaligned("attn_fwd", {**base, name: 4096 + off})
+            assert (name in why) == (off % need != 0), (name, off, why)
+            assert why == "" or f"{need}-byte" in why
+
+
 @pytest.mark.parametrize("op,names", [
     ("attn_decode", ["qm", "km", "vm"]),
     ("attn_bwd", ["qm", "gm", "km", "vm", "rs", "rp2"])])
@@ -174,8 +237,27 @@ def test_attn_misaligned_names_the_operand(op, names):
 def test_every_attention_route_has_a_counter():
     names = set(kd.kernel_launches())
     assert {f"attn_decode_n{n}" for n in kfa.DECODE_SPLITS} <= names
+    assert {f"attn_fwd_{v}" for v in kfa.ATTN_FWD_VARIANTS} <= names
     assert {f"attn_bwd_{v}" for v in kfa.ATTN_BWD_VARIANTS} <= names
     assert set(kfa.DECODE_SPLITS) == set(range(1, 17))
+
+
+def test_dispatch_forward_keeps_cpu_operands_as_given():
+    """The forward's dispatch on the CPU: the plain version on offset
+    views as given (the copy of an unaligned operand is for the card)."""
+    full = torch.randint(-127, 128, (1 + 3 * 2 * 6 * 32,), dtype=torch.int8)
+    qm = full[1:1 + 2 * 6 * 32].view(2, 6, 32)
+    km = full[3:3 + 2 * 6 * 32].view(2, 6, 32)
+    vm = full[5:5 + 2 * 6 * 32].view(2, 6, 32)
+    rp = torch.randint(0, 1 << 32, (1 + 2 * 6 * 6,), dtype=torch.int64)
+    rp = rp[1:].view(2, 6, 6)
+    eq, ek, ev = (torch.tensor(v, dtype=torch.int32) for v in (125, 124, 124))
+    kw = dict(p=7, s=3, bt=128, causal=True, window=0, stochastic=True)
+    got = kd.attn_fwd(qm, km, vm, rp, eq, ek, ev, 2, 6, **kw)
+    want = kfa.attn_fwd_plain(qm.clone(), km.clone(), vm.clone(), rp.clone(),
+                              eq, ek, ev, 2, 6, **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def test_dispatch_keeps_cpu_operands_as_given():

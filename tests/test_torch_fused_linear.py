@@ -195,6 +195,7 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     "norm_gemm_dp4a": 0,
                                     **{f"attn_decode_n{n}": 0
                                        for n in range(1, 17)},
+                                    "attn_fwd_wgmma": 0, "attn_fwd_dp4a": 0,
                                     "attn_bwd_wgmma": 0, "attn_bwd_dp4a": 0}
 
 

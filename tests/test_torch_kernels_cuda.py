@@ -94,6 +94,7 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     want.update({f"gemm_epi_{v}": 0 for v in kfl.GEMM_EPI_VARIANTS})
     want.update({f"norm_gemm_{v}": 0 for v in kfc.NORM_GEMM_VARIANTS})
     want.update({f"attn_decode_n{n}": 0 for n in kfa.DECODE_SPLITS})
+    want.update({f"attn_fwd_{v}": 0 for v in kfa.ATTN_FWD_VARIANTS})
     want.update({f"attn_bwd_{v}": 0 for v in kfa.ATTN_BWD_VARIANTS})
     want[f"qq_{kfl.qq_variant(m, k)}"] = 2
     want[f"qi_{kfl.qgemm_variant(m, k)}"] = 1
@@ -231,6 +232,7 @@ def _offset_view(x):
 @pytest.mark.parametrize("op,operand", [("attn_decode", "qm"),
                                         ("attn_decode", "km"),
                                         ("attn_decode", "vm"),
+                                        ("attn_fwd", "qm"), ("attn_fwd", "km"),
                                         ("attn_bwd", "qm"), ("attn_bwd", "gm")])
 def test_attention_offset_views_raise(cuda, op, operand):
     """An int8 operand as a contiguous view one byte into its storage: the
@@ -246,6 +248,10 @@ def test_attention_offset_views_raise(cuda, op, operand):
         wrapper, plain, routed = kfa.attn_decode, kfa.attn_decode_plain, \
             kd.attn_decode
         i = {"qm": 0, "km": 1, "vm": 2}[operand]
+    elif op == "attn_fwd":
+        args, kw = _fwd_operands(g, cuda, TRAIN_SHAPES[0], True)
+        wrapper, plain, routed = kfa.attn_fwd, kfa.attn_fwd_plain, kd.attn_fwd
+        i = {"qm": 0, "km": 1}[operand]
     else:
         args, kw = _bwd_operands(g, cuda, TRAIN_SHAPES[0], True)
         wrapper, plain, routed = kfa.attn_bwd, kfa.attn_bwd_plain, kd.attn_bwd
@@ -406,7 +412,11 @@ def test_float_scatter_on_card_equals_cpu(cuda):
 # offset; the __dp4a backward's narrow query strips: D = 128 over 9 blocks
 # of bt = 512 (the last one ragged) and D = 256 with bt = 256, 8-row
 # strips; on wgmma D 32 and 96 (n64 + n32) with two row tiles, T odd (the
-# bits one by one) and a ragged last block.
+# bits one by one) and a ragged last block; then for the wgmma forward,
+# causal at D 64: query positions that wrap inside a row tile behind an
+# offset (the last KV block masked for every row), and bt = 256 behind an
+# offset, where the first row tile sees only the first chunk of the last
+# KV block and a half of 64 positions of the others.
 TRAIN_SHAPES = [(8, 896, 128, 64, 128, 0, 128, True, 0),
                 (2, 21, 200, 12, 3, 0, 170, False, 0),
                 (3, 35, 300, 16, 5, 0, 300, True, 0),
@@ -416,7 +426,55 @@ TRAIN_SHAPES = [(8, 896, 128, 64, 128, 0, 128, True, 0),
                 (1, 24, 2000, 256, 24, 1500, 1990, True, 300),
                 (2, 40, 300, 32, 5, 0, 300, True, 0),
                 (1, 150, 520, 96, 30, 0, 500, False, 0),
-                (2, 21, 201, 64, 3, 0, 190, False, 0)]
+                (2, 21, 201, 64, 3, 0, 190, False, 0),
+                (2, 100, 300, 64, 25, 150, 300, True, 0),
+                (1, 130, 1200, 64, 130, 1030, 1200, True, 0)]
+
+
+def _fwd_operands(g, dev, shape, stochastic):
+    """attn_fwd's arguments at a TRAIN_SHAPES entry and its keywords."""
+    bh, gs, t, d, s, q_off, kv_len, causal, window = shape
+    qm, km, vm = (torch.randint(-127, 128, shp, generator=g, device=dev,
+                                dtype=torch.int8)
+                  for shp in ((bh, gs, d), (bh, t, d), (bh, t, d)))
+    rp = prng.bits(prng.key(4), (bh, gs, t), dev) if stochastic else None
+    eq, ek, ev = (torch.tensor(v, dtype=torch.int32, device=dev)
+                  for v in (125, 125, 124))
+    kw = dict(p=7, s=s, bt=kd.attn_block_t(t), causal=causal, window=window,
+              stochastic=stochastic)
+    return [qm, km, vm, rp, eq, ek, ev, q_off, kv_len], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [4, 2])
+@pytest.mark.parametrize("shape", [TRAIN_SHAPES[0], TRAIN_SHAPES[3],
+                                   TRAIN_SHAPES[-2], TRAIN_SHAPES[-1]])
+def test_attn_fwd_both_tilings_equal_plain(cuda, shape, nw):
+    """The wgmma forward with four warpgroups a block (the tiling
+    ``attn_fwd_tiles`` picks) and with two (D 64 only), launched through the
+    C entry: y, m, l == the plain version; its shared memory is the layout
+    ``_tc_fwd_layout`` mirrors."""
+    import ctypes
+    lib = kfa._lib_train()
+    for bt in (128, 256, 512):
+        for dd in (32, 64, 96, 128):
+            assert lib.repro_attn_fwd_tc_smem(dd, bt) == \
+                kfa._tc_fwd_layout(dd, bt)[0]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args, kw = _fwd_operands(g, cuda, shape, True)
+    qm, km, vm, rp, eq, ek, ev, q_off, kv_len = args
+    bh, gs, t, d = *qm.shape[:2], km.shape[1], qm.shape[2]
+    want = kfa.attn_fwd_plain(*args, **kw)
+    got = [torch.empty_like(x) for x in want]
+    err = lib.repro_attn_fwd_tc(
+        *(kfl._ptr(x) for x in (qm, km, vm, kfl.as_u32(rp), eq, ek, ev, *got)),
+        bh, gs, t, d, kw["s"], q_off, min(kv_len, t), int(kw["causal"]),
+        kw["window"], 7, kw["bt"], 1, nw,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize()
+    for name, x, y in zip(("y", "m", "l"), got, want):
+        assert torch.equal(x, y), (name, (x - y).abs().max().item())
 
 
 def _bwd_operands(g, dev, shape, stochastic):
@@ -449,8 +507,9 @@ def _bwd_operands(g, dev, shape, stochastic):
 @pytest.mark.parametrize("shape", TRAIN_SHAPES)
 def test_attn_train_kernels_equal_plain(cuda, shape, stochastic):
     """attn_fwd (y, m, l) and attn_bwd (dq, dk, dv) == their plain
-    versions: the kernels reproduce the plain float order op for op; the
-    backward on the route ``attn_bwd_variant`` names (its counter)."""
+    versions: the kernels reproduce the plain float order op for op; each
+    on the route ``attn_fwd_variant`` / ``attn_bwd_variant`` names (its
+    counter)."""
     bh, gs, t, d, s, q_off, kv_len, causal, window = shape
     g = torch.Generator(device=cuda).manual_seed(5)
 
@@ -485,6 +544,9 @@ def test_attn_train_kernels_equal_plain(cuda, shape, stochastic):
     counts = kd.kernel_launches()
     assert counts["attn_fwd"] == 1
     assert counts["attn_bwd"] == 1
+    fvariant = kfa.attn_fwd_variant(gs, t, d, kw["bt"])
+    assert fvariant == ("wgmma" if d in (32, 64, 96, 128) else "dp4a")
+    assert counts[f"attn_fwd_{fvariant}"] == 1
     variant = kfa.attn_bwd_variant(gs, t, d, kw["bt"])
     assert variant == ("wgmma" if d in (32, 64, 96, 128) else "dp4a")
     assert counts[f"attn_bwd_{variant}"] == 1
