@@ -63,7 +63,7 @@ Phases, any of which failing exits non-zero:
    x 128 tokens, 32 greedy tokens, int8 weights and KV cache; every decode
    step runs each layer as one ``decode_block`` launch (1240 in all); the
    plain replay as in phase 3;
-8. train full-width minicpm-2b cut to ``CHAIN_TRAIN_LAYERS`` layers under
+8. train full-width minicpm-2b cut to ``CHAIN_TRAIN_LAYERS`` (12) layers under
    ``PAPER_INT8`` with ``fused_proj``: the pre-attention norm and the
    merged QKV projection on ``norm_gemm``, gate|up and its SiLU-GLU on
    ``gemm_epi`` (``EXPECTED_PER_STEP`` launches), no chain planned on a
@@ -83,7 +83,21 @@ Phases, any of which failing exits non-zero:
    ``gemm_epi`` once a layer, the merged QKV projection on ``qq`` (no
    ``norm_gemm``), the LM head's dX on ``qi`` (``GELU_PER_STEP``
    launches, each the count of the step's FUSED plans), no chain planned
-   on a plain path, the plain replay ``==``.
+   on a plain path, the plain replay ``==``;
+11. train full-width qwen2-0.5b (all 24 layers) for one ``int8_qweights``
+   step through ``make_train_step`` from the trainer's initial state, keys
+   and batch: the int8 forward weights narrowed from the int16 masters
+   once a step (``derive_qweights``, its time inside the step recorded),
+   every forward projection and the LM head on ``qi`` (no ``qmatmul_fwd``
+   plan of kind ``qq``: no weight is quantized inside a GEMM), attention's
+   products on ``qq`` (``QWEIGHTS_PER_STEP`` launches, each the count of
+   the step's FUSED plans, every one on ``wgmma``), the plain replay
+   ``==``;
+12. the same for one ``int8_qfull`` step (qflow and qweights): the
+   projections after a norm and the LM head contract two pre-quantized
+   operands (kind ``pp``, on ``ii``), ``wo`` and ``w_down`` on ``qi``,
+   attention on ``attn_fwd`` / ``attn_bwd``, no ``qmatmul_fwd`` plan of
+   kind ``qq`` or ``iq``, no ``qq`` launch.
 
 Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
 xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows, at
@@ -95,7 +109,7 @@ gelu, an odd GLU half), and ``bfp_quantize``
 at odd ones (edge values, a batch, unaligned operands, a flushed scale),
 each call moving its variant's counter.
 
-After each of phases 3-10 every ``qq``, ``qi`` and ``ii`` launch must be
+After each of phases 3-12 every ``qq``, ``qi`` and ``ii`` launch must be
 one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``), every
 ``qq_blk`` launch one of ``wgmma`` or ``wgmma64``, every ``int8_matmul``
 launch one of ``wgmma``, every ``attn_decode`` launch on the cluster size
@@ -135,7 +149,9 @@ TRAIN_STEPS_QFLOW = 3
 # Kernels each training phase must launch.
 TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
                  "int8_qflow": ("qq", "qi", "ii", "attn_fwd", "attn_bwd"),
-                 "int8_block": ("qq", "qq_blk")}
+                 "int8_block": ("qq", "qq_blk"),
+                 "int8_qweights": ("qq", "qi", "ii"),
+                 "int8_qfull": ("qi", "ii", "attn_fwd", "attn_bwd")}
 # Launches per int8_block step (qwen2-0.5b, 4 x 128 tokens): 25 per-block
 # contractions a layer (7 projections x forward, dX, dW; QKᵀ's dA and dB;
 # PV's forward and dB) and 3 of the tied LM head; QKᵀ's forward and PV's
@@ -158,10 +174,11 @@ EXPECTED_PER_STEP = {"int8_block": {"qq_blk": 24 * 25 + 3, "qq": 24 * 2,
                                        "int8_matmul": 24 * 27 + 2,
                                        "int8_matmul_wgmma": 24 * 27 + 2}}
 # Phases 7 and 8: minicpm-2b.  Training keeps full width and cuts the
-# depth from 40 to 24 layers (PERF.md §4: the int64 rounding-bit
+# depth from 40 to 12 layers (PERF.md §4: the int64 rounding-bit
 # temporaries grow with the stacked layer leaves; 24 layers fit the card's
-# 80 GB, 40 would not).
-CHAIN_ARCH, CHAIN_TRAIN_LAYERS = "minicpm_2b", 24
+# 80 GB, 40 would not; 12 leave the script's time limit room for phases 11
+# and 12, and phase 8 was its longest phase).
+CHAIN_ARCH, CHAIN_TRAIN_LAYERS = "minicpm_2b", 12
 # Launches per fused_proj step: per layer norm_gemm and gemm_epi one each;
 # qq for QK^T, PV, wo and w_down; qi for the dX of the QKV chain, QK^T,
 # PV, wo, the gate|up chain and w_down, ii for their dW; the tied LM head
@@ -184,6 +201,20 @@ GELU_PER_STEP = {"norm_gemm": 0, "gemm_epi": GELU_TRAIN_LAYERS,
                  "qq": 5 * GELU_TRAIN_LAYERS + 1,
                  "qi": 6 * GELU_TRAIN_LAYERS + 1,
                  "ii": 6 * GELU_TRAIN_LAYERS + 1}
+# Phases 11 and 12: qwen2-0.5b, all 24 layers, one step each.  qweights:
+# per layer 7 projection forwards on qi (a float x against a BFP weight),
+# QKᵀ and PV on qq, 7 projection dX and attention's 2 dA on qi, 7 dW and
+# attention's 2 dB on ii; the tied LM head's forward on qi, its dW on ii,
+# its dX (K = vocab > accum_chunk) on the plain chunked path.  qfull: the
+# 5 projections after a norm and the LM head's forward are kind pp (the ii
+# kernel), wo and w_down qi; attention one attn_fwd and one attn_bwd a
+# layer; 7 dX a layer on qi, 7 dW and the LM head's on ii.
+QW_LAYERS = 24
+QWEIGHTS_PER_STEP = {
+    "int8_qweights": {"qq": 2 * QW_LAYERS, "qi": 16 * QW_LAYERS + 1,
+                      "ii": 9 * QW_LAYERS + 1, "attn_fwd": 0, "attn_bwd": 0},
+    "int8_qfull": {"qq": 0, "qi": 9 * QW_LAYERS, "ii": 12 * QW_LAYERS + 2,
+                   "attn_fwd": QW_LAYERS, "attn_bwd": QW_LAYERS}}
 # Phases 7 and 8 also run at the reference's chain plans (its 12 MiB VMEM
 # budget keeps the per-op seams at full width): phase 7 for the prefill
 # and this many decode steps, phase 8 for its one step.
@@ -1920,6 +1951,15 @@ KIND_KERNEL = {"qq": "qq", "qi": "qi", "iq": "qi", "ii": "ii", "pp": "ii",
                "qq_epi": "gemm_epi", "norm_gemm": "norm_gemm"}
 
 
+def _planned_kernels(log, dispatch):
+    """The kernel launches a decision log's FUSED plans stand for: each
+    contraction's by its kind, each fused-attention op's by its name."""
+    import collections
+    return collections.Counter(
+        d.op if d.op in ("attn_fwd", "attn_bwd") else KIND_KERNEL[d.kind]
+        for d in log if d.path == dispatch.FUSED)
+
+
 def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want,
                             seam=False):
     """Phases 8 and 10: full-width ``arch`` cut to ``n_layers`` layers, one
@@ -1928,7 +1968,6 @@ def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want,
     launches per step, each also the count of the step's FUSED plans of
     that kernel; no chain planned on a plain path; ``seam``: the step
     against the reference's seams too (``train_step_and_compare``)."""
-    import collections
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1938,8 +1977,7 @@ def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want,
     chains = {"qnorm_gemm", "qmatmul_epi"}
 
     def check(log, per_step):
-        planned = collections.Counter(
-            KIND_KERNEL[d.kind] for d in log if d.path == dispatch.FUSED)
+        planned = _planned_kernels(log, dispatch)
         for name, n in want.items():
             if per_step[name] != n or planned[name] != n:
                 raise AssertionError(
@@ -1954,6 +1992,63 @@ def train_chain_and_compare(torch, dev, rec, label, arch, n_layers, want,
     policy = dataclasses.replace(PAPER_INT8, fused_proj=True)
     return train_step_and_compare(torch, dev, rec, label, cfg, policy,
                                   check, seam=seam)[0]
+
+
+def train_qweights_and_compare(torch, dev, rec, policy_name):
+    """Phases 11 and 12: full-width qwen2-0.5b, all 24 layers, one step
+    under ``policy_name`` (``int8_qweights`` or ``int8_qfull``) through
+    ``make_train_step`` from the trainer's state, keys and batch:
+    ``QWEIGHTS_PER_STEP`` launches, each also the count of the step's
+    FUSED plans of that kernel, every ``qq`` / ``qi`` / ``ii`` one on
+    ``wgmma``; no weight quantized inside a GEMM (no ``qmatmul_fwd`` plan
+    of kind ``qq``, nor under qflow of kind ``iq``); the plain replay
+    ``==``.  ``derive_qweights`` is timed inside each step it runs in
+    (train, replay, profile; the device synchronised around it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import POLICIES
+
+    label = f"train_{policy_name}"
+    want = QWEIGHTS_PER_STEP[policy_name]
+    policy = POLICIES[policy_name]
+    banned = {"qq", "iq"} if policy.qflow else {"qq"}
+
+    def check(log, per_step):
+        planned = _planned_kernels(log, dispatch)
+        for name, n in want.items():
+            if per_step[name] != n or planned[name] != n:
+                raise AssertionError(
+                    f"{label}: {per_step[name]} {name} launches and "
+                    f"{planned[name]} FUSED plans per step, expected {n}")
+            if name in ("qq", "qi", "ii") and per_step[f"{name}_wgmma"] != n:
+                raise AssertionError(f"{label}: {name} launches off wgmma")
+        quantized = sorted({d.kind for d in log if d.op == "qmatmul_fwd"}
+                           & banned)
+        if quantized:
+            raise AssertionError(f"{label}: a weight quantized inside a "
+                                 f"GEMM (qmatmul_fwd kinds {quantized})")
+
+    derive_ms, derive = [], steps.derive_qweights
+
+    def timed_derive(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = derive(*args)
+        torch.cuda.synchronize()
+        derive_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    steps.derive_qweights = timed_derive
+    try:
+        launches = train_step_and_compare(torch, dev, rec, label,
+                                          get_config(ARCH), policy, check)[0]
+    finally:
+        steps.derive_qweights = derive
+    rec[label]["derive_qweights_ms"] = derive_ms
+    print(f"{label}: derive_qweights {derive_ms} ms (train, replay, "
+          f"profile step)")
+    return launches
 
 
 def train_unfused_and_compare(torch, dev, rec):
@@ -2042,7 +2137,11 @@ def main() -> int:
                   torch, dev, rec)),
               ("train_fused_proj_gelu", lambda: train_chain_and_compare(
                   torch, dev, rec, "train_fused_proj_gelu", GELU_ARCH,
-                  GELU_TRAIN_LAYERS, GELU_PER_STEP))]
+                  GELU_TRAIN_LAYERS, GELU_PER_STEP)),
+              ("train_int8_qweights", lambda: train_qweights_and_compare(
+                  torch, dev, rec, "int8_qweights")),
+              ("train_int8_qfull", lambda: train_qweights_and_compare(
+                  torch, dev, rec, "int8_qfull"))]
     results, rec["phase_s"] = {}, {}
     for name, run in phases:
         t1 = time.perf_counter()

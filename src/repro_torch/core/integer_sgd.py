@@ -13,8 +13,10 @@ runs entirely in int32 fixed point (``core.fixed_point``) with stochastic
 rounding at every rescaling point.  Leaves are walked in ``tree_items``
 order (the JAX package's ``tree_flatten`` order), because leaf ``i`` draws
 its rounding bits from ``fold_in(key, i)``.  ``quantize_weights_once`` is
-the serving path's load-time weight quantization; the qweights training
-currency (``derive_qweights``, ``qweight_grads``) is not ported yet.
+the serving path's load-time weight quantization; ``derive_qweights`` and
+``qweight_grads`` are the qweights training currency: int8 forward weights
+narrowed from the int16 masters once a step in integer arithmetic, each
+with a float32 gradient carrier that takes the weight's dW.
 """
 
 from __future__ import annotations
@@ -24,15 +26,17 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from . import prng
-from .bfp import (BFP, PER_TENSOR, QuantConfig, dequantize, quantize,
-                  quantize_weight, scale_exponent, storage_dtype)
+from .bfp import (BFP, PER_TENSOR, QuantConfig, biased_exponent, bit_length,
+                  dequantize, pow2, quantize, quantize_weight, scale_exponent,
+                  sr_shift_signed, storage_dtype)
 from .fixed_point import (Fx, KeyGen, fx_add, fx_const, fx_mul, fx_narrow,
                           fx_quantize, fx_sub)
 from .policy import QW_NONE, QW_STACKED, QW_STACKED2, QW_TENSOR, NumericPolicy
 
 __all__ = ["IntSGDState", "integer_sgd_init", "integer_sgd_step",
-           "master_params_f32", "quantize_weights_once", "tree_items",
-           "tree_map", "tree_unflatten"]
+           "master_params_f32", "derive_qweights", "qweight_grads",
+           "quantize_weights_once", "tree_items", "tree_map",
+           "tree_unflatten"]
 
 # Leading axes that each get their own scale, per weight-mask marker.
 _STACK_AXES = {QW_TENSOR: 0, QW_STACKED: 1, QW_STACKED2: 2}
@@ -155,6 +159,64 @@ def integer_sgd_init(params: Dict[str, Any],
 def master_params_f32(state: IntSGDState) -> Dict[str, Any]:
     """The float32 compute view of the masters."""
     return tree_map(dequantize, state.masters)
+
+
+def _narrow_leaf(master: BFP, cfg: QuantConfig, key: prng.Key,
+                 nstack: int) -> BFP:
+    """Narrow one int16 master to a ``cfg.p``-magnitude-bit BFP in integer
+    arithmetic: the bit length of the largest |mantissa| of each slice of
+    the ``nstack`` leading axes, one rounded right shift over the whole
+    leaf with the leaf's one key, a clip, and the shift added to the
+    exponent.  The float32 carrier ``g`` is the result's value, made from
+    the narrowed mantissas; a stacked leaf's mantissas are stored
+    K-innermost (``_k_contiguous``)."""
+    m32 = master.m.to(torch.int32)
+    e_master = scale_exponent(master.e, master.cfg)       # scalar, unbiased
+    lead = tuple(m32.shape[:nstack])
+    bcast = lead + (1,) * (m32.ndim - nstack)
+    nb = bit_length(m32.abs().amax(dim=tuple(range(nstack, m32.ndim))))
+    shift = (nb - cfg.p).clamp(min=0)                     # shape = lead
+    m = sr_shift_signed(m32, shift.reshape(bcast), key, cfg.stochastic,
+                        cfg.rng)
+    lim = (1 << cfg.p) - 1
+    m = m.clamp(-lim, lim).to(storage_dtype(cfg.bits))
+    e_new = e_master + shift
+    g = m.to(torch.float32) * pow2(e_new).reshape(bcast)
+    if nstack:
+        m = _k_contiguous(m)
+    return BFP(m, biased_exponent(e_new, cfg).to(torch.int32), cfg, g)
+
+
+def derive_qweights(state: IntSGDState, policy: NumericPolicy,
+                    key: prng.Key, mask: Dict[str, Any]) -> Dict[str, Any]:
+    """The forward weights of one optimizer step under ``policy.qweights``:
+    leaf ``i`` (``tree_items`` order) narrowed from its int16 master with
+    ``fold_in(key, i)`` to a per-tensor (``QW_TENSOR``) or per-layer-slice
+    (``QW_STACKED``) BFP with a float32 gradient carrier, no float32 value
+    on the way; ``QW_NONE`` leaves (norm gains, biases) keep the masters'
+    float32 view.  Off (``not policy.qweights_on``): the float32 view of
+    every master."""
+    if not policy.qweights_on:
+        return master_params_f32(state)
+    cfg = QuantConfig(policy.fwd_bits, PER_TENSOR, policy.stochastic,
+                      policy.rng)
+    mask_items = dict(tree_items(mask))
+    out = []
+    for i, (path, master) in enumerate(tree_items(state.masters)):
+        mk = mask_items[path]
+        if mk == QW_NONE:
+            out.append(dequantize(master))
+        else:
+            out.append(_narrow_leaf(master, cfg, prng.fold_in(key, i),
+                                    _STACK_AXES[mk]))
+    return tree_unflatten(state.masters, out)
+
+
+def qweight_grads(grads: Dict[str, Any]) -> Dict[str, Any]:
+    """The float32 gradient tree ``integer_sgd_step`` takes, from a
+    qweights gradient tree whose BFP leaves hold their carrier's gradient
+    in ``g``."""
+    return tree_map(lambda l: l.g if isinstance(l, BFP) else l, grads)
 
 
 def _update_leaf(master: BFP, mom: BFP, g: torch.Tensor, lr_fx: Fx,

@@ -32,9 +32,12 @@ the operand's A.2 gradient there.  ``qattention`` is fused integer flash
 attention over pre-quantized Q/K/V (the ``attn_fwd`` / ``attn_bwd``
 kernels), its gradients on the carriers too.
 
-Also here: the load-time-quantized weight path (``_qmatmul_pw_fwd``,
-serving only), ``qdq_st`` and the qcache ops (cache rows quantized once at
-append time, one exponent per row, nearest rounding).
+The qweights currency: ``qmatmul`` takes a per-tensor BFP weight (a
+forward weight narrowed from the int16 masters, or a load-time-quantized
+serving weight) and ``qembed`` a per-tensor BFP table, contracted and
+gathered as they are; dW and dTable go to the weight's carrier.  Also
+here: ``qdq_st`` and the qcache ops (cache rows quantized once at append
+time, one exponent per row, nearest rounding).
 """
 
 from __future__ import annotations
@@ -266,23 +269,56 @@ class _QMatmulFlex(torch.autograd.Function):
         return (*_carrier_grads(ctx.q_in, ctx.has_g, dx), dw) + (None,) * 5
 
 
-def _qmatmul_pw_fwd(x: torch.Tensor, w: BFP, key: prng.Key,
-                    policy: NumericPolicy) -> torch.Tensor:
-    """Load-time-quantized weight (per tensor, (K, N) mantissas): only
-    the activation is quantized in the op (kind qi)."""
-    kx, _, _ = prng.split(key, 3)
-    lead = x.shape[:-1]
-    k, n = x.shape[-1], w.m.shape[-1]
-    x2 = x.reshape(-1, k)
-    wq = BFP(_t(w.m), w.e, w.cfg)                        # (N, K)
-    cfg = _wcfg_for(w.cfg, policy)
-    plan = _plan("qmatmul_fwd", x2.shape[0], k, n, cfg, policy, x.device,
-                 kind="qi", cfg2=w.cfg)
-    if plan.path == kd.JNP:
-        y = _contract_q(quantize(x2, cfg, kx), wq, 0, policy.accum_chunk)
-    else:
-        y, _ = kd.contract_qi(x2, wq, cfg, kx, plan)
-    return y.reshape(*lead, n)
+class _QMatmulPW(torch.autograd.Function):
+    """``_qmatmul_pw``, a persistent weight: x (..., K) f32 (kind qi: only
+    x is quantized in the op) or per-tensor BFP mantissas with exponent
+    ``xe`` and carrier ``xg`` (kind pp: nothing is quantized) @ the
+    per-tensor BFP weight ``wm`` (K, N) with exponent ``we``, whose
+    carrier ``wg`` takes dW; ``out_q`` returns (m, e, carrier).  The
+    backward is ``_qmatmul_bwd`` on the stored weight mantissas."""
+
+    @staticmethod
+    def forward(ctx, x, xg, wm, wg, xe, we, key, policy, xcfg, wcfg, out_q):
+        # the (kx, kw, kb) split of the float-weight path; kw goes unused
+        kx, _, kb = prng.split(key, 3)
+        lead = x.shape[:-1]
+        k, n = x.shape[-1], wm.shape[-1]
+        x2 = x.reshape(-1, k)
+        wq = BFP(_t(wm), we, wcfg)                           # (N, K)
+        if xcfg is None:
+            cfg = _wcfg_for(wcfg, policy)
+            plan = _plan("qmatmul_fwd", x2.shape[0], k, n, cfg, policy,
+                         x.device, kind="qi", cfg2=wcfg)
+            if plan.path == kd.JNP:
+                xq = quantize(x2, cfg, kx)
+                y = _contract_q(xq, wq, 0, policy.accum_chunk)
+            else:
+                y, xq = kd.contract_qi(x2, wq, cfg, kx, plan)
+        else:
+            xq = BFP(x2, xe, xcfg)
+            plan = _plan("qmatmul_fwd", x2.shape[0], k, n, xcfg, policy,
+                         x.device, kind="pp", cfg2=wcfg)
+            if plan.path == kd.JNP:
+                y = _contract_q(xq, wq, 0, policy.accum_chunk)
+            else:
+                y = kd.contract_ii(xq, wq, plan)
+        y = y.reshape(*lead, n)
+        ctx.res, ctx.policy, ctx.out_q = (xq, wq, kb, lead), policy, out_q
+        ctx.q_in, ctx.has_g = xcfg is not None, (xg is not None,
+                                                 wg is not None)
+        if not out_q:
+            return y
+        out = _quantize_out(y, n, policy, prng.fold_in(key, 0xD0))
+        ctx.mark_non_differentiable(out[0], out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, *cts):
+        gy = cts[2] if ctx.out_q else cts[0]
+        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy)
+        x_g, w_g = ctx.has_g
+        return (*_carrier_grads(ctx.q_in, x_g, dx), None,
+                dw if w_g else None) + (None,) * 7
 
 
 def qmatmul(x, w, key: Optional[prng.Key] = None,
@@ -290,8 +326,11 @@ def qmatmul(x, w, key: Optional[prng.Key] = None,
     """Quantized linear contraction x (..., K) @ w (K, N) with the A.2
     integer backward.  ``x`` may be a per-tensor BFP (q-in: no activation
     quantize, kind iq; its gradient goes to the carrier) and ``out_q=True``
-    returns a BFP with carrier.  ``w`` may be a per-tensor BFP (a
-    load-time-quantized serving weight: float x, forward only)."""
+    returns a BFP with carrier.  ``w`` may be a per-tensor BFP (a forward
+    weight derived from the int16 masters, or a load-time-quantized
+    serving weight): no weight quantize runs in the op (kind qi, or pp
+    against a BFP x) and dW goes to the weight's carrier.  A per-block
+    weight or policy takes the weight's float32 view."""
     if not policy.enabled:
         return bfp_value(x) @ bfp_value(w)
     if key is None:
@@ -301,14 +340,13 @@ def qmatmul(x, w, key: Optional[prng.Key] = None,
         x = bfp_value(x)       # residuals follow the policy's blocking
     if isinstance(w, BFP) and (w.cfg.block != PER_TENSOR
                                or policy.block != PER_TENSOR):
-        w = dequantize(w)
+        w = bfp_value(w)
     if isinstance(w, BFP):
-        if isinstance(x, BFP) or out_q:
-            raise NotImplementedError(
-                "BFP activations against BFP weights (kind pp, qflow "
-                "serving and qweights) are not ported yet: ROADMAP queue 1")
-        return _qmatmul_pw_fwd(x, w, key, policy)
-    if isinstance(x, BFP):
+        xm, xg, xe, xcfg = ((x.m, x.g, x.e, x.cfg) if isinstance(x, BFP)
+                            else (x, None, None, None))
+        out = _QMatmulPW.apply(xm, xg, w.m, w.g, xe, w.e, key, policy, xcfg,
+                               w.cfg, out_q)
+    elif isinstance(x, BFP):
         out = _QMatmulFlex.apply(x.m, x.g, w, x.e, key, policy, x.cfg, out_q)
     else:
         out = _QMatmulFlex.apply(x, None, w, None, key, policy, None, out_q)
@@ -627,21 +665,56 @@ class _QEmbed(torch.autograd.Function):
         return None, _qembed_bwd(ctx.policy, tokens, vocab, kb, gy), None, None
 
 
+class _QEmbedP(torch.autograd.Function):
+    """``_qembed_p``, a per-tensor BFP table (mantissas ``tm``, exponent
+    ``te``, carrier ``tg``): the gather is int8 data movement and nothing
+    is quantized; ``out_q`` returns the rows as (m, e, carrier) on the
+    table's scale.  dTable, the integer scatter-add of ``_qembed_bwd`` with
+    the unsplit key, goes to the carrier."""
+
+    @staticmethod
+    def forward(ctx, tokens, tm, tg, te, key, policy, tcfg, out_q):
+        rows = tm[tokens]
+        ctx.res = (tokens, tm.shape[0], key)
+        ctx.policy, ctx.out_q = policy, out_q
+        if not out_q:
+            return rows.to(torch.float32) * pow2(scale_exponent(te, tcfg))
+        e = te.clone()
+        ctx.mark_non_differentiable(rows, e)
+        return rows, e, dequantize(BFP(rows, e, tcfg))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        gy = cts[2] if ctx.out_q else cts[0]
+        tokens, vocab, key = ctx.res
+        dtable = _qembed_bwd(ctx.policy, tokens, vocab, key, gy)
+        return (None, None, dtable) + (None,) * 5
+
+
 def qembed(tokens: torch.Tensor, table, key: Optional[prng.Key] = None,
-           policy: NumericPolicy = NumericPolicy()) -> torch.Tensor:
+           policy: NumericPolicy = NumericPolicy(), *, out_q: bool = False):
     """Integer embedding lookup: an int8 row gather scaled by 2^E, with the
-    int32 scatter-add backward.  A per-tensor BFP table
-    (``_qembed_p_fwd``, serving) needs no quantization."""
-    if isinstance(table, BFP) and table.cfg.block != PER_TENSOR:
-        table = dequantize(table)
+    int32 scatter-add backward.  A per-tensor BFP table (a forward weight
+    narrowed from the masters, or a load-time-quantized serving table) is
+    gathered as it is and its carrier takes dTable; ``out_q=True`` then
+    returns the rows as a BFP on the table's scale."""
     if not (policy.enabled and policy.quantize_embed):
-        tf = dequantize(table) if isinstance(table, BFP) else table
-        return tf[tokens]
+        return bfp_value(table)[tokens]
     if key is None:
         raise ValueError("qembed with an enabled integer policy needs a PRNG key")
+    if isinstance(table, BFP) and table.cfg.block != PER_TENSOR:
+        table = bfp_value(table)       # per-block rows don't survive the gather
     if isinstance(table, BFP):
-        rows = table.m[tokens]
-        return rows.to(torch.float32) * pow2(scale_exponent(table.e, table.cfg))
+        out = _QEmbedP.apply(tokens, table.m, table.g, table.e, key, policy,
+                             table.cfg, out_q)
+        if not out_q:
+            return out
+        rows, e, g = out
+        return BFP(rows, e, table.cfg, g)
+    if out_q:
+        raise NotImplementedError(
+            "qembed(out_q=True) of a float32 table (``_qembed_q``) is not "
+            "ported yet: ROADMAP queue 1, qflow serving")
     return _QEmbed.apply(tokens, table, key, policy)
 
 

@@ -4,10 +4,14 @@ serving steps.
 The port of ``repro.launch.steps``.  ``make_train_step`` is the paper's
 full integer pipeline: dequantize the int16 masters -> integer forward ->
 A.2 integer backward (``torch.autograd``) -> optionally microbatched
-gradients -> int16 SGD update.  ``make_float_train_step`` is the float32
-baseline.  A step is a plain function over (state, inputs, key); there is
-nothing to compile.  Keys fold as in the JAX package: ``fold_in(key, 1)``
-for the loss, ``fold_in(key, 2)`` for the SGD update.
+gradients -> int16 SGD update.  Under ``policy.qweights`` the forward
+weights are instead narrowed from the masters once a step
+(``derive_qweights``) and every microbatch reuses them; their dW arrives
+on the weights' float32 carriers.  ``make_float_train_step`` is the
+float32 baseline.  A step is a plain function over (state, inputs, key);
+there is nothing to compile.  Keys fold as in the JAX package:
+``fold_in(key, 1)`` for the loss, ``fold_in(key, 2)`` for the SGD update,
+``fold_in(key, 3)`` for the qweights narrow.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..core import prng
-from ..core.integer_sgd import (IntSGDState, integer_sgd_step,
-                                master_params_f32, quantize_weights_once,
-                                tree_items, tree_map, tree_unflatten)
+from ..core.bfp import BFP
+from ..core.integer_sgd import (IntSGDState, derive_qweights,
+                                integer_sgd_step, quantize_weights_once,
+                                qweight_grads, tree_items, tree_map,
+                                tree_unflatten)
 from ..core.policy import FLOAT32, NumericPolicy
 from ..device import resolve_device
 from ..models.common import ArchConfig
@@ -48,23 +54,30 @@ class TrainHyper:
 # ---------------------------------------------------------------------------
 
 def _grad_fn(mod, cfg: ArchConfig, policy: NumericPolicy):
-    """``vg(params, batch, key) -> (loss, grads)``: the loss and the
+    """``vg(params, batch, key) -> (loss, grads)``: the loss and the float32
     gradient of every parameter leaf (zeros for a leaf the loss does not
-    reach, as ``jax.value_and_grad`` gives)."""
-    if policy.qweights_on:
-        raise NotImplementedError(
-            "qweights training (derive_qweights, qweight_grads) is not "
-            "ported yet: ROADMAP queue 1, qweights training")
+    reach, as ``jax.value_and_grad`` gives).  A BFP leaf (qweights) is
+    differentiated through its float32 carrier, and ``qweight_grads``
+    takes the carrier's gradient as the leaf's."""
 
     def vg(params, batch, key):
-        leaves = [p.detach().requires_grad_(True)
-                  for _, p in tree_items(params)]
+        leaves, wrt = [], []
+        for _, p in tree_items(params):
+            if isinstance(p, BFP):
+                g = p.g.detach().requires_grad_(True)
+                leaves.append(BFP(p.m, p.e, p.cfg, g))
+            else:
+                g = p.detach().requires_grad_(True)
+                leaves.append(g)
+            wrt.append(g)
         loss = mod.loss_fn(tree_unflatten(params, leaves), batch, key,
                            policy, cfg)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(wrt, grads)]
+        grads = [BFP(p.m, p.e, p.cfg, g) if isinstance(p, BFP) else g
                  for p, g in zip(leaves, grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        return loss.detach(), qweight_grads(tree_unflatten(params, grads))
 
     return vg
 
@@ -113,10 +126,13 @@ def make_train_step(cfg: ArchConfig, policy: NumericPolicy,
     mod = get_model(cfg)
     vg = _grad_fn(mod, cfg, policy)
     dev = resolve_device(device)
+    wmask = get_weight_mask(cfg)
 
     def train_step(state: IntSGDState, batch, key: prng.Key):
         batch = _to_device(batch, dev)
-        params = master_params_f32(state)
+        # every microbatch's forward weights: the masters' float32 view,
+        # or under qweights their int8 narrow, derived once a step
+        params = derive_qweights(state, policy, prng.fold_in(key, 3), wmask)
         kf = prng.fold_in(key, 1)
         if hyper.microbatch > 1:
             loss, grads = _accum_grads(vg, params, batch, kf, hyper.microbatch)

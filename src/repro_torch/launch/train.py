@@ -4,24 +4,28 @@ The port of ``repro.launch.train``: the paper's integer pipeline (int8
 forward and A.2 backward, int16 SGD; policy ``int8``), the same with
 quantized activations as the inter-layer currency (``int8_qflow``, or
 ``qflow=True``: norms emit int8 BFP that the projections contract as they
-are, attention runs through the fused attention kernels), with one shared
-exponent per 128 elements of each contraction axis (``int8_block``, the
-MX-style variant) or the float32 baseline (``float32``) on a ported
-architecture, full or smoke config, with random initial weights from a
-seeded ``torch.Generator``.  On the card every contraction runs on the
-hand-written kernels (``qq`` forward, ``qi`` dX and the q-in forward,
-``ii`` dW; under qflow ``attn_fwd`` and ``attn_bwd``; under
-``int8_block`` ``qq_blk`` for every per-block contraction, forward and
-backward, and ``qq`` where a contraction length does not divide by 128).
-It runs on the card unless it is given ``device="cpu"``.
+are, attention runs through the fused attention kernels), with int8
+forward weights narrowed from the int16 masters once a step
+(``int8_qweights``, or ``qweights=True``: no GEMM quantizes a weight), with
+both (``int8_qfull``), with one shared exponent per 128 elements of each
+contraction axis (``int8_block``, the MX-style variant; ``qweights`` has
+no effect there, as in the JAX package) or the float32 baseline
+(``float32``) on a ported architecture, full or smoke config, with random
+initial weights from a seeded ``torch.Generator``.  On the card every
+contraction runs on the hand-written kernels (``qq`` forward, ``qi`` dX
+and the q-in or BFP-weight forward, ``ii`` dW and the forward of a BFP
+activation against a BFP weight; under qflow ``attn_fwd`` and
+``attn_bwd``; under ``int8_block`` ``qq_blk`` for every per-block
+contraction, forward and backward, and ``qq`` where a contraction length
+does not divide by 128).  It runs on the card unless it is given
+``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 3 \\
-        --batch 4 --seq 128 [--qflow | --policy int8_block]
+        --batch 4 --seq 128 [--qflow | --qweights | --policy int8_qfull]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
 
-Checkpoints, the health supervisor, the qweights currency and the JAX
-package's other policies are not ported yet; asking for one raises and
-names the ROADMAP item that ports it.
+Checkpoints, the health supervisor and the int4 policies are not ported
+yet; asking for one raises and names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -47,12 +51,12 @@ __all__ = ["POLICIES", "train_hyper", "train", "main"]
 
 POLICIES = {"int8": PAPER_INT8, "float32": FLOAT32,
             "int8_qflow": NumericPolicy(qflow=True),
-            "int8_block": NumericPolicy(block=128)}
+            "int8_block": NumericPolicy(block=128),
+            "int8_qweights": NumericPolicy(qweights=True),
+            "int8_qfull": NumericPolicy(qflow=True, qweights=True)}
 
 # The JAX package's other options, each with the ROADMAP item that ports it.
 _UNPORTED_POLICIES = {
-    "int8_qweights": "qweights training (ROADMAP queue 1, qweights training)",
-    "int8_qfull": "qflow and qweights training (ROADMAP queue 1)",
     "int4": "int4 policies (ROADMAP queue 1 item 7: they need no kernel, "
             "every contraction with bits != 8 plans the plain path)",
 }
@@ -61,7 +65,6 @@ _UNPORTED_OPTIONS = {
     "health": "the health report and supervisor (ROADMAP queue 1, "
               "robustness)",
     "fault_plan": "fault injection (ROADMAP queue 1, robustness)",
-    "qweights": "qweights training (ROADMAP queue 1, qweights training)",
 }
 
 
@@ -115,8 +118,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     ``stats["step_s"]`` holds each step's wall time (the device
     synchronised)."""
     _refuse_unported(policy_name, {"ckpt_dir": ckpt_dir, "health": health,
-                                   "fault_plan": fault_plan,
-                                   "qweights": qweights})
+                                   "fault_plan": fault_plan})
     if steps < 1 or batch < 1 or seq < 1 or batch % microbatch:
         raise ValueError(f"need steps, batch, seq >= 1 and microbatch | "
                          f"batch, got steps={steps} batch={batch} seq={seq} "
@@ -126,6 +128,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     policy = POLICIES[policy_name]
     if qflow and policy.enabled:
         policy = dataclasses.replace(policy, qflow=True)
+    if qweights and policy.enabled:
+        policy = dataclasses.replace(policy, qweights=True)
     key = prng.key(seed)
     ds = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                      seed=seed)

@@ -39,9 +39,11 @@ class CachePageSpec:
 
 def weight_t(w):
     """Transpose the last two axes of a float32 or per-tensor BFP weight
-    (the tied LM head): for a BFP a view of the int8 mantissas."""
+    (the tied LM head): for a BFP a view of the int8 mantissas, its
+    gradient carrier transposed beside them so dW reaches the table."""
     if isinstance(w, BFP):
-        return BFP(w.m.transpose(-1, -2), w.e, w.cfg)
+        return BFP(w.m.transpose(-1, -2), w.e, w.cfg,
+                   None if w.g is None else w.g.transpose(-1, -2))
     return w.transpose(-1, -2)
 
 

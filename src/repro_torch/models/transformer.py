@@ -13,8 +13,12 @@ layer slices replaces ``lax.scan``.  Keys follow the JAX package's
 packages compute on the same rounding bits.  Under qflow
 (``policy.qflow_seams``) the pre-norms and the final norm emit per-tensor
 BFP activations that the projections and the LM head contract as they are
-(quantize once); the residual stream stays float32.  MoE, qflow serving
-(prefill and decode) is not ported yet.  The cross-op chains
+(quantize once); the residual stream stays float32.  The GEMM weights
+may be per-tensor BFP leaves (qweights: forward weights narrowed from the
+int16 masters, each with a gradient carrier; or serving weights quantized
+once at load): each carries its own scale, so the projections stay split
+and no chain runs.  MoE, qflow serving (prefill and decode) is not ported
+yet.  The cross-op chains
 (``core.qchain``): under ``policy.fused_proj`` the pre-attention norm and
 the merged QKV projection run as one ``qnorm_gemm`` and the gate|up
 projection with its SiLU-GLU as one ``qmatmul_epi``; a decode step over an
@@ -149,7 +153,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _layer_slice(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
-    return {k: (BFP(v.m[i], v.e[i], v.cfg) if isinstance(v, BFP) else v[i])
+    """Layer ``i`` of the stacked leaves; a BFP's carrier is sliced beside
+    its mantissas, so each layer's dW lands in its slice of the stack."""
+    return {k: (BFP(v.m[i], v.e[i], v.cfg, None if v.g is None else v.g[i])
+                if isinstance(v, BFP) else v[i])
             for k, v in layers.items()}
 
 

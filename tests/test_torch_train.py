@@ -17,7 +17,8 @@
   forward, qi dX, ii dW.
 * int16 SGD, the data streams and the state converters on their own.
 * ``train`` refuses to run without a card unless given ``device="cpu"``,
-  and refuses every option that is not ported yet.
+  and refuses every option that is not ported yet; the qweights options
+  run, and ``qweights`` under ``int8_block`` is ``int8_block``'s step.
 """
 
 import os
@@ -225,14 +226,27 @@ def test_train_refuses_what_is_not_ported():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.train(ARCH, steps=1)
     for kw in ({"ckpt_dir": "x"}, {"health": True},
-               {"qflow": True, "qweights": True},
-               {"qweights": True}, {"fault_plan": object()},
-               {"policy_name": "int8_qfull"}, {"policy_name": "int4"}):
+               {"fault_plan": object()}, {"policy_name": "int4"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.train(ARCH, steps=1, device="cpu", **kw)
     with pytest.raises(ValueError, match="unsafe_rbg"):
         make_train_step(torch_smoke_config(ARCH), NumericPolicy(),
                         TrainHyper(rng_impl="unsafe_rbg"), "cpu")
-    with pytest.raises(NotImplementedError, match="qweights"):
-        make_train_step(torch_smoke_config(ARCH),
-                        NumericPolicy(qweights=True), TrainHyper(), "cpu")
+    # qweights is ported: no longer refused (its steps are held to live JAX
+    # in test_torch_train_qweights.py and test_torch_train_qfull.py)
+    for kw in ({"qweights": True}, {"qflow": True, "qweights": True},
+               {"policy_name": "int8_qweights"},
+               {"policy_name": "int8_qfull"}):
+        losses, _, _ = ttrain.train(ARCH, steps=1, batch=2, seq=8,
+                                    device="cpu", quiet=True, **kw)
+        assert np.isfinite(losses[0]), kw
+    make_train_step(torch_smoke_config(ARCH), NumericPolicy(qweights=True),
+                    TrainHyper(), "cpu")
+    # under int8_block qweights_on stays False: the step is int8_block's
+    runs = [ttrain.train(ARCH, steps=1, batch=2, seq=8, device="cpu",
+                         quiet=True, policy_name="int8_block", **kw)
+            for kw in ({}, {"qweights": True})]
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(state_leaves_numpy(runs[0][1]),
+                    state_leaves_numpy(runs[1][1])):
+        np.testing.assert_array_equal(a, b)
