@@ -49,7 +49,7 @@ Phases, any of which failing exits non-zero:
    deterministic implementation is named in the record, not hidden);
 5. the same for ``int8_qflow`` training (quantized activations between
    layers, attention through the fused ``attn_fwd`` / ``attn_bwd``
-   kernels): ``TRAIN_STEPS_QFLOW`` (3) steps, the launch counts read
+   kernels): ``TRAIN_STEPS_QFLOW`` (2) steps, the launch counts read
    around them, the plain
    replay ``==`` in losses and every master and momentum leaf;
 6. the same for ``int8_block`` training (one exponent per 128 elements of
@@ -97,9 +97,24 @@ Phases, any of which failing exits non-zero:
    projections after a norm and the LM head contract two pre-quantized
    operands (kind ``pp``, on ``ii``), ``wo`` and ``w_down`` on ``qi``,
    attention on ``attn_fwd`` / ``attn_bwd``, no ``qmatmul_fwd`` plan of
-   kind ``qq`` or ``iq``, no ``qq`` launch.
+   kind ``qq`` or ``iq``, no ``qq`` launch;
+13. train ResNet-18 for CIFAR (``CNN_CFG``: widths 64-128-256-512, two
+   basic blocks a stage, random weights from ``torch.Generator(0)``) for
+   one ``int8`` step of 128 ``SyntheticVision(img=32, seed=0)`` images
+   under ``kernel_mode="fused"``: every convolution an im2col ``qq``
+   forward, ``qi`` dX and ``ii`` dW (``CNN_PER_STEP`` launches, each the
+   count of the step's FUSED plans), the integer batch-norm in plain
+   integer torch ops; the two ``__dp4a`` launches the variant rule names
+   (``CNN_DP4A``: the stem's K 27, the head's dX K 10) and no other; the
+   five dW plans over 131072 rows on the plain chunked path, each timed;
+   the plain replay ``==``; one float32 step of the same net timed;
+14. the same under ``int8_qflow``: each block's conv -> bn -> relu ->
+   conv chain on BFP activations (kind ``iq`` forwards).
 
-Phase 2 also holds ``gemm_epi`` (y, mantissas, ylin), ``norm_gemm`` (y,
+Phase 2 also holds ``qq`` at ResNet-18's stem (timed on ``__dp4a``),
+a stage-1 (timed), a stage-4 convolution and the head, ``qi`` at a stage-1
+dX and the head's dX and ``ii`` at a stage-2 dW ``==``, and ``gemm_epi``
+(y, mantissas, ylin), ``norm_gemm`` (y,
 xq, meta, c) and ``decode_block`` (x_out and the fresh cache rows, at
 positions 159 and 0, with a window, for one stream) ``==`` at the shapes
 of phases 7, 8 and 10 (the SiLU- and GELU-GLU) and at odd ones (relu,
@@ -109,8 +124,9 @@ gelu, an odd GLU half), and ``bfp_quantize``
 at odd ones (edge values, a batch, unaligned operands, a flushed scale),
 each call moving its variant's counter.
 
-After each of phases 3-12 every ``qq``, ``qi`` and ``ii`` launch must be
-one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a``), every
+After each of phases 3-14 every ``qq``, ``qi`` and ``ii`` launch must be
+one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a`` but
+phases 13-14's ``CNN_DP4A``), every
 ``qq_blk`` launch one of ``wgmma`` or ``wgmma64``, every ``int8_matmul``
 launch one of ``wgmma``, every ``attn_decode`` launch on the cluster size
 ``decode_split`` names for the decode slice and every ``attn_fwd`` and
@@ -129,6 +145,7 @@ record goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -142,10 +159,12 @@ INT8_OPS_PER_S = 1979e12
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen2_0_5b", 4, 128, 32, 0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 1, 4, 128, 0.05
 # Phase 5 (int8_qflow) steps: its replay is the card's only check of the
-# attention kernels once momentum is non-zero and the masters have moved.
-# The other training phases take TRAIN_STEPS (phase 4 was cut from 3 to 1
-# when phase 5 pushed the script past 900 s of its 1200 s; PERF.md).
-TRAIN_STEPS_QFLOW = 3
+# attention kernels once momentum is non-zero and the masters have moved,
+# which the second step already is (cut from 3 to 2 when phases 13-14
+# brought the script to 965 s of its 1200 s; PERF.md).  The other
+# training phases take TRAIN_STEPS (phase 4 was cut from 3 to 1 when
+# phase 5 pushed the script past 900 s; PERF.md).
+TRAIN_STEPS_QFLOW = 2
 # Kernels each training phase must launch.
 TRAIN_KERNELS = {"int8": ("qq", "qi", "ii"),
                  "int8_qflow": ("qq", "qi", "ii", "attn_fwd", "attn_bwd"),
@@ -219,6 +238,29 @@ QWEIGHTS_PER_STEP = {
 # budget keeps the per-op seams at full width): phase 7 for the prefill
 # and this many decode steps, phase 8 for its one step.
 SEAM_DECODE_STEPS = 4
+# Phases 13 and 14: ResNet-18 for CIFAR (He et al. 2015, Table 1 widths
+# 64-128-256-512, two basic blocks a stage, the 3 x 3 stem, no max-pool;
+# the model of the survey's Table 1) at full width and depth, one step of
+# 128 SyntheticVision(img=32, seed=0) images, the JAX example's lr 0.02
+# and momentum 0.9.
+CNN_CFG = dict(n_classes=10, width=64, n_blocks=2, n_stages=4,
+               in_channels=3, img=32)
+CNN_BATCH, CNN_LR = 128, 0.02
+# Launches per step: 20 convolutions (the stem, 16 in the blocks, 3 1 x 1
+# projections) and the head.  int8: every forward on qq; every dX on qi but
+# the stem's (its input is the data: no dX); every dW on ii but the five
+# over 128 x 32 x 32 = 131072 rows (the stem and stage 1's four), which
+# exceed accum_chunk and take the plain chunked path.  qflow: block 0's
+# conv1 and every conv2 contract a BFP input (kind iq, on qi), the other
+# forwards are qq.
+CNN_PER_STEP = {"int8": {"qq": 21, "qi": 20, "ii": 16},
+                "int8_qflow": {"qq": 12, "qi": 29, "ii": 16}}
+# The two contractions per step the variant rule sends to the __dp4a
+# kernel, by (op, M, K, N, kind): the stem's forward contracts K = 3*3*3 =
+# 27 and the head's dX the 10 classes; TMA reads rows of 16-byte multiples,
+# so neither K % 16 != 0 runs on the tensor cores.
+CNN_DP4A = {("qmatmul_fwd", CNN_BATCH * 32 * 32, 27, 64, "qq"): 1,
+            ("qmatmul_dx", CNN_BATCH, 10, 512, "qi"): 1}
 
 
 def _fail(msg: str) -> int:
@@ -427,15 +469,21 @@ def check_decode(torch, dev, g, bits):
 
 # qi / ii shapes held == in phase 2 beyond the four timed ones: ragged M
 # (17, 130) and N (70; 151936 at M = 4 is timed), a batch, K that is not a
-# multiple of 16 (the __dp4a variant), and N % 4 != 0 on the tensor cores
-# (y's rows not 16-byte aligned: 4-byte stores).  (kind, B, M, K, N)
+# multiple of 16 (the __dp4a variant), N % 4 != 0 on the tensor cores
+# (y's rows not 16-byte aligned: 4-byte stores), and ResNet-18's shapes.
+# (kind, B, M, K, N)
 QGEMM_EDGE = [("qi", 1, 17, 896, 4864), ("qi", 1, 130, 896, 896),
               ("qi", 1, 4, 896, 70), ("qi", 1, 130, 96, 70),
               ("qi", 2, 130, 96, 72), ("qi", 3, 4, 128, 200),
               ("qi", 1, 37, 67, 29), ("qi", 1, 4, 37, 100),
               ("ii", 1, 17, 512, 4864), ("ii", 2, 130, 96, 70),
               ("ii", 2, 4, 512, 70), ("ii", 1, 37, 67, 29),
-              ("ii", 3, 5, 33, 17)]
+              ("ii", 3, 5, 33, 17),
+              # ResNet-18 (phases 13, 14): a stage-1 convolution's dX, the
+              # head's dX (K 10: __dp4a), a stage-2 3 x 3 convolution's dW
+              ("qi", 1, CNN_BATCH * 32 * 32, 64, 576),
+              ("qi", 1, CNN_BATCH, 10, 512),
+              ("ii", 1, 128 * 9, CNN_BATCH * 16 * 16, 128)]
 
 
 def check_qgemm(torch, dev, g, bits):
@@ -602,8 +650,9 @@ def _expect_variant(torch, kind, variants, want, what, fn):
 # (QKᵀ and PV of B*Hkv slices), its projections (wq, wk / wv, gate / up,
 # w_down) and tied LM head; minicpm-2b's (phase 8) wq, w_down and LM head
 # (N % 4 != 0); starcoder2-7b's (phase 10) merged QKV, w_down and LM head;
-# then odd ones: M <= 16 (stream), K % 16 != 0 (__dp4a), a batch with
-# ragged M and N.  The timed rows name themselves; the row named "qq"
+# ResNet-18's (phases 13 and 14) stem (K 27: __dp4a), a stage-1 and a
+# stage-4 3 x 3 convolution and the 10-class head; then odd ones: M <= 16
+# (stream), K % 16 != 0 (__dp4a), a batch with ragged M and N.  The timed rows name themselves; the row named "qq"
 # stands on the kernels line for the kernel and for its wgmma variant.
 QQ_SHAPES = {"qq_attn": (BATCH * 2, 7 * PROMPT, 64, PROMPT),
              "attn_pv": (BATCH * 2, 7 * PROMPT, PROMPT, 64),
@@ -618,11 +667,15 @@ QQ_SHAPES = {"qq_attn": (BATCH * 2, 7 * PROMPT, 64, PROMPT),
              "starcoder2_qkv": (1, TRAIN_BATCH * TRAIN_SEQ, 4608, 5632),
              "starcoder2_w_down": (1, TRAIN_BATCH * TRAIN_SEQ, 18432, 4608),
              "starcoder2_lm_head": (1, TRAIN_BATCH * TRAIN_SEQ, 4608, 49152),
+             "cnn_stem": (1, CNN_BATCH * 32 * 32, 27, 64),
+             "cnn_stage1": (1, CNN_BATCH * 32 * 32, 576, 64),
+             "cnn_stage4": (1, CNN_BATCH * 4 * 4, 4608, 512),
+             "cnn_head": (1, CNN_BATCH, 512, 10),
              "qq_stream": (1, BATCH, 896, 1000),
              "qq_dp4a": (1, 130, 67, 70),
              "odd_batch": (2, 130, 96, 70)}
 QQ_TIMED = ("qq_attn", "qq", "qq_w_down", "qq_lm_head", "qq_stream",
-            "qq_dp4a")
+            "qq_dp4a", "cnn_stem", "cnn_stage1")
 
 
 def check_qq(torch, dev, g, bits):
@@ -718,13 +771,15 @@ def _dp4a_qq_ms(torch, kfl, a, ra32, b, rb32, ea, eb, y_want):
     return _device_ms(torch, run)
 
 
-def _check_variants(label, launches):
+def _check_variants(label, launches, dp4a=None):
     """Every qq, qi, ii, qq_blk, int8_matmul, gemm_epi and norm_gemm launch
     of a main-path phase is one of a variant, and each on the variant the
-    shape rule names for it: every main-path K is a multiple of 16, every
-    block 128 and every operand aligned, so none on the fallback
-    (``__dp4a``, wmma); every int8_matmul launch (M > 16 throughout phase
-    9) on wgmma, every gemm_epi and norm_gemm launch (phases 8 and 10) on
+    shape rule names for it: every main-path K of phases 3-12 is a multiple
+    of 16, every block 128 and every operand aligned, so none on the
+    fallback (``__dp4a``, wmma), except ``dp4a`` (kind -> __dp4a launches):
+    the CNN phases' stem and head dX, whose K % 16 != 0 (``CNN_DP4A``), and
+    no other; every int8_matmul launch (M > 16 throughout phase 9) on
+    wgmma, every gemm_epi and norm_gemm launch (phases 8 and 10) on
     wgmma (phase 6 also holds the qq_blk split between the two tilings to
     its count); every attn_decode launch (phase 3) on the cluster size
     decode_split names and every attn_fwd and attn_bwd launch (phase 5)
@@ -741,10 +796,13 @@ def _check_variants(label, launches):
             ("gemm_epi", kfl.GEMM_EPI_VARIANTS, ("wgmma",)),
             ("norm_gemm", kfc.NORM_GEMM_VARIANTS, ("wgmma",))):
         per = {v: launches[f"{kind}_{v}"] for v in variants}
-        if sum(per.values()) != launches[kind] or any(
-                c for v, c in per.items() if v not in allowed):
+        off = {v: c for v, c in per.items() if v not in allowed and c}
+        n_dp4a = (dp4a or {}).get(kind, 0)
+        if sum(per.values()) != launches[kind] \
+                or off != ({"dp4a": n_dp4a} if n_dp4a else {}):
             raise AssertionError(f"{label}: {launches[kind]} {kind} launches "
-                                 f"as {per}, expected all on {allowed}")
+                                 f"as {per}, expected all on {allowed} but "
+                                 f"{n_dp4a} on dp4a")
         print(f"{label}: {kind} launches by variant {per}")
     # every attn_decode launch (phase 3: the decode slice, GS 7, T PROMPT +
     # GEN, D 64) on the cluster size decode_split names, every attn_bwd
@@ -1741,7 +1799,8 @@ def train_and_compare(torch, dev, rec, policy_name="int8", steps=TRAIN_STEPS):
                              (state.momentum, state_p.momentum)):
             for (path, q), (_, qp) in zip(tree_items(tree), tree_items(tree_p)):
                 if not (torch.equal(q.m, qp.m) and torch.equal(q.e, qp.e)):
-                    raise AssertionError(f"state leaf {'/'.join(path)}: "
+                    raise AssertionError(f"state leaf "
+                                         f"{'/'.join(map(str, path))}: "
                                          "kernel path != plain path")
         del state_p
         print("plain-version replay: losses ==, every master and momentum "
@@ -1810,15 +1869,19 @@ def _state_digest(state) -> dict:
         for path, q in tree_items(tree):
             h = hashlib.sha1(q.m.cpu().numpy().tobytes())
             h.update(q.e.cpu().numpy().tobytes())
-            out["/".join((tag,) + path)] = h.hexdigest()
+            out["/".join(map(str, (tag,) + path))] = h.hexdigest()
     return out
 
 
 def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
-                           steps=1, seam=False):
+                           steps=1, seam=False, data=None,
+                           items=("tokens", TRAIN_BATCH * TRAIN_SEQ),
+                           lr=TRAIN_LR):
     """Train ``cfg`` under ``policy`` for ``steps`` steps through
     ``make_train_step`` from the trainer's initial state, keys and batches
-    (``launch.train``), the launch counts and decisions read around the
+    (``launch.train``; ``data`` None: its ``SyntheticLM``; ``items``: the
+    name and count of what a step consumes), the launch counts and
+    decisions read around the
     steps and handed to ``check(log, per_step)``; then replay the steps
     from the same state with the plain versions (losses and every state
     leaf ``==``) and profile one more step.  ``seam``: then also run the
@@ -1836,10 +1899,11 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import _init_state, train_hyper
 
-    step = make_train_step(cfg, policy, train_hyper(steps, lr=TRAIN_LR,
+    step = make_train_step(cfg, policy, train_hyper(steps, lr=lr,
                                                     momentum=0.9), dev)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                       global_batch=TRAIN_BATCH, seed=SEED)
+    if data is None:
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=SEED)
     key = prng.key(SEED)
 
     def run():
@@ -1874,12 +1938,12 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
         check(log, per_step)
         jnp = sorted({(d.op, d.reason) for d in log if d.path == dispatch.JNP})
         step_s = sorted(times)[len(times) // 2]
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        print(f"{label} {cfg.name} full width, {cfg.n_layers} layers: "
-              f"{steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, {step_s:.3f} "
-              f"s/step, {tokens / step_s:.1f} tokens/s, losses {losses}, "
-              f"launches per step {per_step}, peak memory "
-              f"{peak / 2**30:.2f} GiB")
+        unit, count = items
+        print(f"{label} {cfg.name} full width, "
+              f"{getattr(cfg, 'n_layers', '-')} layers: {steps} steps of "
+              f"{count} {unit}, {step_s:.3f} s/step, {count / step_s:.1f} "
+              f"{unit}/s, losses {losses}, launches per step {per_step}, "
+              f"peak memory {peak / 2**30:.2f} GiB")
         t0 = time.perf_counter()
         with dispatch.plain_kernels():
             losses_p, state_p, times_p = run()
@@ -1891,7 +1955,8 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
                              (state.momentum, state_p.momentum)):
             for (path, q), (_, qp) in zip(tree_items(tree), tree_items(tree_p)):
                 if not (torch.equal(q.m, qp.m) and torch.equal(q.e, qp.e)):
-                    raise AssertionError(f"state leaf {'/'.join(path)}: "
+                    raise AssertionError(f"state leaf "
+                                         f"{'/'.join(map(str, path))}: "
                                          "kernel path != plain path")
         del state_p
         print("plain-version replay: losses ==, every master and momentum "
@@ -1913,8 +1978,9 @@ def train_step_and_compare(torch, dev, rec, label, cfg, policy, check,
                      if "deterministic" in str(w.message)})
     rec[label] = dict(losses=losses, step_s=times, launches=launches,
                       launches_per_step=per_step, step_s_median=step_s,
-                      tokens_per_s=tokens / step_s, peak_bytes=peak,
-                      n_layers=cfg.n_layers, plain_replay_equal=True,
+                      **{f"{unit}_per_s": count / step_s}, peak_bytes=peak,
+                      n_layers=getattr(cfg, "n_layers", None),
+                      plain_replay_equal=True,
                       jnp_decisions=jnp, nondeterministic_ops=nondet,
                       train_call_s=train_s, replay_call_s=replay_s,
                       profile_call_s=profile_s, replay_step_s=times_p)
@@ -2095,6 +2161,119 @@ def train_unfused_and_compare(torch, dev, rec):
     return launches
 
 
+def _plan_variant(d, kfl):
+    """The qq / qi / ii kernel variant a FUSED contraction plan launches:
+    the shape rule on the kernel's (M, K); kind iq runs the qi kernel with
+    the roles swapped (the weight quantized in it: M is the plan's N)."""
+    return kfl.qgemm_variant(d.n if d.kind == "iq" else d.m, d.k)
+
+
+def train_cnn_and_compare(torch, dev, rec, policy_name):
+    """Phases 13 and 14: ResNet-18 for CIFAR (``CNN_CFG``) at full width,
+    one step under ``policy_name`` (``int8`` or ``int8_qflow``) in
+    ``kernel_mode="fused"`` through ``make_train_step`` from the trainer's
+    state and key and ``CNN_BATCH`` ``SyntheticVision`` images:
+    ``CNN_PER_STEP`` launches, each also the count of the step's FUSED
+    plans; every ``__dp4a`` launch one of ``CNN_DP4A``, named by its shape;
+    no plan on the plain path but the dW contractions over more than
+    ``accum_chunk`` rows, each timed on it; the plain replay ``==``.  Then
+    one float32 step of the same net (``make_float_train_step``) timed for
+    context."""
+    import collections
+    import dataclasses
+
+    from repro_torch.core import prng
+    from repro_torch.core.bfp import BFP, QuantConfig
+    from repro_torch.core.policy import NumericPolicy
+    from repro_torch.core.qops import _contract_q
+    from repro_torch.data import SyntheticVision
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import fused_linear as kfl
+    from repro_torch.launch.steps import TrainHyper, make_float_train_step
+    from repro_torch.launch.train import _init_state
+    from repro_torch.models.convnet import CNNConfig
+
+    label = "train_cnn" if policy_name == "int8" else "train_cnn_qflow"
+    cfg = CNNConfig(**CNN_CFG)
+    policy = NumericPolicy(qflow=policy_name == "int8_qflow",
+                           kernel_mode="fused")
+    want = CNN_PER_STEP[policy_name]
+    plain_plans = []
+
+    def check(log, per_step):
+        planned = _planned_kernels(log, dispatch)
+        dp4a = collections.Counter(
+            (d.op, d.m, d.k, d.n, d.kind) for d in log
+            if d.path == dispatch.FUSED and d.kind in KIND_KERNEL
+            and KIND_KERNEL[d.kind] in ("qq", "qi", "ii")
+            and _plan_variant(d, kfl) == "dp4a")
+        if dict(dp4a) != CNN_DP4A:
+            raise AssertionError(f"{label}: __dp4a plans {dict(dp4a)}, "
+                                 f"expected {CNN_DP4A}")
+        for name, n in want.items():
+            n_dp4a = sum(c for key, c in CNN_DP4A.items()
+                         if KIND_KERNEL[key[4]] == name)
+            if per_step[name] != n or planned[name] != n \
+                    or per_step[f"{name}_dp4a"] != n_dp4a:
+                raise AssertionError(
+                    f"{label}: {per_step[name]} {name} launches "
+                    f"({per_step[f'{name}_dp4a']} on __dp4a) and "
+                    f"{planned[name]} FUSED plans per step, expected {n} "
+                    f"({n_dp4a})")
+        for d in log:
+            if d.path == dispatch.JNP:
+                if "accum_chunk" not in d.reason:
+                    raise AssertionError(f"{label}: {d.op} planned on the "
+                                         f"plain path: {d.reason}")
+                plain_plans.append((d.op, d.m, d.k, d.n, d.kind))
+
+    data = SyntheticVision(img=cfg.img, batch=CNN_BATCH, seed=SEED)
+    launches = train_step_and_compare(
+        torch, dev, rec, label, cfg, policy, check, data=data,
+        items=("images", CNN_BATCH), lr=CNN_LR)[0]
+    print(f"{label}: __dp4a launches per step by (op, M, K, N, kind): "
+          f"{CNN_DP4A}")
+
+    # the plans on the plain chunked path (dW over 131072 rows), timed
+    g = torch.Generator(device=dev).manual_seed(5)
+    plain = []
+    for (op, m, k, n, kind), count in sorted(
+            collections.Counter(plain_plans).items()):
+        aq, bq = (BFP(torch.randint(-127, 128, (r, k), generator=g,
+                                    device=dev, dtype=torch.int8),
+                      torch.tensor(120, device=dev), QuantConfig())
+                  for r in (m, n))
+        ms = _device_ms(torch, lambda: _contract_q(aq, bq, 0, 65536), iters=3)
+        plain.append(dict(op=op, shape=[m, k, n], kind=kind, per_step=count,
+                          ms=ms))
+        del aq, bq
+    torch.cuda.empty_cache()
+    print(f"{label}: plans on the plain chunked path (K > accum_chunk), "
+          f"device ms each: {[(p['op'], p['shape'], p['per_step'], round(p['ms'], 3)) for p in plain]}")
+
+    # one float32 step of the same net, for context (the second of two)
+    fstep = make_float_train_step(
+        cfg, TrainHyper(lr=CNN_LR, momentum=0.9), dev)
+    carry = _init_state(cfg, dataclasses.replace(policy, enabled=False),
+                        SEED, dev)
+    times = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, floss = fstep(carry, data.batch_for_step(i),
+                             prng.fold_in(prng.key(SEED), i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del carry
+    torch.cuda.empty_cache()
+    rec[label].update(plain_chunked_plans=plain, float32_step_s=times,
+                      float32_loss=float(floss), dp4a_plans={
+                          str(k): v for k, v in CNN_DP4A.items()})
+    print(f"{label}: float32 step of the same net {times[-1]:.3f} s (the "
+          f"second of two; loss {float(floss):.4f})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2141,13 +2320,25 @@ def main() -> int:
               ("train_int8_qweights", lambda: train_qweights_and_compare(
                   torch, dev, rec, "int8_qweights")),
               ("train_int8_qfull", lambda: train_qweights_and_compare(
-                  torch, dev, rec, "int8_qfull"))]
+                  torch, dev, rec, "int8_qfull")),
+              ("train_cnn", lambda: train_cnn_and_compare(
+                  torch, dev, rec, "int8")),
+              ("train_cnn_qflow", lambda: train_cnn_and_compare(
+                  torch, dev, rec, "int8_qflow"))]
+    # the CNN phases' __dp4a launches (CNN_DP4A), by kernel: the only main
+    # path K that is not a multiple of 16 (the stem's 27 and the head's dX
+    # 10), which the variant rule itself sends to __dp4a; the other phases
+    # keep 0
+    cnn_dp4a = collections.Counter()
+    for key, count in CNN_DP4A.items():
+        cnn_dp4a[KIND_KERNEL[key[4]]] += count
     results, rec["phase_s"] = {}, {}
     for name, run in phases:
         t1 = time.perf_counter()
         results[name] = run()
         if name != "kernels":
-            _check_variants(name, results[name])
+            _check_variants(name, results[name],
+                            cnn_dp4a if name.startswith("train_cnn") else None)
         rec["phase_s"][name] = time.perf_counter() - t1
         print(f"phase {name}: {rec['phase_s'][name]:.1f} s")
     kernels = results.pop("kernels")

@@ -3,7 +3,7 @@ arrays, to the port and back.
 
 Float leaves become float32 tensors; a quantized (BFP) leaf is given as an
 ``(m, e)`` pair of numpy arrays and becomes a ``core.bfp.BFP`` with the
-given config.  Stacked (3-D) mantissas are stored K-innermost, as
+given config; a list in the tree (the CNN's ``blocks``) stays a list.  Stacked (3-D) mantissas are stored K-innermost, as
 ``core.integer_sgd.quantize_weights_once`` stores them.  A training state
 (``IntSGDState``) travels as the flat list of ``jax.tree_util.tree_leaves``:
 every master's int16 mantissas and int32 exponent in parameter-tree order,
@@ -38,13 +38,16 @@ def _leaf(x, device, qcfg: QuantConfig):
 
 def params_from_numpy(tree: Dict[str, Any], device=None,
                       qcfg: QuantConfig = QuantConfig()) -> Dict[str, Any]:
-    """Map a nested dict of numpy leaves (or ``(m, e)`` pairs) onto
-    ``device`` (None: the card)."""
+    """Map nested dicts and lists of numpy leaves (or ``(m, e)`` pairs)
+    onto ``device`` (None: the card)."""
     dev = resolve_device(device)
 
     def walk(t):
-        return {k: walk(v) if isinstance(v, dict) else _leaf(v, dev, qcfg)
-                for k, v in t.items()}
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return _leaf(t, dev, qcfg)
 
     return walk(tree)
 

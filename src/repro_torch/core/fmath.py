@@ -35,7 +35,8 @@ from typing import Sequence
 import torch
 
 __all__ = ["fma", "exp", "log", "logistic", "tanh", "gelu", "gelu_pullback",
-           "sum_windows", "sum_fused_2d", "sum_products_cols"]
+           "sum_windows", "sum_fused_2d", "sum_products_cols", "sum_rows_1d",
+           "mean_hw"]
 
 _WINDOW = 32
 
@@ -359,6 +360,62 @@ def sum_fused_2d(x: torch.Tensor) -> torch.Tensor:
     if max(x.shape) > _WINDOW:
         return _sum_windows(x, (0, 1))
     return _sum_in_order(x.reshape(-1))
+
+
+def sum_rows_1d(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a float32 vector (B,) as XLA's CPU build reduces the fused
+    gather-and-sum of the CNN loss's mean (not differentiable): below 16
+    terms in index order; 16 to 32 as one 8-lane vector (lane 0 from 0,
+    the others from -0) over each whole group of 8, its lanes combined by
+    halves, then the rest in order; over 32 in windows.  Measured at 4-19
+    and 24-128 terms (20-23 vectorize otherwise: not followed)."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    if n > _WINDOW:
+        return _sum_windows(x, (0,))
+    if n < 16:
+        return _sum_in_order(x)
+    v = torch.full((8,), -0.0, device=x.device)
+    v[0] = 0.0
+    main = n - n % 8
+    for c in range(0, main, 8):
+        v = v + x[c:c + 8]
+    total = _lane_tree(v)
+    for c in range(main, n):
+        total = total + x[c]
+    return total
+
+
+class _MeanHW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        b, h, w, c = x.shape
+        ctx.shape = x.shape
+        ctx.r = r = _f(1.0 / (h * w))
+        if h not in (4, 8):
+            return _sum_windows(x, (1, 2)) * r
+        acc = torch.full((h, b, c), -0.0, dtype=x.dtype, device=x.device)
+        acc[0] = 0.0
+        xt = x.permute(1, 0, 2, 3)                    # (H, B, W, C)
+        for j in range(w):
+            acc = acc + xt[:, :, j]
+        return _lane_tree(acc) * r
+
+    @staticmethod
+    def backward(ctx, g):
+        b, h, w, c = ctx.shape
+        return (g * ctx.r)[:, None, None, :].expand(b, h, w, c)
+
+
+def mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """Mean of an NHWC float32 tensor over H and W -> (B, C), as XLA's CPU
+    build reduces it (the CNN's global average pool): H of 4 or 8 is
+    vectorized as H lanes, each adding its row's W values in order (lane 0
+    from 0, the others from -0), the lanes combined by halves, then times
+    f32(1 / (H*W)) (measured at 4 x 4 and 8 x 8); any other H in windows
+    (``sum_windows``), which XLA's vectorized loops need not follow.  The
+    gradient is g * f32(1 / (H*W)) at every position."""
+    return _MeanHW.apply(x)
 
 
 def _sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:

@@ -42,27 +42,31 @@ __all__ = ["IntSGDState", "integer_sgd_init", "integer_sgd_step",
 _STACK_AXES = {QW_TENSOR: 0, QW_STACKED: 1, QW_STACKED2: 2}
 
 
-def tree_items(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
-               ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(path, leaf) pairs of a nested dict in ``jax.tree_util`` leaf order
-    (keys sorted at every level), so leaf ``i`` here is leaf ``i`` there."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out.extend(tree_items(v, prefix + (k,)))
-        else:
-            out.append((prefix + (k,), v))
-    return out
+def tree_items(tree, prefix: Tuple[Any, ...] = ()
+               ) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """(path, leaf) pairs of nested dicts and lists in ``jax.tree_util``
+    leaf order (dict keys sorted, list items by index at every level), so
+    leaf ``i`` here is leaf ``i`` there.  A path holds dict keys and list
+    indices; any other value is a leaf (a BFP too)."""
+    if isinstance(tree, dict):
+        kids = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, list):
+        kids = list(enumerate(tree))
+    else:
+        return [(prefix, tree)]
+    return [item for k, v in kids for item in tree_items(v, prefix + (k,))]
 
 
-def tree_map(fn, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """``fn`` on every leaf of a nested dict (a BFP is one leaf)."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts and lists (a BFP is one leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
-def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+def _set(tree, path: Tuple[Any, ...], value) -> None:
     for k in path[:-1]:
         tree = tree[k]
     tree[path[-1]] = value
@@ -129,8 +133,8 @@ def _fx_to_bfp(a: Fx, cfg: QuantConfig, kg: KeyGen) -> BFP:
     return BFP(a.m.to(storage_dtype(cfg.bits)), e_biased.to(torch.int32), cfg)
 
 
-def tree_unflatten(like: Dict[str, Any], leaves: List[Any]) -> Dict[str, Any]:
-    """A nested dict shaped like ``like`` with ``leaves`` in
+def tree_unflatten(like, leaves: List[Any]):
+    """Nested dicts and lists shaped like ``like`` with ``leaves`` in
     ``tree_items`` order."""
     out = tree_map(lambda v: v, like)
     for (path, _), leaf in zip(tree_items(like), leaves):

@@ -1,21 +1,25 @@
-"""Integer layer-norm and RMSNorm: integer forward and integer backward.
+"""Integer layer-norm, RMSNorm and batch-norm: integer forward and integer
+backward.
 
-The port of ``repro.core.qnorm``'s ``_qln``: the input is quantized to int8
-fixed point, the mean, centering, variance, fixed-point rsqrt and both
-normalization products run in int32 (``core.fixed_point``), and the result
-is mapped back to float32 once.  The qflow seams: a per-tensor BFP input
-enters the fixed-point datapath as it is (q-in: its mantissas are the Fx
-value, no quantize), and ``out_q=True`` emits a per-tensor BFP (q-out:
-unify the per-row exponents, narrow to int8, no float32 round trip) with
-a float32 gradient carrier through which the backward receives its
-gradient.
+The port of ``repro.core.qnorm``'s ``_qln`` and ``_qbn``: the input is
+quantized to int8 fixed point, the mean, centering, variance, fixed-point
+rsqrt and both normalization products run in int32 (``core.fixed_point``),
+and the result is mapped back to float32 once.  The qflow seams: a
+per-tensor BFP input enters the fixed-point datapath as it is (q-in: its
+mantissas are the Fx value, no quantize), and ``out_q=True`` emits a
+per-tensor BFP (q-out: unify the per-row exponents, narrow to int8, no
+float32 round trip) with a float32 gradient carrier through which the
+backward receives its gradient.
 The backward is the paper's integer norm backward
 
     dx = (1/sigma) * [ gamma*g  -  mean(gamma*g)  -  xhat * mean(gamma*g*xhat) ]
 
 in the same calculus, from residuals kept narrow (int8 centered mantissas,
-the per-row rsqrt and the quantized gain).  The same key gives the same
-output and gradients as the JAX package, bit for bit.
+the per-row rsqrt and the quantized gain).  Batch-norm normalizes each
+channel over all leading axes: the same calculus with per-channel
+statistics, whose column sums over the N*H*W rows are int32 sums (exact
+on any device).  The same key gives the same output and gradients as the
+JAX package, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from .fixed_point import (Fx, KeyGen, fx_add, fx_const, fx_div_n, fx_mul,
                           fx_to_f32, fx_unify)
 from .policy import NumericPolicy
 
-__all__ = ["qlayernorm", "qrmsnorm", "norm_gain_fx"]
+__all__ = ["qlayernorm", "qrmsnorm", "qbatchnorm", "norm_gain_fx"]
 
 
 def norm_gain_fx(g: torch.Tensor, bits: int = 15):
@@ -208,3 +212,135 @@ def qrmsnorm(x, gamma: torch.Tensor, key: Optional[prng.Key] = None,
     if key is None:
         raise ValueError("qrmsnorm with an integer policy needs a PRNG key")
     return _norm_call(x, gamma, None, key, policy, eps, True, out_q)
+
+
+# ---------------------------------------------------------------------------
+# batch-norm over all leading axes (channels-last)
+# ---------------------------------------------------------------------------
+
+def _col(v: Fx) -> Fx:
+    """Broadcast a per-channel Fx (C,) across rows -> (1, C)."""
+    e = v.e if v.e.ndim == 0 else v.e[None, :]
+    return Fx(v.m[None, :], e, v.bits)
+
+
+def _qbn_fwd(x: torch.Tensor, xe: Optional[torch.Tensor],
+             xcfg: Optional[QuantConfig], gamma: torch.Tensor,
+             beta: torch.Tensor, key: prng.Key, policy: NumericPolicy,
+             eps: float, out_q: bool):
+    """-> ((y, or (m, e, carrier) when ``out_q``), batch mean, batch var;
+    residuals of the backward).  ``xcfg`` given: ``x`` holds per-tensor
+    BFP mantissas with exponent ``xe`` (q-in)."""
+    c = x.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, c)
+    rows = x2.shape[0]
+    kg = KeyGen(key)
+    if xcfg is None:
+        xf = fx_quantize(x2, policy.fwd_bits, kg(), rng=policy.rng)
+    else:
+        xf = Fx(x2.to(torch.int32), scale_exponent(xe, xcfg), xcfg.p)
+    mu = fx_div_n(fx_sum(xf, rows, kg, axis=0), rows, kg)           # (C,)
+    c7 = fx_narrow(fx_sub(xf, _col(mu), kg), 7, kg)
+    var = fx_div_n(fx_sum(fx_mul(c7, c7, kg), rows, kg, axis=0), rows, kg)
+    var = fx_add(var, fx_const(eps, device=x.device), kg)
+    rs = fx_rsqrt(var, kg)                                          # (C,)
+    gf = fx_quantize(gamma, policy.fwd_bits, kg())
+    bf = fx_quantize(beta, policy.fwd_bits, kg())
+    xhat = fx_mul(c7, _col(rs), kg)
+    o = fx_add(fx_mul(xhat, _col(gf), kg), _col(bf), kg)
+    stats = (fx_to_f32(mu), fx_to_f32(var))
+    res = (Fx(c7.m.to(torch.int8), c7.e, c7.bits), rs, gf,
+           prng.fold_in(key, 0xBACC))
+    if out_q:
+        m, e, carrier = _emit_bfp(o, policy, kg)
+        return ((m.reshape(*lead, c), e, carrier.reshape(*lead, c)),
+                *stats), res
+    return (fx_to_f32(o).reshape(*lead, c), *stats), res
+
+
+def _qbn_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
+    """-> (dx, dgamma, dbeta); no gradient flows through the batch
+    statistics."""
+    c7s, rs, gf, kb = res
+    c = gy.shape[-1]
+    g2 = gy.reshape(-1, c)
+    rows = g2.shape[0]
+    c7 = Fx(c7s.m.to(torch.int32), c7s.e, c7s.bits)
+    kg = KeyGen(kb)
+    gq = fx_quantize(g2, policy.bwd_bits, kg(), rng=policy.rng)
+    t = fx_mul(_col(gf), gq, kg)                             # gamma * g
+    xhat = fx_narrow(fx_mul(c7, _col(rs), kg), 7, kg)
+    m1 = fx_div_n(fx_sum(t, rows, kg, axis=0), rows, kg)     # mean(gamma g)
+    u = fx_mul(t, xhat, kg)
+    m2 = fx_div_n(fx_sum(u, rows, kg, axis=0), rows, kg)     # mean(.. xhat)
+    diff = fx_sub(fx_sub(t, _col(m1), kg), fx_mul(xhat, _col(m2), kg), kg)
+    dx = fx_to_f32(fx_mul(diff, _col(rs), kg)).reshape(gy.shape)
+    dgamma = fx_to_f32(fx_sum(fx_unify(fx_mul(gq, xhat, kg), kg), rows, kg,
+                              axis=0))
+    dbeta = fx_to_f32(fx_sum(gq, rows, kg, axis=0))
+    return dx, dgamma, dbeta
+
+
+class _QBN(torch.autograd.Function):
+    """The integer batch-norm with its integer backward (``_qbn`` of the
+    JAX package); inputs and outputs as ``_QLN``'s, plus the batch mean
+    and variance, which take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, xg, gamma, beta, xe, xcfg, key, policy, eps, out_q):
+        (y, mean, var), ctx.res = _qbn_fwd(x, xe, xcfg, gamma, beta, key,
+                                           policy, eps, out_q)
+        ctx.policy, ctx.out_q = policy, out_q
+        ctx.q_in, ctx.has_g = xcfg is not None, xg is not None
+        if out_q:
+            ctx.mark_non_differentiable(y[0], y[1], mean, var)
+            return (*y, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, *cts):
+        gy = cts[2] if ctx.out_q else cts[0]
+        dx, dgamma, dbeta = _qbn_bwd(ctx.policy, ctx.res, gy)
+        if ctx.q_in:
+            dx_in = (None, dx if ctx.has_g else None)
+        else:
+            dx_in = (dx, None)
+        return (*dx_in, dgamma, dbeta) + (None,) * 6
+
+
+def qbatchnorm(x, gamma: torch.Tensor, beta: torch.Tensor,
+               key: Optional[prng.Key] = None,
+               policy: NumericPolicy = NumericPolicy(), eps: float = 1e-5,
+               *, running=None, training: bool = True, out_q: bool = False):
+    """Integer batch-norm over all leading axes (channels-last) ->
+    ``(y, batch_mean, batch_var)``.  ``training=False`` (frozen) normalizes
+    in float32 with the ``running`` (mean, var) and returns them; the float
+    policy normalizes with the batch's float statistics.  ``x`` may be a
+    per-tensor BFP (q-in) and ``out_q=True`` returns ``y`` as a per-tensor
+    BFP with its carrier (q-out)."""
+    if not training:
+        rm, rv = running
+        x = bfp_value(x)
+        return (x - rm) * torch.rsqrt(rv + eps) * gamma + beta, rm, rv
+    if not (policy.enabled and policy.quantize_norms):
+        x = bfp_value(x)
+        axes = tuple(range(x.ndim - 1))
+        mu = x.mean(dim=axes)
+        var = (x - mu).square().mean(dim=axes)
+        return (x - mu) * torch.rsqrt(var + eps) * gamma + beta, mu, var
+    if key is None:
+        raise ValueError("qbatchnorm with an integer policy needs a PRNG key")
+    if isinstance(x, BFP) and x.cfg.block != PER_TENSOR:
+        x = bfp_value(x)
+    if isinstance(x, BFP):
+        out = _QBN.apply(x.m, x.g, gamma, beta, x.e, x.cfg, key, policy, eps,
+                         out_q)
+    else:
+        out = _QBN.apply(x, None, gamma, beta, None, None, key, policy, eps,
+                         out_q)
+    if out_q:
+        m, e, g, mean, var = out
+        return BFP(m, e, _norm_out_cfg(policy), g), mean, var
+    return out

@@ -35,7 +35,11 @@ kernels), its gradients on the carriers too.
 The qweights currency: ``qmatmul`` takes a per-tensor BFP weight (a
 forward weight narrowed from the int16 masters, or a load-time-quantized
 serving weight) and ``qembed`` a per-tensor BFP table, contracted and
-gathered as they are; dW and dTable go to the weight's carrier.  Also
+gathered as they are; dW and dTable go to the weight's carrier.
+
+``qconv`` is the CNN family's convolution: im2col patches (of float32
+values, or of a BFP's int8 mantissas) contracted with the reshuffled
+filter by ``qmatmul``; ``qrelu`` acts on BFP mantissas exactly.  Also
 here: ``qdq_st`` and the qcache ops (cache rows quantized once at append
 time, one exponent per row, nearest rounding).
 """
@@ -55,9 +59,9 @@ from .bfp import (BFP, PER_TENSOR, QuantConfig, bfp_value, biased_exponent,
                   rounding_bits, scale_exponent)
 from .policy import NumericPolicy
 
-__all__ = ["qmatmul", "qbmm", "qattention", "qembed", "qdq_st",
-           "qcache_quantize", "qcache_prefill", "qcache_append", "qcache_qk",
-           "qcache_pv", "qcache_attention"]
+__all__ = ["qmatmul", "qconv", "qrelu", "qbmm", "qattention", "qembed",
+           "qdq_st", "qcache_quantize", "qcache_prefill", "qcache_append",
+           "qcache_qk", "qcache_pv", "qcache_attention"]
 
 
 def _t(m: torch.Tensor) -> torch.Tensor:
@@ -180,10 +184,14 @@ def _qmatmul_fwd(x: torch.Tensor, w: torch.Tensor, key: prng.Key,
     return y.reshape(*lead, w.shape[-1]), (xq, wq, kb, lead)
 
 
-def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
+def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor,
+                 need_dx: bool = True):
     """A.2: Ĝ quantized once; dX = Ĝ Ŵᵀ (kind qi), dW = X̂ᵀ Ĝ (kind ii)
     on the stored mantissas; under per-block scales both are kind qq on
-    re-blocked residuals (``_requant_contract``).  -> (dx, dw)."""
+    re-blocked residuals (``_requant_contract``).  -> (dx, dw).  Without
+    ``need_dx`` (an input that takes no gradient: the CNN's images) Ĝ is
+    quantized alone and dx is None, as the reference's compiled step keeps
+    no unused dX."""
     xq, wq, kb, lead = res
     cfg_b = policy.bwd_cfg()
     kg, kg2, kx2, kw2 = prng.split(kb, 4)
@@ -198,10 +206,11 @@ def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
                                _cfg_for_dim(cfg_b, m), kx2, kg2, 0, policy)
         return dx.reshape(*lead, k), dw
     plan_dx = _plan("qmatmul_dx", m, n, k, cfg_b, policy, gy.device,
-                    kind="qi", cfg2=wq.cfg)
-    if plan_dx.path == kd.JNP:
+                    kind="qi", cfg2=wq.cfg) if need_dx else None
+    if plan_dx is None or plan_dx.path == kd.JNP:
         gqn = quantize(g2, cfg_b, kg)
-        dx = _contract_q(gqn, _tq(wq), 0, policy.accum_chunk)
+        dx = (None if plan_dx is None
+              else _contract_q(gqn, _tq(wq), 0, policy.accum_chunk))
     else:
         dx, gqn = kd.contract_qi(g2, _tq(wq), cfg_b, kg, plan_dx)
     gqm = _tq(gqn)                       # (N, M): the same mantissas
@@ -211,7 +220,7 @@ def _qmatmul_bwd(policy: NumericPolicy, res, gy: torch.Tensor):
         dw = _contract_q(_tq(xq), gqm, 0, policy.accum_chunk)
     else:
         dw = kd.contract_ii(_tq(xq), gqm, plan_dw)
-    return dx.reshape(*lead, dx.shape[-1]), dw
+    return (None if dx is None else dx.reshape(*lead, k)), dw
 
 
 def _carrier_grads(q_in: bool, has_g: bool, grad):
@@ -265,7 +274,8 @@ class _QMatmulFlex(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         gy = cts[2] if ctx.out_q else cts[0]
-        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy)
+        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy,
+                              any(ctx.needs_input_grad[:2]))
         return (*_carrier_grads(ctx.q_in, ctx.has_g, dx), dw) + (None,) * 5
 
 
@@ -315,7 +325,8 @@ class _QMatmulPW(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         gy = cts[2] if ctx.out_q else cts[0]
-        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy)
+        dx, dw = _qmatmul_bwd(ctx.policy, ctx.res, gy,
+                              any(ctx.needs_input_grad[:2]))
         x_g, w_g = ctx.has_g
         return (*_carrier_grads(ctx.q_in, x_g, dx), None,
                 dw if w_g else None) + (None,) * 7
@@ -354,6 +365,136 @@ def qmatmul(x, w, key: Optional[prng.Key] = None,
         return out
     m, e, g = out
     return BFP(m, e, _cfg_for_dim(policy.fwd_cfg(), w.shape[-1]), g)
+
+
+# ---------------------------------------------------------------------------
+# qconv: 2-D convolution as im2col + qmatmul; qrelu
+# ---------------------------------------------------------------------------
+
+def _conv_geometry(h: int, w: int, kh: int, kw: int, stride, padding: str):
+    """(Ho, Wo, (top, bottom), (left, right)) of an NHWC convolution,
+    XLA's SAME (the odd pad after) or VALID."""
+    sh, sw = stride
+    if padding == "SAME":
+        ho, wo = -(-h // sh), -(-w // sw)
+        ph = max((ho - 1) * sh + kh - h, 0)
+        pw = max((wo - 1) * sw + kw - w, 0)
+        return ho, wo, (ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2)
+    if padding == "VALID":
+        return (h - kh) // sh + 1, (w - kw) // sw + 1, (0, 0), (0, 0)
+    raise ValueError(f"unsupported padding {padding!r}")
+
+
+def _int_patches(m: torch.Tensor, kh: int, kw: int, stride,
+                 padding: str) -> torch.Tensor:
+    """im2col (N, H, W, C) -> (N, Ho, Wo, C*kh*kw) in the reference's
+    (cin, kh, kw) feature order: zero padding and strided slices, pure data
+    movement (int8 mantissas or float32 values alike)."""
+    n, h, w, c = m.shape
+    sh, sw = stride
+    ho, wo, ph, pw = _conv_geometry(h, w, kh, kw, stride, padding)
+    mp = torch.nn.functional.pad(m, (0, 0, *pw, *ph))
+    cols = [mp[:, dy:dy + (ho - 1) * sh + 1:sh, dx:dx + (wo - 1) * sw + 1:sw]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.stack(cols, dim=-1).reshape(n, ho, wo, c * kh * kw)
+
+
+def _fold_patches(g: torch.Tensor, shape, kh: int, kw: int, stride,
+                  padding: str) -> torch.Tensor:
+    """The gradient of ``_int_patches``: each patch gradient added back
+    into its input element, the taps in descending (dy, dx) order from
+    zero, the order of XLA's transposed patch convolution (so an element's
+    sum of up to kh*kw taps is the reference's, bit for bit)."""
+    n, h, w, c = shape
+    sh, sw = stride
+    ho, wo, ph, pw = _conv_geometry(h, w, kh, kw, stride, padding)
+    g5 = g.reshape(n, ho, wo, c, kh * kw)
+    acc = torch.zeros((n, h + sum(ph), w + sum(pw), c), dtype=g.dtype,
+                      device=g.device)
+    for t in reversed(range(kh * kw)):
+        dy, dx = divmod(t, kw)
+        acc[:, dy:dy + (ho - 1) * sh + 1:sh,
+            dx:dx + (wo - 1) * sw + 1:sw] += g5[..., t]
+    return acc[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w]
+
+
+class _Patches(torch.autograd.Function):
+    """Float32 im2col with the reference's fold-back as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, stride, padding):
+        ctx.args = (x.shape, kh, kw, stride, padding)
+        return _int_patches(x, kh, kw, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_fold_patches(g, *ctx.args),) + (None,) * 4
+
+
+def _filter_rows(w: torch.Tensor) -> torch.Tensor:
+    """HWIO filter (kh, kw, cin, cout) -> the (cin*kh*kw, cout) GEMM
+    operand in the patches' feature order, stored K-innermost (its
+    transpose is the contiguous (N, K) operand of the kernels)."""
+    kh, kw, cin, cout = w.shape
+    return w.permute(3, 2, 0, 1).reshape(cout, cin * kh * kw).t()
+
+
+def _conv_float(x: torch.Tensor, w: torch.Tensor, stride,
+                padding: str) -> torch.Tensor:
+    """The float policy's convolution (NHWC x HWIO, XLA's padding)."""
+    _, h, wd, _ = x.shape
+    kh, kw = w.shape[:2]
+    _, _, ph, pw = _conv_geometry(h, wd, kh, kw, stride, padding)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (*pw, *ph))
+    y = torch.nn.functional.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def qconv(x, w, key: Optional[prng.Key] = None,
+          policy: NumericPolicy = NumericPolicy(), *, stride=(1, 1),
+          padding: str = "SAME", out_q: bool = False):
+    """2-D convolution NHWC x HWIO -> NHWC as an integer GEMM: im2col
+    patches (data movement: the forward's slices and the backward's
+    fold-back) contracted with the reshuffled filter by ``qmatmul``, so
+    every multiply of the forward and the backward is inside it.
+
+    ``x`` may be a per-tensor BFP (q-in: the patches are sliced from its
+    int8 mantissas, its carrier's patches take the gradient) and
+    ``out_q=True`` returns a BFP (q-out).  ``w`` may be a per-tensor BFP
+    filter (the reshuffle moves mantissas; its carrier takes dW).  A
+    per-block operand takes its float32 view; the float policy convolves
+    in float32."""
+    kh, kw, cin, cout = w.shape
+    stride = tuple(stride)
+    if not policy.enabled:
+        return _conv_float(bfp_value(x), bfp_value(w), stride, padding)
+    if isinstance(w, BFP) and w.cfg.block != PER_TENSOR:
+        w = bfp_value(w)
+    if isinstance(x, BFP) and x.cfg.block != PER_TENSOR:
+        x = bfp_value(x)
+    if isinstance(x, BFP):
+        pg = None if x.g is None else _Patches.apply(x.g, kh, kw, stride,
+                                                      padding)
+        patches = BFP(_int_patches(x.m, kh, kw, stride, padding), x.e,
+                      x.cfg, pg)
+    else:
+        patches = _Patches.apply(x, kh, kw, stride, padding)
+    if isinstance(w, BFP):
+        w2 = BFP(_filter_rows(w.m), w.e, w.cfg,
+                 None if w.g is None else _filter_rows(w.g))
+    else:
+        w2 = _filter_rows(w)
+    return qmatmul(patches, w2, key, policy, out_q=out_q)
+
+
+def qrelu(x):
+    """ReLU on ``f32 | BFP``, exact on mantissas (the shared scale is
+    positive): a BFP stays a BFP, its carrier's gradient masked where the
+    mantissa is not positive."""
+    if isinstance(x, BFP):
+        g = None if x.g is None else torch.relu(x.g)
+        return BFP(torch.clamp(x.m, min=0), x.e, x.cfg, g)
+    return torch.relu(x)
 
 
 # ---------------------------------------------------------------------------

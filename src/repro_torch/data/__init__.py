@@ -1,3 +1,4 @@
-"""Deterministic synthetic token streams of the port."""
+"""Deterministic synthetic data of the port: token streams and images."""
 
 from .pipeline import SyntheticLM, UniformLM  # noqa: F401
+from .vision import SyntheticVision  # noqa: F401

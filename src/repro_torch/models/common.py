@@ -266,3 +266,29 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE over every position; stays float (the paper
     keeps softmax in float)."""
     return _SoftmaxXent.apply(logits.to(torch.float32), labels)
+
+
+class _LogSoftmaxNLL(_SoftmaxXent):
+    """Mean negative log-likelihood of (B, C) logits, as the reference
+    computes ``-take_along_axis(log_softmax(x), labels).mean()``: the
+    shifted logits minus the log of their exp-sum (``core.fmath``'s exp,
+    log and sum), the gathered values summed in its order
+    (``fmath.sum_rows_1d``) times f32(1/B); the gradient is
+    ``softmax_xent``'s."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        shifted = logits - logits.amax(dim=-1, keepdim=True)
+        e = fmath.exp(shifted)
+        s = fmath.sum_windows(e, (-1,))
+        gold = shifted.gather(-1, labels[:, None].long())[:, 0]
+        ctx.save_for_backward(e, s, labels)
+        ctx.n = n = gold.shape[0]
+        total = fmath.sum_rows_1d(gold - fmath.log(s))
+        return -(total * float(np.float32(1.0 / n)))
+
+
+def log_softmax_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of (B, C) logits against (B,) labels (the CNN's
+    loss); float32."""
+    return _LogSoftmaxNLL.apply(logits.to(torch.float32), labels)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from types import ModuleType
 
-from . import transformer
+from . import convnet, transformer
 from .common import ArchConfig
 
 __all__ = ["get_model", "get_weight_mask", "get_cache_layout"]
@@ -14,6 +14,10 @@ _FAMILY_TO_MODULE = {"dense": transformer}
 
 
 def get_model(cfg: ArchConfig) -> ModuleType:
+    """The module of ``cfg``'s family (``init_params``, ``weight_mask``,
+    ``loss_fn``, ...): a ``convnet.CNNConfig`` is the CNN family."""
+    if isinstance(cfg, convnet.CNNConfig):
+        return convnet
     try:
         return _FAMILY_TO_MODULE[cfg.family]
     except KeyError:

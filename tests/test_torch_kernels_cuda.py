@@ -56,11 +56,19 @@ QQ_SHAPES = [(8, 896, 128, 64), (1, 512, 896, 896), (1, 512, 896, 128),
              (1, 512, 4608, 8192)]
 
 
+# ResNet-18 for CIFAR at batch 128 (B, M, K, N): the stem (K = 27:
+# __dp4a), a stage-1 and a stage-4 3 x 3 convolution and the 10-class head
+# forward (qq); a stage-1 convolution's dX and the head's dX (K = 10:
+# __dp4a) on qi.
+CNN_SHAPES = [(1, 131072, 27, 64), (1, 131072, 576, 64), (1, 2048, 4608, 512),
+              (1, 128, 512, 10), (1, 131072, 64, 576), (1, 128, 10, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("nb,m,k,n", [(1, 4, 896, 1000), (1, 37, 67, 29),
                                       (8, 896, 64, 128), (2, 130, 96, 70)]
-                         + QI_SHAPES + QQ_SHAPES)
+                         + QI_SHAPES + QQ_SHAPES + CNN_SHAPES)
 def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
     """y and mantissas ``==``; the qq calls move the counter of the variant
     ``qq_variant`` names, the qi call that of ``qgemm_variant``'s (wgmma,
@@ -103,9 +111,12 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
 
 # ii shapes beyond the first five (B, M, K, N): the two timed main-path
 # shapes (the LM head's and w_down's training dW), M <= 16 with K % 16 ==
-# 0 (the streaming variant, a batch too), ragged M on the tensor cores.
+# 0 (the streaming variant, a batch too), ragged M on the tensor cores,
+# two of ResNet-18's.
 II_SHAPES = [(1, 896, 512, 151936), (1, 4864, 512, 896), (1, 4, 512, 896),
-             (2, 4, 512, 70), (1, 17, 512, 4864)]
+             (2, 4, 512, 70), (1, 17, 512, 4864),
+             # ResNet-18's stage-2 3 x 3 convolution dW and its head's dW
+             (1, 1152, 32768, 128), (1, 512, 128, 10)]
 
 
 @pytest.mark.cuda
