@@ -109,7 +109,21 @@ Phases, any of which failing exits non-zero:
    five dW plans over 131072 rows on the plain chunked path, each timed;
    the plain replay ``==``; one float32 step of the same net timed;
 14. the same under ``int8_qflow``: each block's conv -> bn -> relu ->
-   conv chain on BFP activations (kind ``iq`` forwards).
+   conv chain on BFP activations (kind ``iq`` forwards);
+15. serve full-width qwen2-0.5b under qflow (``PAPER_INT8`` with qflow,
+   qweights and qcache) through ``make_prefill_step`` /
+   ``make_decode_step``: phase 3's prompts, keys and 32 greedy tokens; the
+   projections after a norm and the tied LM head of kind ``pp`` (on
+   ``ii``), ``wo`` and ``w_down`` on ``qi``, attention on ``attn_fwd`` in
+   prefill and ``attn_decode`` in each decode step
+   (``QFLOW_SERVE_LAUNCHES``); the plain replay as in phase 3.
+
+Every stochastic-rounding word on the card is drawn by the
+``rounding_bits`` kernel (``csrc/rounding_bits.cu``, threefry2x32 in both
+key modes and the hash stream): phase 2 holds it ``==`` ``prng.bits`` /
+``prng.hash_bits`` at ``BITS_SHAPES`` and times it at the LM head's
+weight; each of phases 3-15 must launch it, and their plain replays draw
+through ``prng.bits``, so each replay's ``==`` holds the kernel too.
 
 Phase 2 also holds ``qq`` at ResNet-18's stem (timed on ``__dp4a``),
 a stage-1 (timed), a stage-4 convolution and the head, ``qi`` at a stage-1
@@ -124,7 +138,7 @@ gelu, an odd GLU half), and ``bfp_quantize``
 at odd ones (edge values, a batch, unaligned operands, a flushed scale),
 each call moving its variant's counter.
 
-After each of phases 3-14 every ``qq``, ``qi`` and ``ii`` launch must be
+After each of phases 3-15 every ``qq``, ``qi`` and ``ii`` launch must be
 one of the ``wgmma`` or ``stream`` variant (none on ``__dp4a`` but
 phases 13-14's ``CNN_DP4A``), every
 ``qq_blk`` launch one of ``wgmma`` or ``wgmma64``, every ``int8_matmul``
@@ -152,9 +166,15 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks: HBM bytes/s, dense int8 op/s.
+# H100 SXM published peaks: HBM bytes/s, dense int8 op/s; and the issue
+# rate of 32-bit integer instructions: 4 warp schedulers an SM, each one
+# 32-lane instruction a cycle (the Hopper white paper), x 132 SMs x the
+# 1980 MHz boost clock.  Integer adds, shifts and logic issue to the
+# INT32 and the FMA pipes both, so the 64 INT32 lanes an SM are not the
+# limit (the rounding-bit kernel ran 21.9 T int32 op/s).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 
 ARCH, BATCH, PROMPT, GEN, SEED = "qwen2_0_5b", 4, 128, 32, 0
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 1, 4, 128, 0.05
@@ -238,6 +258,17 @@ QWEIGHTS_PER_STEP = {
 # budget keeps the per-op seams at full width): phase 7 for the prefill
 # and this many decode steps, phase 8 for its one step.
 SEAM_DECODE_STEPS = 4
+# Phase 15: qwen2-0.5b served under qflow, by the number of layers L: the
+# prefill and each of the GEN - 1 decode steps contract the 5 projections
+# after a norm and the tied LM head as kind pp (the ii kernel), wo and
+# w_down as qi; attention on attn_fwd in prefill and attn_decode in each
+# decode step, one a layer; nothing on qq.
+QFLOW_SERVE_LAUNCHES = {"ii": lambda L: (5 * L + 1) * GEN,
+                        "qi": lambda L: 2 * L * GEN,
+                        "qq": lambda L: 0,
+                        "attn_fwd": lambda L: L,
+                        "attn_decode": lambda L: L * (GEN - 1),
+                        "attn_bwd": lambda L: 0}
 # Phases 13 and 14: ResNet-18 for CIFAR (He et al. 2015, Table 1 widths
 # 64-128-256-512, two basic blocks a stage, the 3 x 3 stem, no max-pool;
 # the model of the survey's Table 1) at full width and depth, one step of
@@ -336,9 +367,9 @@ def _time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, ops: float):
+def _bound_ms(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -396,6 +427,60 @@ def check_kernels(torch, dev, rec):
     out += check_qq_blk(torch, dev, g, bits)
     out += check_chain(torch, dev, g, bits)
     out += check_unfused(torch, dev, g, bits)
+    out += check_rounding_bits(torch, dev)
+    return out
+
+
+# The rounding-bit kernel's shapes: a scalar, one word, an odd count, a
+# word either side of prng's 2^24-word chunk, and the LM head's weight,
+# the largest draw of a qwen2 step (timed).
+BITS_SHAPES = [(), (1,), (7,), ((1 << 24) - 1,), ((1 << 24) + 3,),
+               (151936, 896)]
+# Integer operations a word: threefry2x32 is 2 + 5 * (4 * 3 + 2) = 72 (two
+# words a hash) plus the XOR of its halves (partitionable: one hash a
+# word); the hash stream's avalanche 10.
+BITS_OPS = {"partitionable": 73, "iota_halves": 36, "hash": 10}
+
+
+def check_rounding_bits(torch, dev):
+    """The rounding-bit kernel against ``prng.bits`` in both key modes and
+    ``prng.hash_bits`` at ``BITS_SHAPES``, one launch a draw; timed at the
+    LM head's weight in each stream beside the plain draw on the card."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import rounding_bits as krb
+
+    src = "src/repro_torch/kernels/csrc/rounding_bits.cu"
+    replaces = "src/repro/core/bfp.py:289 (jax.random.bits; no Pallas kernel)"
+    out = []
+    for stream in krb.MODES:
+        key = prng.fold_in(prng.key(11, partitionable=stream != "iota_halves"),
+                           5)
+        rng = "hash" if stream == "hash" else "threefry"
+        for shape in BITS_SHAPES:
+            before = dispatch.kernel_launches()["rounding_bits"]
+            got = krb.rounding_bits(key, shape, rng, dev)
+            if dispatch.kernel_launches()["rounding_bits"] != before + 1:
+                raise AssertionError(f"rounding_bits {stream} {shape}: the "
+                                     "launch was not counted once")
+            want = krb.rounding_bits_plain(key, shape, rng, dev)
+            if got.dtype != torch.int64 or not torch.equal(got, want):
+                raise AssertionError(f"rounding_bits {stream} {shape} != "
+                                     f"plain")
+            del got, want
+        n = 151936 * 896
+        name = "rounding_bits" if stream == "partitionable" \
+            else f"rounding_bits_{stream}"
+        out.append(_record_kernel(
+            torch, name, src, replaces, [151936, 896], 0,
+            lambda: krb.rounding_bits(key, (151936, 896), rng, dev),
+            lambda: krb.rounding_bits_plain(key, (151936, 896), rng, dev),
+            8 * n, BITS_OPS[stream] * n, None,
+            note="no PyTorch call draws threefry2x32 or this hash stream",
+            plain_iters=2, ops_per_s=INT32_OPS_PER_S) | {"stream": stream})
+        torch.cuda.empty_cache()
+    print(f"rounding_bits == prng.bits / hash_bits at {BITS_SHAPES}, "
+          f"streams {krb.MODES}")
     return out
 
 
@@ -787,6 +872,10 @@ def _check_variants(label, launches, dp4a=None):
     from repro_torch.kernels import fused_chain as kfc
     from repro_torch.kernels import fused_linear as kfl
     from repro_torch.kernels import int8_matmul as kim
+    # every phase rounds stochastically: its bits drawn on the kernel
+    if launches["rounding_bits"] <= 0:
+        raise AssertionError(f"{label}: no rounding_bits launch")
+    print(f"{label}: rounding_bits launches {launches['rounding_bits']}")
     for kind, variants, allowed in (
             ("qq", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
             ("qi", kfl.QGEMM_VARIANTS, ("wgmma", "stream")),
@@ -829,14 +918,15 @@ def _check_variants(label, launches, dp4a=None):
 
 
 def _record_kernel(torch, name, source, replaces, shape, err, kernel, plain,
-                   nbytes, ops, library_ms, note=None, plain_iters=3):
+                   nbytes, ops, library_ms, note=None, plain_iters=3,
+                   ops_per_s=INT8_OPS_PER_S):
     """Time a kernel call and its plain version; the row of the kernels
     line, with the device ms of each kernel the call launches."""
     split = {}
     ms = _device_ms(torch, kernel, split=split)
     call = _time_ms(torch, kernel)
     pms = _device_ms(torch, plain, iters=plain_iters)
-    bound, by = _bound_ms(nbytes, ops)
+    bound, by = _bound_ms(nbytes, ops, ops_per_s)
     print(f"{name} {shape}: {ms:.4f} ms device time (bound {bound:.5f} ms by "
           f"{by}; plain {pms:.3f} ms; library {library_ms}), kernel == plain; "
           f"by kernel {({k: round(v, 5) for k, v in split.items()})}")
@@ -1664,6 +1754,24 @@ def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
     prefill = make_prefill_step(cfg, policy, PROMPT + GEN, dev)
     decode = make_decode_step(cfg, policy, dev)
     dev_toks = toks.to(dev)
+    _replay_serve(torch, rec, label, prefill, decode, params, prompts, key,
+                  dev_toks, logits, stats["decode_ms_per_step"])
+    if seam_steps:
+        rec[f"{label}_seam"] = _decode_seam(
+            torch, dispatch, prefill, decode, params, prompts, key, dev_toks,
+            logits, seam_steps)
+    return launches
+
+
+def _replay_serve(torch, rec, label, prefill, decode, params, prompts, key,
+                  dev_toks, logits, decode_ms):
+    """Replay a serve run's prompts and tokens through ``dispatch.
+    plain_kernels()`` (the kernels' plain versions, the rounding bits
+    drawn by ``prng.bits``): prefill and every decode step's logits ``==``
+    the kernel path's; then one kernel-path decode step under the
+    profiler."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import dispatch
     t0 = time.perf_counter()
     with torch.inference_mode(), dispatch.plain_kernels():
         cache, lg0 = prefill(params, {"tokens": prompts}, prng.fold_in(key, 3))
@@ -1682,7 +1790,7 @@ def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
     with torch.inference_mode():
         step_profile(torch, lambda: decode(
             params, cache, dev_toks[:, -1], PROMPT + GEN - 1,
-            prng.fold_in(key, 10 + GEN)), stats["decode_ms_per_step"], rec,
+            prng.fold_in(key, 10 + GEN)), decode_ms, rec,
             "decode_step_profile" if label == "serve"
             else f"{label}_decode_step_profile")
     rec["compare" if label == "serve" else f"{label}_compare"] = dict(
@@ -1690,10 +1798,78 @@ def serve_and_compare(torch, dev, rec, arch=ARCH, label="serve",
         replay_call_s=replay_s, profile_call_s=time.perf_counter() - t0)
     print(f"plain-version replay: prefill and {GEN - 1} decode steps' "
           f"logits ==")
-    if seam_steps:
-        rec[f"{label}_seam"] = _decode_seam(
-            torch, dispatch, prefill, decode, params, prompts, key, dev_toks,
-            logits, seam_steps)
+
+
+def serve_qflow_and_compare(torch, dev, rec, label="serve_qflow"):
+    """Phase 15: serve full-width qwen2-0.5b under qflow (``PAPER_INT8``
+    with qflow, qweights and qcache) through ``make_prefill_step`` /
+    ``make_decode_step``: the prompts, keys and greedy decode of phase 3,
+    the launch counts set to 0 before the weights load and read after the
+    last step (``QFLOW_SERVE_LAUNCHES``), then the plain replay."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.policy import PAPER_INT8
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(ARCH)
+    policy = dataclasses.replace(PAPER_INT8, qflow=True, qweights=True,
+                                 qcache=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_kernel_launches()
+    t_all = time.perf_counter()
+    params = srv.load_params(cfg, policy, SEED, dev)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(SEED + 1))
+    key = prng.key(SEED)
+    prefill = make_prefill_step(cfg, policy, PROMPT + GEN, dev)
+    decode = make_decode_step(cfg, policy, dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, lg = prefill(params, {"tokens": prompts}, prng.fold_in(key, 3))
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        logits, toks = [lg], [tok]
+        t0 = time.perf_counter()
+        for i in range(GEN - 1):
+            lg, cache = decode(params, cache, tok, PROMPT + i,
+                               prng.fold_in(key, 10 + i))
+            tok = lg.argmax(-1)
+            logits.append(lg)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    serve_s = time.perf_counter() - t_all
+    launches = dispatch.kernel_launches()
+    del cache
+    toks = torch.stack(toks, dim=1)
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}: bad tokens")
+    for lg in logits:
+        if lg.shape != (BATCH, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{label}: non-finite or misshapen logits")
+    want = {k: v(cfg.n_layers) for k, v in QFLOW_SERVE_LAUNCHES.items()}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches, expected {n}")
+    stats = dict(prefill_s=prefill_s, decode_s=decode_s,
+                 decode_ms_per_step=1e3 * decode_s / (GEN - 1),
+                 tok_per_s=BATCH * (GEN - 1) / decode_s)
+    rec[label] = dict(stats, launches=launches, tokens=toks.tolist(),
+                      serve_call_s=serve_s,
+                      peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"{label} {cfg.name} full width: prefill {BATCH}x{PROMPT} in "
+          f"{prefill_s:.4f} s, decode {stats['decode_ms_per_step']:.3f} "
+          f"ms/step, {stats['tok_per_s']:.1f} tok/s, peak "
+          f"{rec[label]['peak_bytes'] / 2 ** 30:.2f} GiB, launches {launches}")
+    _replay_serve(torch, rec, label, prefill, decode, params, prompts, key,
+                  toks, logits, stats["decode_ms_per_step"])
     return launches
 
 
@@ -2121,7 +2297,8 @@ def train_unfused_and_compare(torch, dev, rec):
     """Phase 9: full-width qwen2-0.5b, one ``PAPER_INT8`` step under
     ``kernel_mode="unfused"`` (no trainer flag in either package):
     ``EXPECTED_PER_STEP`` launches of ``bfp_quantize`` and
-    ``int8_matmul``, none of any other kernel, no plain-path decision but
+    ``int8_matmul``, none of any other kernel but the rounding-bit draws
+    (``_check_variants`` holds those), no plain-path decision but
     the LM head's dX; then the loss and every leaf ``==`` phase 4's fused
     step from the same state, key and batch (its digest)."""
     import dataclasses
@@ -2135,7 +2312,7 @@ def train_unfused_and_compare(torch, dev, rec):
 
     def check(log, per_step):
         for name, n in per_step.items():
-            if n != want.get(name, 0):
+            if name != "rounding_bits" and n != want.get(name, 0):
                 raise AssertionError(f"{label}: {n} {name} launches per "
                                      f"step, expected {want.get(name, 0)}")
         jnp = [(d.op, d.reason) for d in log if d.path != dispatch.UNFUSED]
@@ -2324,7 +2501,9 @@ def main() -> int:
               ("train_cnn", lambda: train_cnn_and_compare(
                   torch, dev, rec, "int8")),
               ("train_cnn_qflow", lambda: train_cnn_and_compare(
-                  torch, dev, rec, "int8_qflow"))]
+                  torch, dev, rec, "int8_qflow")),
+              ("serve_qflow", lambda: serve_qflow_and_compare(
+                  torch, dev, rec))]
     # the CNN phases' __dp4a launches (CNN_DP4A), by kernel: the only main
     # path K that is not a multiple of 16 (the stem's 27 and the head's dX
     # 10), which the variant rule itself sends to __dp4a; the other phases

@@ -151,7 +151,13 @@ def rounding_bits(key: prng.Key, shape, rng: str = "threefry",
                   device=None) -> torch.Tensor:
     """The uniform u32 draw of stochastic rounding (int64 tensor): the
     single source of rounding bits, shared by the plain mappings here and
-    by the kernels' callers, as ``repro.core.bfp.rounding_bits``."""
+    by the kernels' callers, as ``repro.core.bfp.rounding_bits``.  On a
+    CUDA device the draw is the ``rounding_bits`` kernel (its plain version
+    inside ``dispatch.plain_kernels()``); elsewhere ``prng.bits`` /
+    ``prng.hash_bits``."""
+    if device is not None and torch.device(device).type == "cuda":
+        from ..kernels import dispatch  # on use: core does not load kernels
+        return dispatch.draw_bits(key, shape, rng, device)
     if rng == "hash":
         return prng.hash_bits(key, shape, device)
     return prng.bits(key, shape, device)

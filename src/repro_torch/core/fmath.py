@@ -367,39 +367,76 @@ def sum_rows_1d(x: torch.Tensor) -> torch.Tensor:
     gather-and-sum of the CNN loss's mean (not differentiable): below 16
     terms in index order; 16 to 32 as one 8-lane vector (lane 0 from 0,
     the others from -0) over each whole group of 8, its lanes combined by
-    halves, then the rest in order; over 32 in windows.  Measured at 4-19
-    and 24-128 terms (20-23 vectorize otherwise: not followed)."""
+    halves; at 20-23 terms the next 4 then as a 4-lane vector whose lane 0
+    starts from that sum, combined by halves; then the rest in order; over
+    32 in windows.  Measured at 4-128 terms (the fusion's
+    ``ir-with-opt.ll``: a vectorized loop and, at 20-23, its 4-lane
+    epilogue)."""
     x = x.to(torch.float32)
     n = x.shape[0]
     if n > _WINDOW:
         return _sum_windows(x, (0,))
     if n < 16:
         return _sum_in_order(x)
-    v = torch.full((8,), -0.0, device=x.device)
-    v[0] = 0.0
     main = n - n % 8
-    for c in range(0, main, 8):
-        v = v + x[c:c + 8]
-    total = _lane_tree(v)
+    total = _lane_tree(_lanes(x[:main].reshape(-1, 8)))
+    if 20 <= n <= 23:
+        v = torch.full((4,), -0.0, device=x.device)
+        v[0] = total
+        total = _lane_tree(v + x[main:main + 4])
+        main += 4
     for c in range(main, n):
         total = total + x[c]
     return total
 
 
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """Lane accumulators of a vectorized loop: x (steps, lanes, ...) added
+    step by step into lanes that start from 0 (lane 0) and -0 (the
+    others)."""
+    acc = torch.full(x.shape[1:], -0.0, dtype=x.dtype, device=x.device)
+    acc[0] = 0.0
+    for i in range(x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def _sum_rows_lanes(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Sum of (B, H, W, C) over H and W as a loop over H vectorized into
+    ``lanes`` lanes: lane l adds rows l, l + lanes, ... of the whole
+    groups, each row's W values in order; the lanes combined by halves;
+    then the remaining rows in order."""
+    b, h, w, c = x.shape
+    main = h - h % lanes
+    steps = x[:, :main].reshape(b, main // lanes, lanes, w, c)
+    steps = steps.permute(1, 3, 2, 0, 4).reshape(-1, lanes, b, c)
+    total = _lane_tree(_lanes(steps))
+    for r in range(main, h):
+        for j in range(w):
+            total = total + x[:, r, j]
+    return total
+
+
+# Lanes of XLA's vectorized loop over the pool's rows at each H that
+# LLVM's cost model vectorizes (the fusion's ``ir-with-opt.ll``; every
+# other H of 1-32 keeps the loop scalar, in index order).
+_POOL_LANES = {4: 4, 8: 8, 16: 8, 17: 8, 18: 8}
+
+
 class _MeanHW(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        b, h, w, c = x.shape
+        h, w = x.shape[1:3]
         ctx.shape = x.shape
         ctx.r = r = _f(1.0 / (h * w))
-        if h not in (4, 8):
+        if h == w and _WINDOW < h <= 2 * _WINDOW:
+            # a 2 x 2 grid of windows of 32 x 32, each in index order, is
+            # summed as 2 lanes (a larger grid in order: _sum_windows)
+            return _sum_rows_lanes(_window_sums_hw(x), 2) * r
+        lanes = _POOL_LANES.get(h) if h == w else None
+        if lanes is None:
             return _sum_windows(x, (1, 2)) * r
-        acc = torch.full((h, b, c), -0.0, dtype=x.dtype, device=x.device)
-        acc[0] = 0.0
-        xt = x.permute(1, 0, 2, 3)                    # (H, B, W, C)
-        for j in range(w):
-            acc = acc + xt[:, :, j]
-        return _lane_tree(acc) * r
+        return _sum_rows_lanes(x, lanes) * r
 
     @staticmethod
     def backward(ctx, g):
@@ -409,13 +446,30 @@ class _MeanHW(torch.autograd.Function):
 
 def mean_hw(x: torch.Tensor) -> torch.Tensor:
     """Mean of an NHWC float32 tensor over H and W -> (B, C), as XLA's CPU
-    build reduces it (the CNN's global average pool): H of 4 or 8 is
-    vectorized as H lanes, each adding its row's W values in order (lane 0
-    from 0, the others from -0), the lanes combined by halves, then times
-    f32(1 / (H*W)) (measured at 4 x 4 and 8 x 8); any other H in windows
-    (``sum_windows``), which XLA's vectorized loops need not follow.  The
-    gradient is g * f32(1 / (H*W)) at every position."""
+    build reduces the CNN's fused ``relu(h + sc).mean(axis=(1, 2))`` (the
+    global average pool), then times f32(1 / (H*W)).  A square pool of H
+    in ``_POOL_LANES`` is a loop over H vectorized into 4 or 8 lanes (lane
+    0 from 0, the others from -0), each lane adding its rows' W values in
+    order, the lanes combined by halves, the rows past the last whole
+    group in order; other H up to 32 in index order; over 32, windows of
+    32 x 32 in index order, whose 2 x 2 grid (H 33-64) is then 2 lanes
+    and a larger grid in order.  Measured at H 1-32, 40, 48, 56, 64, 72,
+    96 and 128 (the fusions' ``ir-with-opt.ll``).  The gradient is g *
+    f32(1 / (H*W)) at every position."""
     return _MeanHW.apply(x)
+
+
+def _window_sums_hw(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, nh, nw, C): each window of 32 x 32 of H and W
+    (padded with zeros at both ends, as XLA's reduce-window) summed in
+    index order from a zero start."""
+    b, h, w, c = x.shape
+    ph, pw = -h % _WINDOW, -w % _WINDOW
+    x = torch.nn.functional.pad(
+        x, (0, 0, pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    nh, nw = x.shape[1] // _WINDOW, x.shape[2] // _WINDOW
+    x = x.reshape(b, nh, _WINDOW, nw, _WINDOW, c).permute(2, 4, 0, 1, 3, 5)
+    return _sum_in_order(x.reshape(_WINDOW * _WINDOW, b, nh, nw, c))
 
 
 def _sum_windows(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:

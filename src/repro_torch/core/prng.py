@@ -28,7 +28,7 @@ from typing import List, Sequence
 
 import torch
 
-__all__ = ["Key", "key", "split", "fold_in", "bits", "hash_bits"]
+__all__ = ["Key", "key", "split", "fold_in", "bits", "word", "hash_bits"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -118,6 +118,13 @@ def bits(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
         y0, y1 = _hash_tensor(k.k0, k.k1, idx >> 32, idx & _M32)
         out[lo:lo + idx.numel()] = y0 ^ y1
     return out.reshape(shape)
+
+
+def word(k: Key) -> int:
+    """``bits(k, ())`` as a Python int, drawn on the host: the hash of the
+    counters (0, 0), its two words XORed (partitionable) or the first."""
+    y0, y1 = _hash_int(k.k0, k.k1, 0, 0)
+    return y0 ^ y1 if k.partitionable else y0
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:

@@ -832,13 +832,41 @@ class _QEmbedP(torch.autograd.Function):
         return (None, None, dtable) + (None,) * 5
 
 
+class _QEmbedQ(torch.autograd.Function):
+    """``_qembed_q``, the q-out embedding of a float32 table: the table is
+    quantized (``quantize_weight``, the first split of ``key``), and the
+    gathered int8 rows with their exponents (the table's per-tensor one, or
+    each row's per-block ones) are the quantized activation, returned as
+    (m, e, carrier).  dTable is ``_qembed_bwd`` of the carrier's
+    cotangent with the second split."""
+
+    @staticmethod
+    def forward(ctx, tokens, table, key, policy):
+        cfg = _cfg_for_dim(policy.fwd_cfg(), table.shape[-1])
+        kt, kb = prng.split(key)
+        tq = quantize_weight(table.detach(), cfg, kt)
+        rows = tq.m[tokens]
+        e = tq.e if cfg.block == PER_TENSOR else tq.e[tokens]
+        ctx.res = (tokens, table.shape[0], kb)
+        ctx.policy = policy
+        ctx.mark_non_differentiable(rows, e)
+        return rows, e, dequantize(BFP(rows, e, cfg))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        tokens, vocab, kb = ctx.res
+        return (None, _qembed_bwd(ctx.policy, tokens, vocab, kb, cts[2]),
+                None, None)
+
+
 def qembed(tokens: torch.Tensor, table, key: Optional[prng.Key] = None,
            policy: NumericPolicy = NumericPolicy(), *, out_q: bool = False):
     """Integer embedding lookup: an int8 row gather scaled by 2^E, with the
     int32 scatter-add backward.  A per-tensor BFP table (a forward weight
     narrowed from the masters, or a load-time-quantized serving table) is
     gathered as it is and its carrier takes dTable; ``out_q=True`` then
-    returns the rows as a BFP on the table's scale."""
+    returns the rows as a BFP on the table's scale, and for a float32
+    table the rows of its one quantization (``_QEmbedQ``)."""
     if not (policy.enabled and policy.quantize_embed):
         return bfp_value(table)[tokens]
     if key is None:
@@ -853,9 +881,9 @@ def qembed(tokens: torch.Tensor, table, key: Optional[prng.Key] = None,
         rows, e, g = out
         return BFP(rows, e, table.cfg, g)
     if out_q:
-        raise NotImplementedError(
-            "qembed(out_q=True) of a float32 table (``_qembed_q``) is not "
-            "ported yet: ROADMAP queue 1, qflow serving")
+        rows, e, g = _QEmbedQ.apply(tokens, table, key, policy)
+        return BFP(rows, e, _cfg_for_dim(policy.fwd_cfg(), table.shape[-1]),
+                   g)
     return _QEmbed.apply(tokens, table, key, policy)
 
 
@@ -923,13 +951,26 @@ def _row_scales(q: BFP) -> torch.Tensor:
     return pow2(scale_exponent(q.e, q.cfg)).transpose(-1, -2)
 
 
-def qcache_qk(a: torch.Tensor, kq: BFP, key: Optional[prng.Key],
+def qcache_qk(a, kq: BFP, key: Optional[prng.Key],
               policy: NumericPolicy) -> torch.Tensor:
-    """Decode scores a (*B, M, D) f32 against cache mantissas (*B, T, D)
-    with the row exponents applied per output column -> (*B, M, T)."""
+    """Decode scores a (*B, M, D) f32, or a per-tensor BFP quantized
+    upstream (qflow: kind pp, nothing quantized here), against cache
+    mantissas (*B, T, D) with the row exponents applied per output column
+    -> (*B, M, T)."""
     nbatch = kq.m.ndim - 2
     t, d = kq.m.shape[-2], kq.m.shape[-1]
     bq = _unit_view(kq.m, kq.cfg.bits, kq.cfg.rng)
+    if isinstance(a, BFP) and a.cfg.block != PER_TENSOR:
+        a = bfp_value(a)
+    if isinstance(a, BFP):
+        aq = BFP(a.m, a.e, a.cfg)
+        plan = _plan("qdecode_qk", aq.m.shape[-2], d, t, aq.cfg, policy,
+                     aq.m.device, kind="pp", cfg2=bq.cfg)
+        if plan.path == kd.JNP:
+            y = _contract_q(aq, bq, nbatch, policy.accum_chunk)
+        else:
+            y = kd.contract_ii(aq, bq, plan, nbatch=nbatch)
+        return y * _row_scales(kq)
     cfg = policy.fwd_cfg()
     plan = _plan("qdecode_qk", a.shape[-2], d, t, cfg, policy, a.device,
                  kind="qi", cfg2=bq.cfg)
@@ -964,17 +1005,21 @@ def qcache_attention(q: torch.Tensor, kq: BFP, vq: BFP, q_off: int,
                      window: int) -> torch.Tensor:
     """Fused decode attention straight off the int8 cache rows (a FUSED
     ``attn_decode`` plan): q (*B, GS, D) f32 is quantized per tensor once
-    here, p is quantized inside the kernel."""
+    here, or arrives as a per-tensor BFP (qflow); p is quantized inside
+    the kernel."""
     lead = kq.m.shape[:-2]
     t, d = kq.m.shape[-2], kq.m.shape[-1]
-    cfg_q = QuantConfig(policy.fwd_bits, PER_TENSOR, policy.stochastic,
-                        policy.rng)
-    qq = quantize(q, cfg_q, None if key is None else prng.fold_in(key, 0))
+    if isinstance(q, BFP):
+        qq = q
+    else:
+        cfg_q = QuantConfig(policy.fwd_bits, PER_TENSOR, policy.stochastic,
+                            policy.rng)
+        qq = quantize(q, cfg_q, None if key is None else prng.fold_in(key, 0))
     gs = qq.m.shape[-2]
     q3 = qq.m.reshape(-1, gs, d)
     sr = policy.stochastic and key is not None
     rp = (rounding_bits(prng.fold_in(key, 1), (q3.shape[0], gs, t),
-                        policy.rng, q.device) if sr else None)
+                        policy.rng, q3.device) if sr else None)
     y3 = kd.attn_decode(
         q3, kq.m.reshape(-1, t, d), vq.m.reshape(-1, t, d),
         kq.e.reshape(-1, t, 1), vq.e.reshape(-1, t, 1), rp, qq.e, q_off,

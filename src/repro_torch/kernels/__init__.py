@@ -8,6 +8,7 @@
                        block
   ``bfp_quant``        the standalone quantizer of the unfused rung
   ``int8_matmul``      the int8 GEMM of the unfused rung (tensor cores)
+  ``rounding_bits``    the stochastic-rounding words (threefry2x32, hash)
   ``ops``              both as standalone ops (sweeps, benchmarks)
   ``dispatch``         plans, decisions and the plain-version switch
   ``build``            nvcc build + ctypes loading of ``csrc/*.cu``

@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build_dir", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_linear", "fused_attention", "attn_train", "fused_chain",
-           "bfp_quant", "int8_matmul", "qgemm_sm90")
+           "bfp_quant", "int8_matmul", "qgemm_sm90", "rounding_bits")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-ftz=false", "-prec-div=true",
           "-prec-sqrt=true", "-fmad=false", "-Xptxas", "-v"]

@@ -54,7 +54,10 @@ build or launch raises.
 
 :func:`plain_kernels` is the one explicit switch that makes fused
 decisions run the kernels' plain versions on the card, so the whole path
-can be compared with its kernels; the default path never takes it.
+can be compared with its kernels; the default path never takes it.  It
+covers the rounding bits too: every draw on a card comes through
+:func:`draw_bits`, the ``rounding_bits`` kernel or, inside the switch,
+``prng.bits``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ from . import fused_chain as kfc
 from . import fused_linear as kfl
 from . import int8_matmul as kim
 from . import ref
+from . import rounding_bits as krb
 
 __all__ = ["FUSED", "UNFUSED", "JNP", "Decision", "plan_contract",
            "plan_attention", "attn_block_t", "record_decisions",
@@ -81,7 +85,7 @@ __all__ = ["FUSED", "UNFUSED", "JNP", "Decision", "plan_contract",
            "plan_norm_gemm", "run_norm_gemm", "plan_epilogue", "contract_epi",
            "plan_decode_block", "run_decode_block", "kernel_launches",
            "reset_kernel_launches", "REFERENCE_VMEM_BUDGET",
-           "chain_vmem_budget"]
+           "chain_vmem_budget", "draw_bits"]
 
 FUSED = "fused"
 UNFUSED = "unfused"
@@ -160,6 +164,7 @@ _WRAPPERS = {"qq": kfl.fused_qq_pt, "qi": kfl.fused_qi_pt,
              "decode_block": kfc.fused_decode_block,
              "bfp_quantize": kbq.bfp_quantize,
              "int8_matmul": kim.int8_matmul,
+             "rounding_bits": krb.rounding_bits,
              **{f"qq_{v}": c for v, c in kfl.qq_variants.items()},
              **{f"qi_{v}": c for v, c in kfl.qi_variants.items()},
              **{f"ii_{v}": c for v, c in kfl.ii_variants.items()},
@@ -182,8 +187,19 @@ def kernel_launches() -> dict:
     ``norm_gemm_wgmma``, ``_dp4a``), ``attn_decode`` by cluster size
     (``attn_decode_n1`` ... ``attn_decode_n16``) and ``attn_fwd`` and
     ``attn_bwd`` by route (``attn_fwd_wgmma``, ``attn_fwd_dp4a``,
-    ``attn_bwd_wgmma``, ``attn_bwd_dp4a``)."""
+    ``attn_bwd_wgmma``, ``attn_bwd_dp4a``), and the rounding-bit draws
+    (``rounding_bits``)."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def draw_bits(key: prng.Key, shape, rng: str = "threefry",
+              device=None) -> torch.Tensor:
+    """Rounding bits on a card: the ``rounding_bits`` kernel, or its plain
+    version (``prng.bits`` / ``prng.hash_bits``) inside
+    :func:`plain_kernels`.  ``core.bfp.rounding_bits`` routes every draw on
+    a CUDA device here."""
+    run = krb.rounding_bits_plain if _plain_on_card else krb.rounding_bits
+    return run(key, shape, rng, device)
 
 
 def reset_kernel_launches() -> None:

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 from ..core import prng
-from ..core.bfp import pow2
+from ..core.bfp import pow2, rounding_bits
 from . import bfp_quant as kbq
 from . import int8_matmul as kim
 from . import ref
@@ -33,7 +33,7 @@ def quantize_op(x: torch.Tensor, key: prng.Key, *, per_tensor: bool = True,
     of each row).  ``per_tensor`` broadcasts one shared exponent; otherwise
     each window of ``block_rows`` rows shares its largest, and rows past
     the last whole window take the last window's (the reference's
-    ``jnp.repeat`` fill).  Bits: ``prng.bits(key, x.shape)``."""
+    ``jnp.repeat`` fill).  Bits: ``core.bfp.rounding_bits(key, x.shape)``."""
     m, n = x.shape
     if per_tensor:
         e_rows = ref.max_biased_exp_ref(x).reshape(1).expand(m).contiguous()
@@ -46,7 +46,7 @@ def quantize_op(x: torch.Tensor, key: prng.Key, *, per_tensor: bool = True,
         e = eff[:nw * block_rows].reshape(nw, block_rows).amax(1)
         e_rows = torch.cat([torch.repeat_interleave(e, block_rows),
                             e[-1:].expand(m - nw * block_rows)])
-    rand = prng.bits(key, (m, n), x.device)
+    rand = rounding_bits(key, (m, n), device=x.device)
     if not use_kernel:
         return ref.bfp_quantize_ref(x, rand, e_rows[:, None]), e_rows
     return kbq.bfp_quantize(x.contiguous(), rand, e_rows), e_rows

@@ -27,7 +27,8 @@ from ..core.qops import (_cfg_for_dim, qattention, qbmm, qcache_attention,
                          qcache_pv, qcache_qk, qdq_st)
 from ..kernels import dispatch as kd
 
-__all__ = ["chunked_attention", "cache_decode_attention", "decode_attention"]
+__all__ = ["chunked_attention", "local_attention", "cache_decode_attention",
+           "decode_attention"]
 
 _NEG = -1e30
 
@@ -161,6 +162,56 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ungroup(out, hq)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key: Optional[prng.Key], policy: NumericPolicy, *,
+                    window: int, scale: float = 0.0) -> torch.Tensor:
+    """Banded causal attention (training and prefill of a local-window
+    layer): each block of ``window`` queries attends to its own and the
+    previous block of keys under the causal band mask, O(S * window).
+    Needs S == T and S % window == 0; otherwise, and wherever the fused
+    forward kernel is planned (its band mask is the chunked one), the
+    chunked path."""
+    b, hq, s, d = q.shape
+    n_kv, t = k.shape[1], k.shape[2]
+    if s != t or s % window:
+        return chunked_attention(q, k, v, key, policy, causal=True,
+                                 window=window, scale=scale)
+    if _fused_attn_eligible(policy, key):
+        cfg_d = _cfg_for_dim(policy.fwd_cfg(), d)
+        if cfg_d.block == PER_TENSOR:
+            plan = kd.plan_attention("attn_fwd", (hq // n_kv) * s, t, d,
+                                     cfg_d, s=s, kind="pp",
+                                     kernel_mode=policy.kernel_mode,
+                                     device=q.device.type)
+            if plan.path == kd.FUSED:
+                return chunked_attention(q, k, v, key, policy, causal=True,
+                                         window=window, scale=scale)
+    w, g = window, hq // n_kv
+    nb = s // w
+    sc = scale or 1.0 / math.sqrt(d)
+    # blocks of queries under their KV head: (B, Hkv, nb, g*W, D)
+    qb = (q.reshape(b, n_kv, g, nb, w, d).permute(0, 1, 3, 2, 4, 5)
+          .reshape(b, n_kv, nb, g * w, d)) * sc
+    kb = k.reshape(b, n_kv, nb, w, d)
+    vb = v.reshape(b, n_kv, nb, w, d)
+    # each block's keys after the previous block's (zeros before block 0)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :, :1]),
+                               kb[:, :, :-1]], dim=2), kb], dim=3)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :, :1]),
+                               vb[:, :, :-1]], dim=2), vb], dim=3)
+    sck = qbmm(qb, k2.transpose(-1, -2), _fold(key, 0), policy)
+    qpos = torch.arange(w, device=q.device).repeat(g)     # in-block position
+    kpos = torch.arange(2 * w, device=q.device) - w       # from block start
+    mask = (kpos[None, :] <= qpos[:, None]) & \
+        ((qpos[:, None] - kpos[None, :]) < w)
+    valid = mask[None].repeat(nb, 1, 1)
+    valid[0] &= (kpos >= 0)[None, :]
+    sck = torch.where(valid, sck, torch.full_like(sck, _NEG))
+    o = qbmm(_softmax(sck), v2, _fold(key, 1), policy)
+    return (o.reshape(b, n_kv, nb, g, w, d).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, hq, s, d))
+
+
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis: exp(x - max) / sum."""
     e = torch.exp(x - x.amax(dim=-1, keepdim=True))
@@ -193,11 +244,19 @@ def cache_decode_attention(q: torch.Tensor, kq: BFP, vq: BFP, pos: int,
 
     qg = _group_q(q, n_kv) * sc
     qpos = _qpos(s, g, q_offset, q.device)
-    if policy.enabled and policy.fwd_bits == 8 and policy.block == PER_TENSOR:
+    if policy.qflow and key is not None:
+        # qflow: Q quantized once, per tensor; QKᵀ then contracts it as it
+        # is (kind pp), as the chunk path does
+        qg = quantize(qg, _cfg_for_dim(policy.fwd_cfg(), d),
+                      prng.fold_in(key, 0x71))
+    if policy.enabled and policy.fwd_bits == 8 \
+            and policy.block == PER_TENSOR and (
+                not isinstance(qg, BFP) or qg.cfg.block == PER_TENSOR):
         cfg_q = QuantConfig(policy.fwd_bits, PER_TENSOR, policy.stochastic,
                             policy.rng)
         plan = kd.plan_attention("attn_decode", g * s, t, d, cfg_q, s=s,
-                                 kind="qi", kernel_mode=policy.kernel_mode,
+                                 kind="pp" if isinstance(qg, BFP) else "qi",
+                                 kernel_mode=policy.kernel_mode,
                                  device=q.device.type)
         if plan.path == kd.FUSED:
             o = qcache_attention(qg, kq, vq, q_offset, t, key, policy, s=s,

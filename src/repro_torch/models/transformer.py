@@ -17,8 +17,10 @@ BFP activations that the projections and the LM head contract as they are
 may be per-tensor BFP leaves (qweights: forward weights narrowed from the
 int16 masters, each with a gradient carrier; or serving weights quantized
 once at load): each carries its own scale, so the projections stay split
-and no chain runs.  MoE, qflow serving (prefill and decode) is not ported
-yet.  The cross-op chains
+and no chain runs.  Under qflow serving, prefill keeps the last token's
+BFP rows of the final norm and decode ends on a BFP final norm, so the LM
+head contracts int8 against int8.  MoE is not ported yet.  The cross-op
+chains
 (``core.qchain``): under ``policy.fused_proj`` the pre-attention norm and
 the merged QKV projection run as one ``qnorm_gemm`` and the gate|up
 projection with its SiLU-GLU as one ``qmatmul_epi``; a decode step over an
@@ -40,7 +42,7 @@ from ..core.policy import (QC_ROWS, QW_NONE, QW_STACKED, QW_TENSOR,
 from ..core.qchain import qdecode_block, qmatmul_epi, qnorm_gemm
 from ..core.qnorm import qlayernorm, qrmsnorm
 from ..core.qops import qcache_append, qcache_prefill, qembed, qmatmul
-from .attention import chunked_attention, decode_attention
+from .attention import chunked_attention, decode_attention, local_attention
 from .common import (ArchConfig, CachePageSpec, add_bias, apply_rope,
                      dense_init, glu_act, rope, softmax_xent, weight_t)
 
@@ -206,9 +208,12 @@ def _attn_block(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if kv is None:
-        o = chunked_attention(q, k, v, ka, policy, causal=True,
-                              window=cfg.local_window,
-                              chunk=cfg.attn_chunk or 1024)
+        if cfg.local_window and cfg.block_period == 0:
+            o = local_attention(q, k, v, ka, policy, window=cfg.local_window)
+        else:
+            o = chunked_attention(q, k, v, ka, policy, causal=True,
+                                  window=cfg.local_window,
+                                  chunk=cfg.attn_chunk or 1024)
         new_kv = (k, v)
     else:
         kc, vc = kv
@@ -275,9 +280,6 @@ def _layer(h, lp, key, policy, cfg, *, cos_sin, kv=None, pos=None):
     # Under qflow both pre-norms emit BFP: the norm -> projection seams
     # (QKV and gate/up) exchange int8 mantissas, quantized exactly once.
     oq = policy.qflow_seams
-    if oq and kv is not None:
-        raise NotImplementedError("qflow decode is not ported yet: ROADMAP "
-                                  "queue 1, qflow serving")
     kn1, kattn, kn2, kmlp = prng.split(key, 4)
     if kv is not None:
         blk = _try_decode_block(h, lp, key, policy, cfg, cos_sin=cos_sin,
@@ -342,11 +344,12 @@ def prefill(params, tokens: torch.Tensor, key: prng.Key,
             policy: NumericPolicy, cfg: ArchConfig, max_len: int):
     """Populate the cache from a prompt -> (cache, last-token logits).
     Under ``policy.qcache`` the K/V rows are quantized exactly once here."""
-    if policy.qflow_seams:
-        raise NotImplementedError("qflow prefill is not ported yet: ROADMAP "
-                                  "queue 1, qflow serving")
     b, s = tokens.shape
     h, kvs = forward_hidden(params, tokens, key, policy, cfg, collect_kv=True)
+    if isinstance(h, BFP):     # qflow: the last token's mantissa rows
+        h = BFP(h.m[:, -1:], h.e, h.cfg, None if h.g is None else h.g[:, -1:])
+    else:
+        h = h[:, -1:]
     k = torch.stack([kv[0] for kv in kvs])                # (L, B, Hkv, S, hd)
     v = torch.stack([kv[1] for kv in kvs])
     del kvs
@@ -358,8 +361,7 @@ def prefill(params, tokens: torch.Tensor, key: prng.Key,
         pads = (0, 0, 0, pad)
         cache = {"k": torch.nn.functional.pad(k.to(torch.bfloat16), pads),
                  "v": torch.nn.functional.pad(v.to(torch.bfloat16), pads)}
-    logits = _lm_logits(params, h[:, -1:], prng.fold_in(key, 0xF3), policy,
-                        cfg)
+    logits = _lm_logits(params, h, prng.fold_in(key, 0xF3), policy, cfg)
     return cache, logits[:, 0]
 
 
@@ -381,6 +383,6 @@ def decode_step(params, cache, token: torch.Tensor, pos: int, key: prng.Key,
         h, _ = _layer(h, lp, prng.fold_in(key, i), policy, cfg,
                       cos_sin=cos_sin, kv=kv, pos=pos)
     h = _norm(h, params["fn_g"], params.get("fn_b"), prng.fold_in(key, 0xF1),
-              policy, cfg)
+              policy, cfg, out_q=policy.qflow_seams)
     logits = _lm_logits(params, h, prng.fold_in(key, 0xF2), policy, cfg)
     return logits[:, 0], cache

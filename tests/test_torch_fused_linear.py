@@ -23,6 +23,7 @@ from repro_torch.kernels import dispatch as kd
 from repro_torch.kernels import fused_linear as kfl
 from repro_torch.kernels import int8_matmul as kim
 from repro_torch.kernels import ref
+from repro_torch.kernels import rounding_bits as krb
 
 
 def _jdec(op, m, k, n):
@@ -170,6 +171,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                        kbq.bfp_quantize_plain(a[0], r[0], e.expand(5)))
     assert torch.equal(kim.int8_matmul(am_i8, am_i8, torch.tensor(0.5)),
                        kim.int8_matmul_plain(am_i8, am_i8, torch.tensor(0.5)))
+    assert torch.equal(krb.rounding_bits(prng.key(0), a.shape, device="cpu"),
+                       r)
     for x, y in zip(kfl.fused_gemm_epi(a[0], r[0], am_i8[0], None, None, None,
                                        e, e, kind="qi", act="relu"),
                     kfl.fused_gemm_epi_plain(a[0], r[0], am_i8[0], None, None,
@@ -196,7 +199,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
                                     **{f"attn_decode_n{n}": 0
                                        for n in range(1, 17)},
                                     "attn_fwd_wgmma": 0, "attn_fwd_dp4a": 0,
-                                    "attn_bwd_wgmma": 0, "attn_bwd_dp4a": 0}
+                                    "attn_bwd_wgmma": 0, "attn_bwd_dp4a": 0,
+                                    "rounding_bits": 0}
 
 
 @pytest.mark.parametrize("mode,device,bits,k,want", [

@@ -10,7 +10,7 @@ is installed:
 import pytest
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import bfp, prng
 from repro_torch.core import qops
 from repro_torch.kernels import bfp_quant as kbq
 from repro_torch.kernels import dispatch as kd
@@ -20,6 +20,7 @@ from repro_torch.kernels import fused_linear as kfl
 from repro_torch.kernels import int8_matmul as kim
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import rounding_bits as krb
 
 
 @pytest.fixture
@@ -94,7 +95,8 @@ def test_qq_qi_kernels_equal_plain(cuda, nb, m, k, n, stochastic):
         assert torch.equal(x, y)
     want = {"qq": 2, "qi": 1, "ii": 0, "qq_blk": 0, "attn_decode": 0,
             "attn_fwd": 0, "attn_bwd": 0, "gemm_epi": 0, "norm_gemm": 0,
-            "decode_block": 0, "bfp_quantize": 0, "int8_matmul": 0}
+            "decode_block": 0, "bfp_quantize": 0, "int8_matmul": 0,
+            "rounding_bits": 0}
     want.update({f"{kind}_{v}": 0 for kind in ("qq", "qi", "ii")
                  for v in kfl.QGEMM_VARIANTS})
     want.update({f"int8_matmul_{v}": 0 for v in kim.INT8_MATMUL_VARIANTS})
@@ -996,6 +998,50 @@ def test_int8_matmul_variants_equal_plain(cuda, shape):
                        dtype=torch.int8)
     assert kim.int8_matmul_variant(m, k, kfl._aligned(am, bm)) == want
     _int8_matmul_equal_plain(cuda, am, bm, want)
+
+
+# The rounding-bit kernel's shapes: a scalar, one word, an odd count, one
+# word either side of prng's 2^24-word chunk, and the LM head's weight
+# (151936 x 896), the largest draw of a qwen2 step.
+BITS_SHAPES = [(), (1,), (7,), (1 << 24) - 1, (1 << 24) + 3, (151936, 896)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["partitionable", "iota_halves", "hash"])
+@pytest.mark.parametrize("shape", BITS_SHAPES)
+def test_rounding_bits_kernel_equal_plain(cuda, shape, stream):
+    """The kernel ``==`` ``prng.bits`` in both key modes and ``==``
+    ``prng.hash_bits``, one launch a draw; ``core.bfp.rounding_bits`` on
+    the card is the kernel, inside ``plain_kernels()`` the plain draw."""
+    shape = shape if isinstance(shape, tuple) else (shape,)
+    key = prng.fold_in(prng.key(7, partitionable=stream != "iota_halves"),
+                       3)
+    rng = "hash" if stream == "hash" else "threefry"
+    kd.reset_kernel_launches()
+    got = krb.rounding_bits(key, shape, rng, cuda)
+    assert kd.kernel_launches()["rounding_bits"] == 1
+    want = krb.rounding_bits_plain(key, shape, rng, cuda)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    assert torch.equal(got, want)
+    routed = bfp.rounding_bits(key, shape, rng, cuda)
+    with kd.plain_kernels():
+        plain = bfp.rounding_bits(key, shape, rng, cuda)
+    assert kd.kernel_launches()["rounding_bits"] == 2
+    assert torch.equal(routed, want) and torch.equal(plain, want)
+
+
+@pytest.mark.cuda
+def test_rounding_bits_launch_failure_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (an unknown stream) raises and counts
+    nothing: no fallback to the plain draw."""
+    kd.reset_kernel_launches()
+    with monkeypatch.context() as m:
+        m.setattr(krb, "_mode", lambda key, rng: 3)
+        with pytest.raises(RuntimeError, match="rounding_bits launch failed"):
+            krb.rounding_bits(prng.key(0), (64,), device=cuda)
+    assert kd.kernel_launches()["rounding_bits"] == 0
+    assert torch.equal(krb.rounding_bits(prng.key(0), (64,), device=cuda)
+                       .cpu(), prng.bits(prng.key(0), (64,)))
 
 
 @pytest.mark.cuda

@@ -243,9 +243,16 @@ def test_qembed_bfp_table_equals_jax(q_out):
                                 prng.key(2), tpol, out_q=q_out))
 
     _check(jfn, tfn, (table, tokens), ct, wrt=(0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qops.qembed(torch.from_numpy(tokens).long(), torch.from_numpy(table),
-                    prng.key(2), tpol, out_q=True)
+
+    def jfloat(table, tokens):       # a float32 table: ``_qembed_q``
+        return _out(jqops.qembed(tokens, table, jax.random.key(2), jpol,
+                                 out_q=True))
+
+    def tfloat(table, tokens):
+        return _out(qops.qembed(tokens.long(), table, prng.key(2), tpol,
+                                out_q=True))
+
+    _check(jfloat, tfloat, (table, tokens), ct, wrt=(0,))
 
 
 def test_weight_t_carrier_and_tied_head_grad_equal_jax():
